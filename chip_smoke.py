@@ -18,10 +18,26 @@ Phases, one line each (a failure in any phase exits non-zero):
      480x640 uint8 frames already on the device, conf 0.6, iou 0.45,
      max_det 300 — median ms/batch and img/s over 20 timed iterations after
      3 warm-up ones (CUDA events), with the launch counts of that run; then
-     K1's and K2's times beside their plain versions' at those shapes.
+     K1's and K2's times beside their plain versions' at those shapes;
+  7. K3 (int8 GEMM) in the int8 probe's fixed-point mode at its two shapes,
+     and K3/K4 (int8 implicit-GEMM conv) with the serving epilogue at four
+     yolov3 conv shapes (batch 8), each epilogue mode once, against their
+     plain versions (int32 and int8 equal, fp32 within 1e-6 relative);
+  8. yolov3-tiny@416 ``quant="w8a8"`` with fp32 glue (every non-head conv
+     int8, the maxpool ladder int8-resident), static scales calibrated on
+     the card from 4 frames (``quant_recipe="none"``), against the CPU
+     serving the card's ``quant_state()`` (set agreement >= 0.995);
+  9. the int8 slice at full width, ``bench.py``'s ``int8sb``: yolov3@416
+     w8a8 with bf16 glue, the stride-8 early skip, int8-resident chains,
+     static scales from 4 frames, batch 128, the frames of phase 6 — median
+     ms/batch and img/s as in phase 6, the launch counts, the drift against
+     phase 6's bf16 detections (printed, not gated), and K3's and K4's times
+     at phase 7's shapes at batch 128 beside their plain versions' and a
+     cuDNN bf16 ``F.conv2d`` of the same shape.
 
-The second-to-last line is the card as nvidia-smi names it; the last line
-is ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
+The line before the second-to-last is the kernels' JSON report; the
+second-to-last is the card as nvidia-smi names it; the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
 Synthetic He-init weights (seed 0), frames from numpy seed 0.
 """
@@ -75,6 +91,61 @@ def rows_close(ours: torch.Tensor, ref: torch.Tensor) -> bool:
     return boxes_ok and rest_ok and torch.equal(ours[..., 6], ref[..., 6])
 
 
+def int8_case(rng, k, stride, shape, o, mode, device):
+    """Inputs of one K3/K4 check: (xq, wq, stride, pad, epilogue kwargs).
+    ``mode``: "acc", "fixed", or a dict with "sx" ("dynamic", "static",
+    "int8" input, "vector" grid) or "splits", "act", and "out" ("scalar" /
+    "vector" requant)."""
+    from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale, quantize_input
+
+    c = shape[-1]
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(dt).to(device)  # noqa: E731
+    wq = t(rng.integers(-127, 128, (o, k, k, c)), torch.int8)
+    if mode == "acc":
+        return t(rng.integers(-127, 128, shape), torch.int8), wq, stride, k // 2, {
+            "accumulators": True}
+    if mode == "fixed":
+        return t(rng.integers(-127, 128, shape), torch.int8), wq, stride, 0, {
+            "fixed": (10, 181, 8)}
+    kw = {"activation": mode["act"], "b": t(rng.normal(0.0, 0.5, o))}
+    sx_val = 1.0
+    if "splits" in mode:
+        xf = torch.randn(shape, generator=torch.Generator(device).manual_seed(1), device=device)
+        sxg = t(rng.uniform(0.02, 0.04, len(mode["splits"])))
+        parts, off = [], 0
+        for g, cg in enumerate(mode["splits"]):
+            parts.append(quantize_input(xf[..., off:off + cg], sxg[g]))
+            off += cg
+        xq, sx_val = torch.cat(parts, -1), 0.03
+        kw.update(sxg=sxg, splits=mode["splits"])
+    elif mode["sx"] == "int8":
+        xq, sx = t(rng.integers(-127, 128, shape), torch.int8), t(0.025)
+        kw["sx"], sx_val = sx, 0.025
+    else:
+        xf = torch.randn(shape, generator=torch.Generator(device).manual_seed(2), device=device)
+        sx = {"dynamic": lambda: dynamic_scale(xf),
+              "static": lambda: t(0.025),
+              "vector": lambda: t(rng.uniform(0.01, 0.04, c))}[mode["sx"]]()
+        xq = quantize_input(xf, sx)
+        sx_val = 1.0 if sx.dim() == 1 else float(sx)
+        kw["sx"] = sx
+    acc_std = np.sqrt(k * k * c) * 35.0 * 73.0
+    kw["ws"] = t(rng.uniform(0.5, 1.5, o) * 1.5 / acc_std / sx_val)
+    if "out" in mode:
+        kw["out_scale"] = t(0.012) if mode["out"] == "scalar" else t(rng.uniform(0.008, 0.016, o))
+    return xq, wq, stride, k // 2, kw
+
+
+def run_int8(kernels, xq, wq, stride, pad, kw, plain=False):
+    """K3 for a 1x1 stride-1 weight, K4 otherwise (or their plain versions)."""
+    if wq.shape[1] == 1 and stride == 1:
+        n, h, w, c = xq.shape
+        fn = kernels.gemm_i8_ref if plain else kernels.int8_gemm
+        return fn(xq.reshape(-1, c), wq.reshape(wq.shape[0], c), **kw).reshape(n, h, w, -1)
+    fn = kernels.int8_conv_ref if plain else kernels.int8_conv
+    return fn(xq, wq, stride, pad, **kw)
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device ms per call over ``iters`` back-to-back calls (CUDA events)."""
     for _ in range(warmup):
@@ -89,10 +160,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(plain, kernel) -> tuple[float, float]:
+def in_turns(plain, kernel, plain_iters: int = 20) -> tuple[float, float]:
     """Plain, kernel, kernel, plain; the mean of each pair (one card, one call)."""
-    p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
+    p1 = time_ms(plain, plain_iters, min(3, plain_iters))
+    k1, k2 = time_ms(kernel), time_ms(kernel)
+    p2 = time_ms(plain, plain_iters, min(3, plain_iters))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def pipeline_ms(step) -> tuple[list[float], object]:
+    """20 timed calls of ``step`` after 3 warm-up ones, each between CUDA
+    events; returns the times and the last result."""
+    for _ in range(3):
+        step()
+    times = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, res
+
+
+def check_result(res, what: str) -> None:
+    if tuple(res.boxes.shape) != (BATCH, MAX_DET, 4) or not bool(res.valid.any()):
+        fail(f"{what} result has shape {tuple(res.boxes.shape)} and "
+             f"{int(res.valid.sum())} valid rows")
+    if not bool(torch.isfinite(res.boxes[res.valid]).all()):
+        fail(f"{what} result has non-finite kept boxes")
 
 
 def crowded_boxes(rng, n: int, k: int, device):
@@ -197,7 +294,7 @@ def main() -> None:
     frames4 = rng.integers(0, 256, size=(4, 480, 640, 3), dtype=np.uint8)
     det_gpu = Detector.load(cfg, device=dev, precision="highest")
     det_cpu = Detector.load(cfg, device="cpu", precision="highest")
-    kernels.LAUNCHES.update(decode_score=0, nms_keep=0)
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
     gpu = det_gpu.detect_batch(frames4, size=SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
     torch.cuda.synchronize()
     launches5 = dict(kernels.LAUNCHES)
@@ -221,25 +318,13 @@ def main() -> None:
     def step():
         return det.raw_result(frames, size=SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
 
-    kernels.LAUNCHES.update(decode_score=0, nms_keep=0)
-    for _ in range(3):
-        step()
-    times = []
-    for _ in range(20):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = step()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    times, res = pipeline_ms(step)
     launches = dict(kernels.LAUNCHES)
     if not (launches["decode_score"] and launches["nms_keep"]):
         fail(f"the bf16 main path bypassed a kernel: {launches}")
-    if tuple(res.boxes.shape) != (BATCH, MAX_DET, 4) or not bool(res.valid.any()):
-        fail(f"bf16 result has shape {tuple(res.boxes.shape)} and "
-             f"{int(res.valid.sum())} valid rows")
-    if not bool(torch.isfinite(res.boxes[res.valid]).all()):
-        fail("bf16 result has non-finite kept boxes")
+    check_result(res, "bf16")
+    bf16_dets = det._trim(res, BATCH)
     ms = statistics.median(times)
     say(f"phase 6 yolov3@{SIZE} bf16 batch {BATCH} pipeline: median {ms:.3f} ms/batch, "
         f"{BATCH / ms * 1e3:.1f} img/s (min {min(times):.3f}, max {max(times):.3f} ms; "
@@ -280,6 +365,131 @@ def main() -> None:
     say(f"phase 6 K1 decode_score_all (3 heads, batch {BATCH}): {k1_ms:.4f} ms, plain "
         f"{k1_plain_ms:.4f} ms; K2 nms_keep ({BATCH}x{MAX_DET}): {k2_ms:.4f} ms, plain "
         f"{k2_plain_ms:.4f} ms; on {card}")
+    del det, heads, rows
+
+    # 7. K3 and K4 against their plain versions
+    errs = {"int8_gemm": 0.0, "int8_conv": 0.0}
+    probe = [("probe (4096,1024)x(1024,512)", 1, 1, (1, 1, 4096, 1024), 512, "fixed"),
+             ("probe (32768,256)x(256,128)", 1, 1, (1, 1, 32768, 256), 128, "fixed")]
+    v3_shapes = {"1x1 52² 256->128": (1, 1, (8, 52, 52, 256), 128),
+                 "3x3 s1 52² 128->256": (3, 1, (8, 52, 52, 128), 256),
+                 "3x3 s2 104²->52² 128->256": (3, 2, (8, 104, 104, 128), 256),
+                 "3x3 s1 13² 512->1024": (3, 1, (8, 13, 13, 512), 1024)}
+    modes = {"1x1 52² 256->128": ["acc", {"sx": "dynamic", "act": "leaky"},
+                                  {"splits": (128, 128), "act": "leaky"},
+                                  {"sx": "static", "act": "leaky", "out": "vector"}],
+             "3x3 s1 52² 128->256": ["acc", {"sx": "static", "act": "mish"},
+                                     {"sx": "int8", "act": "leaky", "out": "scalar"}],
+             "3x3 s2 104²->52² 128->256": ["acc", {"sx": "vector", "act": "leaky"}],
+             "3x3 s1 13² 512->1024": ["acc", {"sx": "static", "act": "leaky"},
+                                      {"splits": (256, 128, 128), "act": "mish",
+                                       "out": "vector"}]}
+    cases = probe + [(f"{name} {m if isinstance(m, str) else m}", *v3_shapes[name], m)
+                     for name in v3_shapes for m in modes[name]]
+    for name, k, stride, shape, o, mode in cases:
+        xq, wq, st, pad, kw = int8_case(rng, k, stride, shape, o, mode, dev)
+        ours = run_int8(kernels, xq, wq, st, pad, kw)
+        ref = run_int8(kernels, xq, wq, st, pad, kw, plain=True)
+        torch.cuda.synchronize()
+        key = "int8_gemm" if k == 1 and stride == 1 else "int8_conv"
+        if ours.dtype != ref.dtype or ours.shape != ref.shape:
+            fail(f"{key} {name}: {ours.dtype} {tuple(ours.shape)} vs plain {ref.dtype} "
+                 f"{tuple(ref.shape)}")
+        if ref.dtype == torch.float32:
+            err = max_err(ours, ref)
+            rel = float((abs_diff(ours, ref) / ref.abs().clamp_min(1e-30)).max())
+            ok = bool((abs_diff(ours, ref) <= 1e-6 * ref.abs()).all())
+            what = f"max abs err {err:.3g}, max rel err {rel:.3g} (tol 1e-6 rel.)"
+        else:
+            err = float((ours.long() - ref.long()).abs().max())
+            ok, what = err == 0, f"{ref.dtype} equal"
+        errs[key] = max(errs[key], err)
+        if not ok:
+            fail(f"{key} {name}: kernel disagrees with its plain version ({what}, {err})")
+        say(f"phase 7 {key} {name} {tuple(shape)}->{o}: ok, {what}")
+
+    # 8. int8 yolov3-tiny at fp32 glue: card against CPU.  Not 1.0: the fp32
+    # head convs run in cuDNN on the card and in oneDNN on the CPU, and an
+    # ulp of difference before a requant can move an int8 value by one step.
+    tiny = os.path.join(root, "cfg", "yolov3-tiny.cfg")
+    calib = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
+    det_gpu = Detector.load(tiny, device=dev, quant="w8a8", quant_calib=calib,
+                            quant_recipe="none")
+    state = det_gpu.quant_state()
+    det_cpu = Detector.load(tiny, device="cpu", quant="w8a8", quant_act_scales=state["scales"],
+                            quant_skip_layers=frozenset(state["skip"]))
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    gpu = det_gpu.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
+    torch.cuda.synchronize()
+    launches8 = dict(kernels.LAUNCHES)
+    if not all(launches8.values()):
+        fail(f"int8 detect_batch on the card bypassed a kernel: {launches8}")
+    cpu = det_cpu.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
+    stats8 = detection_drift(cpu, gpu)
+    if not (stats8.ref_dets > 0 and stats8.set_agreement >= 0.995):
+        fail(f"int8 yolov3-tiny card vs CPU: {stats8.row()}")
+    if not all(np.isfinite(d.boxes).all() and d.boxes.shape[1:] == (4,) for d in gpu):
+        fail("int8 detections are not finite (M, 4) boxes")
+    say(f"phase 8 yolov3-tiny@{SIZE} w8a8 fp32 glue, static scales from 4 frames, card vs CPU: "
+        f"set agreement {stats8.set_agreement:.4f} (>= 0.995); {stats8.row()}; "
+        f"{len(det_gpu.model.qconvs)} int8 convs, chains {det_gpu.model._chains}; "
+        f"launches {launches8}")
+    del det_gpu, det_cpu
+
+    # 9. int8sb at full width: yolov3@416, w8a8, bf16 glue, batch 128
+    t0 = time.perf_counter()
+    det = Detector.load(cfg, device=dev, dtype=torch.bfloat16, precision="default",
+                        quant="w8a8", quant_calib=calib, quant_recipe="none")
+    build_s = time.perf_counter() - t0
+
+    def step9():
+        return det.raw_result(frames, size=SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
+
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    times9, res9 = pipeline_ms(step9)
+    launches9 = dict(kernels.LAUNCHES)
+    if not all(launches9.values()):
+        fail(f"the int8sb path bypassed a kernel: {launches9}")
+    check_result(res9, "int8sb")
+    drift9 = detection_drift(bf16_dets, det._trim(res9, BATCH))
+    ms9 = statistics.median(times9)
+    say(f"phase 9 yolov3@{SIZE} int8sb (w8a8, bf16 glue, early skip stride 8, "
+        f"{len(det.model.qconvs)} int8 convs, {len(det.model._chains)} int8-resident links) "
+        f"batch {BATCH} pipeline: median {ms9:.3f} ms/batch, {BATCH / ms9 * 1e3:.1f} img/s "
+        f"(min {min(times9):.3f}, max {max(times9):.3f} ms; {int(res9.valid.sum())} kept; "
+        f"load+calibrate {build_s:.1f} s) on {card}; bf16 phase 6: {ms:.3f} ms/batch; "
+        f"launches {launches9}")
+    say(f"phase 9 drift int8sb vs bf16 (He-init weights saturate: not gated): {drift9.row()}")
+    del det, res9
+
+    # K3 and K4 at batch 128, beside their plain versions and cuDNN bf16
+    timed = {}
+    for name, (k, stride, shape, o) in v3_shapes.items():
+        shape = (BATCH, *shape[1:])
+        xq, wq, st, pad, kw = int8_case(rng, k, stride, shape, o,
+                                        {"sx": "static", "act": "leaky"}, dev)
+        key = "int8_gemm" if k == 1 and stride == 1 else "int8_conv"
+        got = run_int8(kernels, xq, wq, st, pad, kw)
+        ref = run_int8(kernels, xq, wq, st, pad, kw, plain=True)
+        errs[key] = max(errs[key], max_err(got, ref))
+        if not bool((abs_diff(got, ref) <= 1e-6 * ref.abs()).all()):
+            fail(f"{key} {name} batch {BATCH}: kernel disagrees with its plain version")
+        del ref
+        xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels_last, as the bf16 path
+        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bb = kw["b"].to(torch.bfloat16)
+        kms, pms = in_turns(lambda: run_int8(kernels, xq, wq, st, pad, kw, plain=True),
+                            lambda: run_int8(kernels, xq, wq, st, pad, kw), plain_iters=5)
+        cms = time_ms(lambda: torch.nn.functional.conv2d(xb, wb, bb, stride=st, padding=pad))
+        ops = 2 * xq.shape[0] * got.shape[1] * got.shape[2] * o * k * k * xq.shape[3]
+        timed[name] = (key, kms, pms, cms)
+        say(f"phase 9 {key} {name} batch {BATCH} (static sx, leaky, fp32 out): {kms:.4f} ms "
+            f"({ops / kms / 1e9:.1f} TOPS), plain {pms:.4f} ms, cuDNN bf16 conv {cms:.4f} ms; "
+            f"on {card}")
+    del xq, wq, xb, wb, got
+    g_key, g_ms, g_plain, _ = timed["1x1 52² 256->128"]
+    c_key, c_ms, c_plain, _ = timed["3x3 s1 52² 128->256"]
 
     report = {"kernels": [
         {"name": "decode_score", "route": "cuda",
@@ -292,6 +502,16 @@ def main() -> None:
          "replaces": "pytorch_yolo_tpu/ops/pallas_kernels.py:312",
          "launches": launches["nms_keep"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "int8_gemm", "route": "cuda",
+         "source": "pytorch_yolo_tpu_torch/csrc/gemm_i8.cu",
+         "replaces": "tools/int8_kernel_probe.py:181",
+         "launches": launches9["int8_gemm"], "max_abs_err": errs["int8_gemm"],
+         "ms": g_ms, "plain_ms": g_plain},
+        {"name": "int8_conv", "route": "cuda",
+         "source": "pytorch_yolo_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "pytorch_yolo_tpu/ops/quant.py:564",
+         "launches": launches9["int8_conv"], "max_abs_err": errs["int8_conv"],
+         "ms": c_ms, "plain_ms": c_plain},
     ]}
     say(json.dumps(report))
     say(card)

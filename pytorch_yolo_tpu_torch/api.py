@@ -5,6 +5,10 @@ per (batch, source shape, size, thresholds) key runs on the detector's
 device: letterbox -> Darknet forward -> fused decode+score (K1) -> top-K ->
 class-wise NMS keep mask (K2) -> un-letterbox.  The only host<->device
 traffic is the uint8 images in and one fixed-shape result out.
+
+``quant="w8a8"`` serves the conv stack in int8 (the int8 kernels K3/K4,
+``ops/quant.py``) with dynamic or calibrated static activation scales;
+``quant="w8"`` stores int8 weights and runs fp convs.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import warnings
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -19,10 +24,11 @@ import torch
 
 from .config import ModelSpec, build_spec, head_strides, parse_cfg_text
 from .models.darknet import Darknet
+from .ops import quant as q
 from .ops.kernels import decode_score_all
 from .ops.nms import NMSResult, batched_nms_fused
 from .ops.postprocess import unletterbox_boxes
-from .ops.preprocess import letterbox_batch, letterbox_geometry
+from .ops.preprocess import letterbox_batch, letterbox_geometry, letterbox_host
 from .utils.names import load_classes
 from .weights import Params, fold_batchnorm, random_raw_params, read_weights_file
 
@@ -70,13 +76,38 @@ class _PipelineKey:
     bgr: bool
 
 
+_NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 8: percentile calibration, bias "
+               "correction, noise ranking and quant_recipe='auto' come in a later PR)")
+
+
+def _revive_scale(v):
+    """A persisted scale: {"per_channel": [...]} (a smoothed grid), a list
+    (per-branch split scales) or a float."""
+    if isinstance(v, dict):
+        return np.asarray(v["per_channel"], np.float32)
+    if isinstance(v, (list, tuple)):
+        return [float(s) for s in v]
+    return float(v)
+
+
 class Detector:
     """Loaded YOLO model bound to one torch device for inference.
 
     ``dtype=torch.float32`` with ``precision="highest"`` is the parity mode
     (no TF32 anywhere); ``dtype=torch.bfloat16`` is the serving mode.  A
     ``device="cuda"`` detector runs the CUDA kernels and raises where CUDA
-    is absent; it never falls back to the CPU."""
+    is absent; it never falls back to the CPU.
+
+    int8 serving (the ``quant*`` arguments, as in the JAX package):
+    ``quant="w8a8"`` quantizes every conv except the head convs (and, with
+    bf16 glue, the early large-spatial convs: ``PYTORCH_YOLO_INT8_EARLY_STRIDE``
+    overrides) and serves dynamic activation scales, or static ones from
+    ``quant_calib`` images (``quant_recipe="none"``: max calibration, with
+    ``quant_split_concat`` or ``quant_smooth``) or from a persisted
+    ``quant_act_scales`` / ``quant_state()``.  ``quant="w8"`` is weight-only.
+    Percentile calibration, bias correction, noise ranking and the "auto"
+    recipe (what a bare ``quant_calib`` resolves to) raise
+    ``NotImplementedError``: they are not ported yet."""
 
     def __init__(
         self,
@@ -86,6 +117,20 @@ class Detector:
         device: "str | torch.device" = "cuda",
         dtype: torch.dtype = torch.float32,
         precision: str = "highest",
+        quant: str | None = None,
+        quant_skip_layers: "object" = "heads",
+        quant_calib: "Sequence[np.ndarray] | None" = None,
+        quant_calib_bgr: bool = True,
+        quant_calib_margin: float = 1.0,
+        quant_calib_percentile: "float | None" = None,
+        quant_calib_size: "int | tuple[int, int] | None" = None,
+        quant_skip_noisy: int = 0,
+        quant_split_concat: bool = False,
+        quant_smooth: "float | None" = None,
+        quant_bias_correct: bool = False,
+        quant_recipe: "str | None" = None,
+        quant_act_scales: "dict | None" = None,
+        quant_bias_delta: "dict | None" = None,
     ) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -97,10 +142,138 @@ class Detector:
         self.class_names = tuple(class_names) if class_names else load_classes()
         self.dtype = dtype
         self.precision = precision
-        self.model = Darknet(spec, params, dtype=dtype, precision=precision).to(self.device)
+        quant = self._check_quant_args(
+            params, quant, quant_calib, quant_calib_percentile, quant_skip_noisy,
+            quant_split_concat, quant_smooth, quant_bias_correct, quant_recipe,
+            quant_act_scales, quant_bias_delta)
+        self.quant = quant
+        self._quant_skip: frozenset[int] = frozenset()
+        self._bias_deltas: "dict[int, np.ndarray]" = {}
+        self._quant_calib_size: "tuple[int, int] | None" = None
+        if quant is not None:
+            params = self._quantize(params, quant, quant_skip_layers, quant_calib,
+                                    quant_calib_bgr, quant_calib_margin, quant_calib_size,
+                                    quant_split_concat, quant_smooth, quant_act_scales,
+                                    quant_bias_delta)
+        self.model = Darknet(spec, params, dtype=dtype, precision=precision,
+                             quant=quant).to(self.device)
         self._pipelines: "collections.OrderedDict[_PipelineKey, object]" = (
             collections.OrderedDict())
         self.max_cached_pipelines = 32  # LRU bound for long-running servers
+
+    @staticmethod
+    def _check_quant_args(params, quant, quant_calib, quant_calib_percentile, quant_skip_noisy,
+                          quant_split_concat, quant_smooth, quant_bias_correct, quant_recipe,
+                          quant_act_scales, quant_bias_delta):
+        """The JAX Detector's argument checks, in its order; returns the
+        resolved quant mode.  The parts not ported raise NotImplementedError
+        after the checks the JAX package would fail, so no recipe is ever
+        served and ``quant_state()`` stamps none."""
+        if quant is None and any("wq" in p for p in params.values()):
+            quant = "w8a8"  # params arrived pre-quantized
+        if quant is None and quant_calib is not None:
+            raise ValueError("quant_calib given but quant is None — pass quant='w8a8' to use "
+                             "static int8 calibration")
+        if quant is None and quant_act_scales is not None:
+            raise ValueError("quant_act_scales given but quant is None — pass quant='w8a8' to "
+                             "serve persisted scales")
+        if quant not in (None, "w8a8", "w8"):
+            raise ValueError(f"unknown quant mode {quant!r} (None, 'w8a8', or 'w8')")
+        if quant == "w8" and (
+                quant_calib is not None or quant_act_scales is not None
+                or quant_bias_delta is not None or quant_skip_noisy or quant_split_concat
+                or quant_smooth is not None or quant_bias_correct or quant_recipe is not None
+                or quant_calib_percentile is not None):
+            raise ValueError("quant='w8' is weight-only int8 — activations stay in the "
+                             "compute dtype, so there is nothing to calibrate; drop the "
+                             "quant_calib/scales/knob arguments (they are w8a8 concepts)")
+        if quant_recipe not in (None, "auto", "none"):
+            raise ValueError(f"unknown quant_recipe {quant_recipe!r} ('auto' or 'none')")
+        explicit = (quant_smooth is not None or quant_bias_correct or quant_split_concat
+                    or quant_skip_noisy or quant_calib_percentile is not None)
+        if quant_recipe is None and quant_calib is not None and not explicit:
+            quant_recipe = "auto"  # the JAX package's calibration default
+        if quant_recipe == "auto":
+            if quant_calib is None:
+                raise ValueError("quant_recipe='auto' requires quant_calib images (the recipe "
+                                 "is a calibration policy)")
+            if explicit:
+                raise ValueError("quant_recipe='auto' chooses the int8 knobs itself — drop "
+                                 "the explicit knob arguments (or pass quant_recipe='none')")
+        for needed, what in ((quant_skip_noisy, "quant_skip_noisy"),
+                             (quant_split_concat, "quant_split_concat"),
+                             (quant_smooth is not None, "quant_smooth"),
+                             (quant_bias_correct, "quant_bias_correct")):
+            if needed and quant_calib is None:
+                raise ValueError(f"{what} requires quant_calib images; persisted scale files "
+                                 "carry what it computed")
+        if quant_smooth is not None and quant_split_concat:
+            raise ValueError("quant_smooth and quant_split_concat are mutually exclusive — "
+                             "per-channel smoothing subsumes per-branch split scales")
+        if quant_bias_delta is not None and quant_calib is not None:
+            raise ValueError("pass either quant_calib (fresh calibration) or quant_bias_delta "
+                             "(persisted deltas), not both")
+        if quant_act_scales is not None and quant_calib is not None:
+            raise ValueError("pass either quant_calib (images) or quant_act_scales (persisted "
+                             "scales), not both")
+        if quant_recipe == "auto":
+            raise NotImplementedError(
+                f"quant_recipe='auto' (what a bare quant_calib resolves to) {_NOT_PORTED}; "
+                "pass quant_recipe='none' for max calibration")
+        for given, what in ((quant_calib_percentile is not None, "quant_calib_percentile"),
+                            (quant_bias_correct, "quant_bias_correct"),
+                            (quant_skip_noisy, "quant_skip_noisy")):
+            if given:
+                raise NotImplementedError(f"{what} {_NOT_PORTED}")
+        return quant
+
+    def _quantize(self, params, quant, skip_layers, calib, calib_bgr, calib_margin, calib_size,
+                  split_concat, smooth, act_scales, bias_delta) -> dict:
+        """Resolve the skip set, calibrate or revive the static scales, and
+        quantize (``api.py:237-407`` of the JAX package)."""
+        spec = self.spec
+        early = (q.default_early_min_stride(spec)
+                 if quant == "w8a8" and self.dtype == torch.bfloat16 else 0)
+        skip = q.resolve_skip_layers(spec, skip_layers, default_min_stride=early)
+        self._quant_skip = skip
+        scales = None
+        if act_scales is not None:
+            scales = {int(k): _revive_scale(v) for k, v in act_scales.items()}
+        elif calib is not None:
+            if any("wq" in p for p in params.values()):
+                raise ValueError("quant_calib requires fp32 params (calibration runs the fp "
+                                 "forward); these arrived pre-quantized")
+            if calib_size is None:
+                size = (spec.net.height, spec.net.width)
+            else:
+                size = ((calib_size, calib_size) if isinstance(calib_size, int)
+                        else (calib_size[0], calib_size[1]))
+                mod = max(32, max(head_strides(spec)))
+                if any(d % mod for d in size):
+                    raise ValueError(f"quant_calib_size {calib_size} must be a multiple of "
+                                     f"{mod} (deepest head stride of this model)")
+            self._quant_calib_size = size
+            canvases = np.stack([letterbox_host(_normalize_channels(im), size,
+                                                bgr=calib_bgr)[0] for im in calib])
+            groups = ({i: g for i, g in q.concat_split_groups(spec).items() if i not in skip}
+                      if split_concat else None)
+            scales = q.collect_act_scales(spec, params, canvases, margin=calib_margin,
+                                          concat_groups=groups, smooth_alpha=smooth,
+                                          device=self.device)
+        params = q.quantize_params(spec, params, skip_layers=skip, act_scales=scales)
+        if bias_delta:
+            self._bias_deltas = {int(k): np.asarray(v, np.float32) for k, v in bias_delta.items()}
+            params = q.apply_bias_deltas(params, self._bias_deltas)
+        if act_scales is not None:
+            missing = sorted(k for k, p in params.items()
+                             if "wq" in p and "sa" not in p and "sag" not in p)
+            if missing:
+                warnings.warn(
+                    f"quant_act_scales covers {len(act_scales)} layers but {len(missing)} "
+                    f"quantized convs have no scale (e.g. {missing[:4]}) — they fall back to "
+                    "dynamic quantization; re-calibrate under the current skip policy for "
+                    "full static int8", stacklevel=3)
+        return params
 
     @classmethod
     def load(
@@ -111,18 +284,53 @@ class Detector:
         device: "str | torch.device" = "cuda",
         dtype: torch.dtype = torch.float32,
         precision: str = "highest",
+        **quant_kw,
     ) -> "Detector":
         """``cfg`` is a ``.cfg`` path or a model name under ``cfg/``
         ("yolov3", "yolov3-tiny", ...).  With ``weights=None`` the model gets
         synthetic He-init weights, the same numbers as the JAX package's
-        default ``synthetic="he"``."""
+        default ``synthetic="he"``.  ``quant_kw`` are the constructor's
+        ``quant*`` arguments."""
         path = cfg if cfg.endswith(".cfg") else os.path.join(CFG_DIR, f"{cfg}.cfg")
         with open(path, "r", encoding="utf-8") as f:
             cfg_text = f.read()
         spec = build_spec(parse_cfg_text(cfg_text))
         raw = read_weights_file(spec, weights) if weights is not None else random_raw_params(spec)
         return cls(spec, fold_batchnorm(spec, raw), class_names=load_classes(names),
-                   device=device, dtype=dtype, precision=precision)
+                   device=device, dtype=dtype, precision=precision, **quant_kw)
+
+    def act_scales(self) -> "dict[int, float | list[float] | dict]":
+        """The static int8 activation scales of the served convs: a float, a
+        list of per-branch scales (split concat), or ``{"per_channel": [...]}``
+        (a smoothed grid).  JSON-ready; ``quant_act_scales=`` takes it back."""
+        out: dict = {}
+        for idx, qc in self.model.qconvs.items():
+            sa, sag = qc.get("sa"), qc.get("sag")
+            if sa is not None:
+                sa = sa.cpu()
+                out[int(idx)] = (float(sa) if sa.dim() == 0
+                                 else {"per_channel": [float(s) for s in sa]})
+            elif sag is not None:
+                out[int(idx)] = [float(s) for s in sag.cpu()]
+        return out
+
+    def quant_state(self) -> dict:
+        """JSON-ready static-int8 serving state, the JAX package's format: the
+        scales, the resolved skip set, and when present the calibration size
+        and the bias deltas.  Reload with
+        ``load(cfg, quant="w8a8", quant_act_scales=state["scales"],
+        quant_skip_layers=frozenset(state["skip"]),
+        quant_bias_delta=state.get("bias_delta"))``; a state written by either
+        package loads in the other."""
+        state = {"version": 1,
+                 "scales": {int(i): s for i, s in self.act_scales().items()},
+                 "skip": sorted(int(i) for i in self._quant_skip)}
+        if self._quant_calib_size is not None:
+            state["calib_size"] = list(self._quant_calib_size)
+        if self._bias_deltas:
+            state["bias_delta"] = {int(i): [float(v) for v in d]
+                                   for i, d in self._bias_deltas.items()}
+        return state
 
     # ------------------------------------------------------------------
     # Pipelines (one closure per shape/threshold key)

@@ -1,13 +1,17 @@
-"""The detection path's hand-written CUDA kernels, their plain versions, and
-their build.
-
-Two kernels, each the counterpart of a Pallas TPU kernel in
-``pytorch_yolo_tpu/ops/pallas_kernels.py``:
+"""The hand-written CUDA kernels, their plain versions, and their build.
 
 * **K1** :func:`decode_score_head` (``csrc/decode_score.cu``): one head's
-  raw map -> (N, R, 8) rows ``[x1, y1, x2, y2, obj, cls_score, cls_id, rank]``.
+  raw map -> (N, R, 8) rows ``[x1, y1, x2, y2, obj, cls_score, cls_id, rank]``
+  (``pytorch_yolo_tpu/ops/pallas_kernels.py: decode_score_head``).
 * **K2** :func:`nms_keep` (``csrc/nms_keep.cu``): batched greedy-NMS keep
-  mask by parallel fixpoint.
+  mask by parallel fixpoint (``pallas_kernels.py: nms_keep_pallas``).
+* **K3** :func:`int8_gemm` (``csrc/gemm_i8.cu``): s8 x s8 -> s32 GEMM with
+  the probe's fixed-point requant (``tools/int8_kernel_probe.py:
+  gemm_i8_pallas``) or the int8 serving epilogue; every quantized 1x1
+  stride-1 conv.
+* **K4** :func:`int8_conv` (``csrc/int8_conv.cu``): int8 implicit-GEMM conv
+  with the serving epilogue (``pytorch_yolo_tpu/ops/quant.py:
+  quantized_conv``); every other quantized conv.
 
 Each has a plain torch version beside it (``*_ref``).  A wrapper takes the
 plain version only when its input lies on the CPU; for a CUDA tensor it
@@ -15,8 +19,9 @@ launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, so a
 run can show that the main path went through the kernels.
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` (Hopper)
-into ``csrc/_build/`` as one shared library with a plain C interface,
-loaded with ``ctypes``; the build reruns when a source is newer than the
+into ``csrc/_build/``: one nvcc per source, all started together, then one
+link into a shared library with a plain C interface, loaded with
+``ctypes``.  The build reruns when a source or header is newer than the
 library, and a failed build raises with nvcc's output.
 """
 
@@ -24,25 +29,29 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import os
 import shutil
 import subprocess
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from ..config import ModelSpec, head_strides
 from .decode import head_decode_args
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = tuple(os.path.join(CSRC, f) for f in ("decode_score.cu", "nms_keep.cu"))
+SOURCES = tuple(os.path.join(CSRC, f) for f in
+                ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu"))
+HEADERS = (os.path.join(CSRC, "int8_igemm.cuh"),)
 BUILD_DIR = os.path.join(CSRC, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libyolo_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"decode_score": 0, "nms_keep": 0}
+LAUNCHES = {"decode_score": 0, "nms_keep": 0, "int8_gemm": 0, "int8_conv": 0}
 
 MAX_ANCHORS = 8    # csrc/decode_score.cu: kMaxAnchors
 MAX_NMS_K = 1024   # one thread per candidate in one block
@@ -79,22 +88,37 @@ def _is_fresh() -> bool:
         built = os.path.getmtime(LIBRARY)
     except OSError:
         return False
-    return all(os.path.getmtime(s) <= built for s in SOURCES)
+    return all(os.path.getmtime(s) <= built for s in SOURCES + HEADERS)
 
 
 def build(force: bool = False) -> str:
-    """Compile the kernel library if it is missing or stale; returns its path."""
+    """Compile the kernel library if it is missing or stale; returns its path.
+
+    One nvcc process per source, all running at once, then one link."""
     if not force and _is_fresh():
         return LIBRARY
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o") for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    log = []
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc exited {proc.returncode}: {' '.join(cmd)}\n{err}")
+        log.append(" ".join(cmd) + "\n" + out + err)
+    tmp = f"{LIBRARY}.{tag}.tmp"
+    link = [nvcc, "-shared", "-o", tmp, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc exited {proc.returncode}: {' '.join(cmd)}\n{proc.stderr}")
+        raise KernelBuildError(f"nvcc exited {proc.returncode}: {' '.join(link)}\n{proc.stderr}")
     os.replace(tmp, LIBRARY)
+    for obj in objs:
+        os.remove(obj)
     with open(BUILD_LOG, "w", encoding="utf-8") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        f.write("".join(log) + " ".join(link) + "\n" + proc.stdout + proc.stderr)
     return LIBRARY
 
 
@@ -111,6 +135,9 @@ def load_library() -> ctypes.CDLL:
             lib.yolo_decode_score.restype = i
             lib.yolo_nms_keep.argtypes = [p, p, p, p, i, i, f, i, p]
             lib.yolo_nms_keep.restype = i
+            for fn in (lib.yolo_int8_gemm, lib.yolo_int8_conv):
+                fn.argtypes = [ctypes.POINTER(_IgemmArgs), i, i, p]
+                fn.restype = i
             _lib = lib
         return _lib
 
@@ -321,3 +348,232 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     _raise_on(rc, "nms_keep")
     LAUNCHES["nms_keep"] += 1
     return keep
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4: int8 GEMM and int8 implicit-GEMM conv
+# ---------------------------------------------------------------------------
+
+MAX_SPLIT_GROUPS = 4  # csrc/int8_igemm.cuh: kMaxGroups
+_ACT = {"linear": 0, "leaky": 1, "mish": 2, "relu": 3, "logistic": 4}
+_EPI_ACC, _EPI_FIXED, _EPI_F32, _EPI_I8 = 0, 1, 2, 3
+_HOMOGENEOUS = ("leaky", "relu", "linear")  # act(y / s) == act(y) / s for s > 0
+
+
+class _IgemmArgs(ctypes.Structure):
+    """csrc/int8_igemm.cuh: IgemmArgs, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("x", "w", "out", "sx", "sxg", "ws", "bias", "out_scale")]
+                + [(n, ctypes.c_int) for n in
+                   ("batch", "H", "W", "C", "Ho", "Wo", "O", "KH", "KW", "stride", "pad", "M",
+                    "groups")]
+                + [("goff", ctypes.c_int * (MAX_SPLIT_GROUPS + 1))]
+                + [(n, ctypes.c_int) for n in ("mode", "act", "out_scale_vec", "pre", "mul", "sh")])
+
+
+def _requant_fixed(acc: torch.Tensor, pre: int, m: int, sh: int) -> torch.Tensor:
+    """The probe's fixed-point requant on int32 (``>>`` is an arithmetic shift,
+    as XLA's is): ``clip(acc > 0 ? ((acc>>pre)*m)>>sh : ((acc>>pre)*m)>>(sh+3), ±127)``."""
+    scaled = (acc >> pre) * m
+    y = torch.where(acc > 0, scaled >> sh, scaled >> (sh + 3))
+    return torch.clamp(y, -127, 127).to(torch.int8)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a * b + c`` rounded once, as CUDA's ``__fmaf_rn`` and as the
+    JAX package's compiled epilogue (XLA contracts its multiply-adds).  The
+    product is exact in float64 (24 + 24 bits); the float64 sum is rounded
+    to odd (TwoSum gives its error), which makes the final rounding to fp32
+    the correct one (Boldo & Melquiond, "Emulation of FMA and correctly
+    rounded sums", 2008)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    return torch.where((err != 0) & even, torch.nextafter(s, away), s).float()
+
+
+def _serving_epilogue(v: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, activation: str,
+                      sx: "torch.Tensor | None", out_scale: "torch.Tensor | None") -> torch.Tensor:
+    """``pytorch_yolo_tpu/ops/quant.py:600-622`` on an fp32 (..., O) sum:
+    dequant (``sx * ws``, or ``ws`` alone when ``sx`` is None or a per-channel
+    grid), bias, activation; with ``out_scale``, int8 at that scale (leaky,
+    relu and linear divide first and activate after, the others activate at
+    the true scale, then divide).  ``sum * deq + bias`` is one fused
+    multiply-add, as XLA compiles it."""
+    from ..models.darknet import apply_activation  # darknet imports this module
+
+    deq = ws if sx is None or sx.dim() == 1 else sx * ws
+    if out_scale is None:
+        return apply_activation(fma(v, deq, b), activation)
+    if activation in _HOMOGENEOUS:
+        y = apply_activation(fma(v, deq / out_scale, b / out_scale), activation)
+    else:
+        y = apply_activation(fma(v, deq, b), activation) / out_scale
+    return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+
+
+def _split_sum(parts, sxg: torch.Tensor) -> torch.Tensor:
+    """``sum_g float(acc_g) * sxg[g]`` over a split conv's groups, in the
+    order XLA:CPU compiles ``quant.py:579-585``: the second group's product
+    is rounded and the first's is fused into adding it, then each later
+    group's product is fused into the running sum."""
+    if len(parts) == 1:
+        return parts[0] * sxg[0]
+    v = fma(parts[0], sxg[0], parts[1] * sxg[1])
+    for g in range(2, len(parts)):
+        v = fma(parts[g], sxg[g], v)
+    return v
+
+
+def _epilogue_ref(acc_of, channels: int, *, fixed=None, accumulators=False, ws=None, b=None,
+                  activation="linear", sx=None, out_scale=None, sxg=None,
+                  splits=None) -> torch.Tensor:
+    """The kernels' epilogue in plain torch (arguments: :func:`int8_gemm`);
+    ``acc_of(lo, hi)`` gives the int32 accumulators over input channels
+    [lo, hi)."""
+    if sxg is not None:  # split concat: per-branch int32 sums, merged in fp32
+        bounds = [0, *itertools.accumulate(splits)]
+        parts = [acc_of(lo, hi).to(torch.float32) for lo, hi in zip(bounds, bounds[1:])]
+        return _serving_epilogue(_split_sum(parts, sxg), ws, b, activation, None, out_scale)
+    acc = acc_of(0, channels)
+    if accumulators:
+        return acc
+    if fixed is not None:
+        return _requant_fixed(acc, *fixed)
+    return _serving_epilogue(acc.to(torch.float32), ws, b, activation, sx, out_scale)
+
+
+def gemm_i8_ref(xq: torch.Tensor, wq: torch.Tensor, **epi) -> torch.Tensor:
+    """Plain torch version of K3 (arguments: :func:`int8_gemm`).  The
+    accumulators are a float64 product (exact: |acc| <= 127² · K < 2^53),
+    rounded and cast to int32."""
+
+    def acc_of(lo, hi):
+        return torch.round(xq[:, lo:hi].double() @ wq[:, lo:hi].double().T).to(torch.int32)
+
+    return _epilogue_ref(acc_of, xq.shape[1], **epi)
+
+
+def int8_conv_ref(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
+                  **epi) -> torch.Tensor:
+    """Plain torch version of K4 on NHWC int8 ``xq`` and (O, KH, KW, C) int8
+    ``wq`` (arguments: :func:`int8_conv`).  The accumulators are a float64 ``F.conv2d`` (exact, as for K3;
+    rounded, so a conv algorithm with rounding error would still give the
+    exact integer), cast to int32."""
+
+    def acc_of(lo, hi):
+        y = F.conv2d(xq[..., lo:hi].permute(0, 3, 1, 2).double(),
+                     wq[..., lo:hi].permute(0, 3, 1, 2).double(), stride=stride, padding=pad)
+        return torch.round(y).to(torch.int32).permute(0, 2, 3, 1).contiguous()
+
+    return _epilogue_ref(acc_of, xq.shape[-1], **epi)
+
+
+def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
+           out_shape: tuple[int, ...], *, fixed=None, accumulators=False, ws=None, b=None,
+           activation="linear", sx=None, out_scale=None, sxg=None, splits=None) -> torch.Tensor:
+    """Check the arguments of K3/K4 on CUDA tensors and launch the kernel.
+    ``xq`` is (N, H, W, C) int8 and ``wq`` (O, KH, KW, C) int8."""
+    n, h, w, c = xq.shape
+    o, kh, kw, _ = wq.shape
+    if accumulators:
+        mode, out_dtype = _EPI_ACC, torch.int32
+    elif fixed is not None:
+        mode, out_dtype = _EPI_FIXED, torch.int8
+    else:
+        mode, out_dtype = (_EPI_F32, torch.float32) if out_scale is None else (_EPI_I8, torch.int8)
+        if ws is None or b is None:
+            raise ValueError(f"{name}: the dequant epilogue needs ws and b")
+        for t, what in ((ws, "ws"), (b, "b")):
+            if t.dtype != torch.float32 or tuple(t.shape) != (o,):
+                raise ValueError(f"{name}: {what} must be ({o},) float32")
+        if (sx is None) == (sxg is None):
+            raise ValueError(f"{name}: give exactly one of sx and sxg")
+        if sx is not None and (sx.dtype != torch.float32 or sx.dim() > 1
+                               or (sx.dim() == 1 and sx.shape[0] != c)):
+            raise ValueError(f"{name}: sx must be a 0-d or ({c},) float32 tensor")
+        if out_scale is not None and (out_scale.dtype != torch.float32 or out_scale.dim() > 1
+                                      or (out_scale.dim() == 1 and out_scale.shape[0] != o)):
+            raise ValueError(f"{name}: out_scale must be a 0-d or ({o},) float32 tensor")
+    if activation not in _ACT:
+        raise ValueError(f"{name}: unknown activation {activation!r}")
+    goff = [0, c]
+    if sxg is not None:
+        if mode not in (_EPI_F32, _EPI_I8):
+            raise ValueError(f"{name}: split groups take the dequant epilogue only")
+        if (not 1 <= len(splits) <= MAX_SPLIT_GROUPS or min(splits) < 1
+                or sum(splits) != c):
+            raise ValueError(f"{name}: splits {splits} must be 1..{MAX_SPLIT_GROUPS} positive "
+                             f"widths covering {c} channels")
+        if sxg.dtype != torch.float32 or tuple(sxg.shape) != (len(splits),):
+            raise ValueError(f"{name}: sxg must be ({len(splits)},) float32")
+        goff = [0]
+        for s in splits:
+            goff.append(goff[-1] + s)
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or wq.shape[3] != c:
+        raise ValueError(f"{name}: int8 input (..., {c}) and int8 (O, KH, KW, {c}) weights "
+                         f"expected, got {xq.dtype} {tuple(xq.shape)} and {wq.dtype} "
+                         f"{tuple(wq.shape)}")
+    scalar = [t for t in (sx, out_scale) if t is not None and t.dim() == 0]
+    device, stream = _cuda_args(name, xq, wq, ws, b, sxg, *scalar,
+                                *[t for t in (sx, out_scale) if t is not None and t.dim() == 1])
+    out = torch.empty(out_shape, dtype=out_dtype, device=xq.device)
+    vec = (c % 16 == 0 and all(g % 16 == 0 for g in goff) and xq.data_ptr() % 16 == 0
+           and wq.data_ptr() % 16 == 0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    pre, mul, sh = fixed if fixed is not None else (0, 0, 0)
+    m = out.numel() // o
+    args = _IgemmArgs(
+        ptr(xq), ptr(wq), ptr(out), ptr(sx) if sx is not None and sx.dim() == 0 else None,
+        ptr(sxg), ptr(ws), ptr(b), ptr(out_scale),
+        n, h, w, c, out_shape[1] if len(out_shape) == 4 else 1,
+        out_shape[2] if len(out_shape) == 4 else 1, o, kh, kw, stride, pad, m, len(goff) - 1,
+        (ctypes.c_int * (MAX_SPLIT_GROUPS + 1))(*goff), mode, _ACT[activation],
+        int(out_scale is not None and out_scale.dim() == 1), pre, mul, sh)
+    fn = getattr(load_library(), "yolo_" + name)
+    _raise_on(fn(ctypes.byref(args), int(vec), device, stream), name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, **epi) -> torch.Tensor:
+    """K3: (M, K) int8 x (N, K) int8 -> (M, N), the weight operand transposed
+    (K contiguous per output column).
+
+    Epilogue keywords, one of: ``accumulators=True`` -> the int32 sums;
+    ``fixed=(pre, m, sh)`` -> the probe's fixed-point requant to int8;
+    else the serving epilogue (``ws``, ``b``, ``activation`` (default
+    "linear"), and ``sx`` a 0-d input scale or a per-channel grid already
+    folded into ``wq``, or ``sxg`` + ``splits`` for per-branch scales) ->
+    fp32, or int8 at ``out_scale``.  Scales are tensors on the device."""
+    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
+        raise ValueError(f"int8_gemm: (M, K) and (N, K) expected, got {tuple(xq.shape)} and "
+                         f"{tuple(wq.shape)}")
+    if xq.device.type == "cpu":
+        return gemm_i8_ref(xq, wq, **epi)
+    (m, k), n = xq.shape, wq.shape[0]
+    return _igemm("int8_gemm", xq.view(m, 1, 1, k), wq.view(n, 1, 1, k), 1, 0, (m, n), **epi)
+
+
+def int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
+              **epi) -> torch.Tensor:
+    """K4: NHWC int8 ``xq`` (N, H, W, C) conv (O, KH, KW, C) int8 ``wq``,
+    zero padding ``pad`` on each side -> NHWC (N, Ho, Wo, O), with the
+    epilogue of :func:`int8_gemm`."""
+    if xq.dim() != 4 or wq.dim() != 4 or xq.shape[3] != wq.shape[3]:
+        raise ValueError(f"int8_conv: (N, H, W, C) and (O, KH, KW, C) expected, got "
+                         f"{tuple(xq.shape)} and {tuple(wq.shape)}")
+    if xq.device.type == "cpu":
+        return int8_conv_ref(xq, wq, stride, pad, **epi)
+    n, h, w, _ = xq.shape
+    o, kh, kw, _ = wq.shape
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"int8_conv: empty output for {tuple(xq.shape)} with a {kh}x{kw} "
+                         f"kernel, stride {stride}, pad {pad}")
+    return _igemm("int8_conv", xq, wq, stride, pad, (n, ho, wo, o), **epi)

@@ -1,7 +1,8 @@
 """On-device letterbox: uint8 image batch -> network input tensor.
 
 Counterpart of ``pytorch_yolo_tpu/ops/preprocess.py`` (``letterbox_geometry``
-is a copy; ``letterbox_batch`` is the torch version of the JAX one).
+and ``letterbox_host`` are copies; ``letterbox_batch`` is the torch version of
+the JAX one).
 Contract:
   * scale = min(S/W0, S/H0); new sizes truncated toward zero (int()).
   * bilinear resize with half-pixel centres, antialias off, on 0..255 floats.
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -92,4 +94,48 @@ def letterbox_batch(
     canvas = torch.full((n, sh, sw, 3), fill, dtype=torch.float32, device=imgs.device)
     canvas[:, geo.pad_y:geo.pad_y + geo.new_h, geo.pad_x:geo.pad_x + geo.new_w] = (
         resized.permute(0, 2, 3, 1))
-    return canvas.div_(255.0)
+    # / 255 as XLA compiles it, a multiply by the fp32 reciprocal, the same
+    # bits on every device (ops/quant.py: dynamic_scale)
+    return canvas.mul_(1.0 / 255.0)
+
+
+def letterbox_host(img: np.ndarray, size: "int | tuple[int, int]", bgr: bool = True,
+                   fill: float = 128.0) -> tuple[np.ndarray, LetterboxGeometry]:
+    """Host-side letterbox: (H0, W0, 3) uint8 -> ((Sh, Sw, 3) f32 [0,1], geometry).
+
+    Copy of ``pytorch_yolo_tpu/ops/preprocess.py: letterbox_host`` for its
+    one use here, the int8 calibration canvases (linear, float32 out):
+    OpenCV's resize when ``cv2`` is importable, else a numpy half-pixel
+    bilinear."""
+    h0, w0 = img.shape[:2]
+    geo = letterbox_geometry(h0, w0, size)
+    sh, sw = geo.out_hw
+    x = img.astype(np.float32)
+    if bgr:
+        x = x[..., ::-1]
+    try:
+        import cv2
+
+        resized = cv2.resize(x, (geo.new_w, geo.new_h), interpolation=cv2.INTER_LINEAR)
+    except ImportError:
+        resized = _numpy_bilinear(x, geo.new_h, geo.new_w)
+    canvas = np.full((sh, sw, 3), fill, dtype=np.float32)
+    canvas[geo.pad_y:geo.pad_y + geo.new_h, geo.pad_x:geo.pad_x + geo.new_w] = resized
+    return canvas / 255.0, geo
+
+
+def _numpy_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Half-pixel-center bilinear resize (float32, no antialias)."""
+    in_h, in_w = img.shape[:2]
+    sy, sx = in_h / out_h, in_w / out_w
+    ys = (np.arange(out_h) + 0.5) * sy - 0.5
+    xs = (np.arange(out_w) + 0.5) * sx - 0.5
+    y0 = np.floor(ys).astype(int)
+    x0 = np.floor(xs).astype(int)
+    wy = (ys - y0)[:, None, None]
+    wx = (xs - x0)[None, :, None]
+    y0c, y1c = np.clip(y0, 0, in_h - 1), np.clip(y0 + 1, 0, in_h - 1)
+    x0c, x1c = np.clip(x0, 0, in_w - 1), np.clip(x0 + 1, 0, in_w - 1)
+    top = img[y0c][:, x0c] * (1 - wx) + img[y0c][:, x1c] * wx
+    bot = img[y1c][:, x0c] * (1 - wx) + img[y1c][:, x1c] * wx
+    return (top * (1 - wy) + bot * wy).astype(np.float32)

@@ -13,6 +13,11 @@ versions against the JAX package's Pallas kernels on the CPU.
 Tolerances: decode rows rtol = atol = 1e-5 (``expf`` and summation order),
 with box columns relative to the row's largest corner (a corner is a
 difference of two values up to ~1e4 px); ``cls_id`` and keep masks exact.
+The int8 kernels K3/K4: int32 accumulators and int8 outputs exact; fp32
+outputs within 1e-6 relative (the kernels follow the plain versions'
+operation order, each multiply-add one explicit FMA as in the plain
+versions' ``fma``; only ``expf``/``log1pf``/``tanhf`` in mish and logistic
+may differ in the last ulps).
 """
 
 import numpy as np
@@ -20,7 +25,10 @@ import pytest
 import torch
 
 import pytorch_yolo_tpu_torch as pt
+from pytorch_yolo_tpu_torch.config import MaxPoolSpec
+from pytorch_yolo_tpu_torch.models.darknet import _maxpool
 from pytorch_yolo_tpu_torch.ops import kernels as tk
+from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale, quantize_input
 from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 
 ANCHORS = ((81, 82), (135, 169), (344, 319))
@@ -82,6 +90,84 @@ def crowded_boxes(seed, n, k):
 
 
 NMS_CASES = [(seed, k, cw) for seed, k in ((0, 37), (1, 96), (2, 300)) for cw in (False, True)]
+
+
+# K3 (1x1 stride 1) and K4 cases: name -> (kernel size, stride, NHWC input
+# shape, output channels, epilogue).  "sx": "dynamic" (a device max|x|/127),
+# "static" (a 0-d scale), "vector" (a per-channel grid: deq = ws); "splits":
+# per-branch scales; "out": "scalar"/"vector" requant to int8.  Shapes cover
+# ragged M, N and K edges and the byte path (C not a multiple of 16).
+INT8_CASES = {
+    "gemm_acc_ragged": (1, 1, (1, 25, 41, 48), 72, {"accumulators": True}),
+    "gemm_fixed_probe": (1, 1, (1, 8, 128, 256), 128, {"fixed": (10, 181, 8)}),
+    "gemm_dynamic_leaky": (1, 1, (2, 13, 13, 256), 128, {"sx": "dynamic", "act": "leaky"}),
+    "gemm_static_int8_vector_out": (1, 1, (2, 26, 26, 128), 256,
+                                    {"sx": "static", "act": "leaky", "out": "vector"}),
+    "gemm_split2_leaky": (1, 1, (2, 26, 26, 384), 128, {"splits": (128, 256), "act": "leaky"}),
+    "gemm_vector_sa_mish": (1, 1, (1, 20, 20, 64), 96, {"sx": "vector", "act": "mish"}),
+    "conv3x3_acc": (3, 1, (2, 20, 20, 32), 64, {"accumulators": True}),
+    "conv3x3_s2_acc_ragged": (3, 2, (1, 27, 33, 48), 40, {"accumulators": True}),
+    "conv3x3_rgb_acc": (3, 1, (2, 32, 32, 3), 16, {"accumulators": True}),
+    "conv3x3_c24_static_mish": (3, 1, (1, 16, 16, 24), 32, {"sx": "static", "act": "mish"}),
+    "conv3x3_s2_dynamic_leaky": (3, 2, (2, 26, 26, 64), 128, {"sx": "dynamic", "act": "leaky"}),
+    "conv3x3_static_logistic": (3, 1, (1, 13, 13, 64), 64, {"sx": "static", "act": "logistic"}),
+    "conv3x3_static_relu": (3, 1, (1, 13, 13, 64), 64, {"sx": "static", "act": "relu"}),
+    "conv3x3_static_linear": (3, 1, (1, 13, 13, 64), 64, {"sx": "static", "act": "linear"}),
+    "conv3x3_vector_sa_leaky": (3, 1, (2, 13, 13, 128), 128, {"sx": "vector", "act": "leaky"}),
+    "conv3x3_int8_out_scalar_leaky": (3, 1, (2, 26, 26, 64), 128,
+                                      {"sx": "static", "act": "leaky", "out": "scalar"}),
+    "conv3x3_int8_out_vector_mish": (3, 1, (2, 13, 13, 64), 96,
+                                     {"sx": "static", "act": "mish", "out": "vector"}),
+    "conv3x3_split2_mish": (3, 1, (2, 13, 13, 384), 64, {"splits": (256, 128), "act": "mish"}),
+    "conv3x3_split3_int8_out": (3, 1, (1, 13, 13, 128), 64,
+                                {"splits": (32, 64, 32), "act": "leaky", "out": "scalar"}),
+}
+
+
+def int8_case(name, device="cpu"):
+    """(xq, wq, stride, pad, epilogue kwargs) of an INT8_CASES entry as
+    tensors on ``device``; the input scales put the fp32 outputs near unit
+    scale, and int8 outputs both round and clip."""
+    k, stride, shape, o, epi = INT8_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    c = shape[-1]
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(dt).to(device)  # noqa: E731
+    wq = t(rng.integers(-127, 128, (o, k, k, c)), torch.int8)
+    if "accumulators" in epi or "fixed" in epi:
+        return t(rng.integers(-127, 128, shape), torch.int8), wq, stride, k // 2, dict(epi)
+    xf = t(rng.normal(0.0, 1.0, shape))
+    kw = {"activation": epi["act"], "b": t(rng.normal(0.0, 0.5, o))}
+    if "splits" in epi:
+        sxg = t(rng.uniform(0.02, 0.04, len(epi["splits"])))
+        parts, off = [], 0
+        for g, cg in enumerate(epi["splits"]):
+            parts.append(quantize_input(xf[..., off:off + cg], sxg[g]))
+            off += cg
+        xq, sx_val = torch.cat(parts, -1), 0.03
+        kw.update(sxg=sxg, splits=epi["splits"])
+    else:
+        sx = {"dynamic": lambda: dynamic_scale(xf),
+              "static": lambda: t(0.025),
+              "vector": lambda: t(rng.uniform(0.01, 0.04, c))}[epi["sx"]]()
+        xq = quantize_input(xf, sx)
+        sx_val = 1.0 if sx.dim() == 1 else float(sx)
+        kw["sx"] = sx
+    acc_std = np.sqrt(k * k * c) * 35.0 * 73.0  # |xq| ~ 35, |wq| ~ 73 rms
+    kw["ws"] = t(rng.uniform(0.5, 1.5, o) * 1.5 / acc_std / sx_val)
+    if "out" in epi:
+        kw["out_scale"] = (t(0.012) if epi["out"] == "scalar"
+                           else t(rng.uniform(0.008, 0.016, o)))
+    return xq, wq, stride, k // 2, kw
+
+
+def run_int8_case(name, xq, wq, stride, pad, kw, plain=False):
+    """Run one INT8_CASES entry through K3/K4 (or their plain versions)."""
+    if INT8_CASES[name][0] == 1:
+        n, h, w, c = xq.shape
+        fn = tk.gemm_i8_ref if plain else tk.int8_gemm
+        return fn(xq.reshape(-1, c), wq.reshape(wq.shape[0], c), **kw).reshape(n, h, w, -1)
+    fn = tk.int8_conv_ref if plain else tk.int8_conv
+    return fn(xq, wq, stride, pad, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -151,3 +237,54 @@ def test_cuda_detector_matches_cpu(cuda):
     assert stats.box_p99_px <= 1e-2, stats.row()
     for a, b in zip(ref, ours):  # near-equal ranks may trade places: compare as sets
         np.testing.assert_array_equal(np.sort(a.cls_id), np.sort(b.cls_id))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(INT8_CASES))
+def test_cuda_int8_kernels_match_plain(cuda, name):
+    xq, wq, stride, pad, kw = int8_case(name, cuda)
+    key = "int8_gemm" if INT8_CASES[name][0] == 1 else "int8_conv"
+    before = tk.LAUNCHES[key]
+    ours = run_int8_case(name, xq, wq, stride, pad, kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[key] == before + 1
+    ref = run_int8_case(name, xq, wq, stride, pad, kw, plain=True)
+    assert ours.dtype == ref.dtype and ours.shape == ref.shape
+    if ref.dtype == torch.float32:
+        np.testing.assert_allclose(ours.cpu().numpy(), ref.cpu().numpy(), rtol=1e-6, atol=1e-12)
+    else:
+        np.testing.assert_array_equal(ours.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stride,hw", [(2, 2, 52), (2, 1, 13), (3, 1, 15)])
+def test_cuda_int8_maxpool(cuda, size, stride, hw):
+    """int8 maxpool on the card equals the fp32 pool of the same values."""
+    x = torch.from_numpy(np.random.default_rng(size).integers(-127, 128, (2, 64, hw, hw))
+                         .astype(np.int8)).contiguous(memory_format=torch.channels_last)
+    spec = MaxPoolSpec(index=0, size=size, stride=stride)
+    ours = _maxpool(x.to(cuda), spec)
+    assert ours.dtype == torch.int8
+    np.testing.assert_array_equal(ours.cpu().numpy(),
+                                  _maxpool(x.float(), spec).to(torch.int8).numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_int8_detector(cuda):
+    """Detector(quant="w8a8") on the card goes through K3 and K4 and agrees
+    with the CPU given the card's calibrated scales (the fp32 head convs run
+    in cuDNN on the card and in oneDNN on the CPU, so not 1.0)."""
+    frames = np.random.default_rng(0).integers(0, 256, size=(2, 480, 640, 3), dtype=np.uint8)
+    before = dict(tk.LAUNCHES)
+    det = pt.Detector.load("yolov3-tiny", device=cuda, quant="w8a8", quant_calib=list(frames),
+                           quant_recipe="none")
+    ours = det.detect_batch(frames, size=416)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["int8_gemm"] > before["int8_gemm"]
+    assert tk.LAUNCHES["int8_conv"] > before["int8_conv"]
+    state = det.quant_state()
+    ref = pt.Detector.load("yolov3-tiny", device="cpu", quant="w8a8",
+                           quant_act_scales=state["scales"],
+                           quant_skip_layers=frozenset(state["skip"])).detect_batch(frames, size=416)
+    stats = detection_drift(ref, ours)
+    assert stats.ref_dets > 0 and stats.set_agreement >= 0.995, stats.row()

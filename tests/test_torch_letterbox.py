@@ -63,3 +63,17 @@ def test_unletterbox_matches_jax(h0, w0):
     ours = tpost.unletterbox_boxes(torch.from_numpy(boxes), tpre.letterbox_geometry(h0, w0, 416))
     np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-6, atol=1e-5)
     assert ref.min() == 0.0 and ref[..., 2].max() == w0  # clamping exercised
+
+
+@pytest.mark.parametrize("resize", ["cv2", "numpy"])
+@pytest.mark.parametrize("size", [416, (256, 320)], ids=["square", "rect"])
+def test_letterbox_host_matches_jax(resize, size, monkeypatch):
+    """The calibration canvases equal the JAX package's bit for bit, through
+    OpenCV and through the numpy fallback used where ``cv2`` is missing."""
+    if resize == "numpy":
+        monkeypatch.setitem(__import__("sys").modules, "cv2", None)  # import cv2 -> ImportError
+    img = np.random.default_rng(11).integers(0, 256, size=(300, 500, 3), dtype=np.uint8)
+    ref, ref_geo = jpre.letterbox_host(img, size)
+    ours, geo = tpre.letterbox_host(img, size)
+    assert ours.dtype == np.float32 and tuple(geo) == tuple(ref_geo)
+    np.testing.assert_array_equal(ours, ref)
