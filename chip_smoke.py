@@ -21,8 +21,13 @@ Phases, one line each (a failure in any phase exits non-zero):
      K1's and K2's times beside their plain versions' at those shapes;
   7. K3 (int8 GEMM) in the int8 probe's fixed-point mode at its two shapes,
      and K3/K4 (int8 implicit-GEMM conv) with the serving epilogue at four
-     yolov3 conv shapes (batch 8), each epilogue mode once, against their
-     plain versions (int32 and int8 equal, fp32 within 1e-6 relative);
+     yolov3 conv shapes (batch 8), each epilogue mode once, plus edge cases
+     of the wgmma core (ragged M with more tiles than SMs, O = 1024 and 16,
+     split groups that are not multiples of 128 channels, a ragged stride-2
+     output, int8 out with O not a multiple of 16, the byte path), each on
+     the core ``igemm_plan`` picks (its launch counter checked) and on the
+     ``mma.sync`` core, against their plain versions (int32 and int8 equal,
+     fp32 within 1e-6 relative);
   8. yolov3-tiny@416 ``quant="w8a8"`` with fp32 glue (every non-head conv
      int8, the maxpool ladder int8-resident), static scales calibrated on
      the card from 4 frames (``quant_recipe="none"``), against the CPU
@@ -31,9 +36,13 @@ Phases, one line each (a failure in any phase exits non-zero):
      w8a8 with bf16 glue, the stride-8 early skip, int8-resident chains,
      static scales from 4 frames, batch 128, the frames of phase 6 — median
      ms/batch and img/s as in phase 6, the launch counts, the drift against
-     phase 6's bf16 detections (printed, not gated), and K3's and K4's times
-     at phase 7's shapes at batch 128 beside their plain versions' and a
-     cuDNN bf16 ``F.conv2d`` of the same shape.
+     phase 6's bf16 detections (printed, not gated); it fails if any of its
+     int8 convs ran on the ``mma.sync`` core.  Then K3's and K4's times at
+     phase 7's four yolov3 shapes at batch 128: the wgmma core and the
+     ``mma.sync`` core in turns (old, new, new, old), the plain version, a
+     cuDNN bf16 ``F.conv2d`` of the same shape, ``torch._int_mm`` for K3,
+     and the bound (ops at 1,979 TOPS or bytes at 3.35 TB/s, whichever is
+     longer) with the share of it each core reaches.
 
 The line before the second-to-last is the kernels' JSON report; the
 second-to-last is the card as nvidia-smi names it; the last line is
@@ -58,6 +67,10 @@ BATCH = 128
 SIZE = 416
 CONF, IOU, MAX_DET = 0.6, 0.45, 300
 TOL = 1e-5  # K1: expf and summation order; box columns relative to the row's corners
+# H100 SXM published dense peaks (NVIDIA data sheet, 700 W): the bounds' rates.
+PEAK_INT8_OPS = 1.979e15
+PEAK_FP32_OPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -136,14 +149,36 @@ def int8_case(rng, k, stride, shape, o, mode, device):
     return xq, wq, stride, k // 2, kw
 
 
-def run_int8(kernels, xq, wq, stride, pad, kw, plain=False):
-    """K3 for a 1x1 stride-1 weight, K4 otherwise (or their plain versions)."""
+def run_int8(kernels, xq, wq, stride, pad, kw, plain=False, mma=False):
+    """K3 for a 1x1 stride-1 weight, K4 otherwise (or their plain versions;
+    ``mma`` forces the ``mma.sync`` core)."""
+    core = {} if plain else {"_mma": mma}
     if wq.shape[1] == 1 and stride == 1:
         n, h, w, c = xq.shape
         fn = kernels.gemm_i8_ref if plain else kernels.int8_gemm
-        return fn(xq.reshape(-1, c), wq.reshape(wq.shape[0], c), **kw).reshape(n, h, w, -1)
+        return fn(xq.reshape(-1, c), wq.reshape(wq.shape[0], c), **core, **kw).reshape(
+            n, h, w, -1)
     fn = kernels.int8_conv_ref if plain else kernels.int8_conv
-    return fn(xq, wq, stride, pad, **kw)
+    return fn(xq, wq, stride, pad, **core, **kw)
+
+
+def int8_key(kernels, wq, stride, kw) -> str:
+    """The LAUNCHES key of the core ``igemm_plan`` picks for a K3/K4 call."""
+    name = "int8_gemm" if wq.shape[1] == 1 and stride == 1 else "int8_conv"
+    c = wq.shape[-1]
+    goff = [0, c]
+    if "splits" in kw:
+        goff = [0]
+        for g in kw["splits"]:
+            goff.append(goff[-1] + g)
+    core, _ = kernels.igemm_plan(c, goff, wq.shape[0], "splits" in kw, True)
+    return name if core == "wgmma" else name + "_mma"
+
+
+def bound(ops: float, nbytes: float, peak_ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take, and what sets it."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -362,9 +397,19 @@ def main() -> None:
     k1_ms, k1_plain_ms = in_turns(k1_plain, k1)
     k2_ms, k2_plain_ms = in_turns(lambda: kernels.nms_keep_ref(boxes, valid, IOU, cls_f),
                                   lambda: kernels.nms_keep(boxes, valid, IOU, cls_f))
+    # K1 reads each head once and writes the rows once; ~2 fp32 ops per class
+    # (max, argmax) and ~40 per row (activations, box) are far below that.
+    k1_bytes = sum(h.numel() * h.element_size() for h in heads) + rows.numel() * 4
+    k1_ops = rows.shape[0] * rows.shape[1] * (2 * spec.yolo_layers[0].classes + 40)
+    k1_bound, k1_by = bound(k1_ops, k1_bytes, PEAK_FP32_OPS)
+    # K2 reads boxes, valid and class ids and writes the mask once; its IoU
+    # matrix is ~15 fp32 ops per candidate pair (the fixpoint rounds reuse it).
+    k2_bound, k2_by = bound(15 * BATCH * MAX_DET ** 2, BATCH * MAX_DET * (16 + 1 + 4 + 1),
+                            PEAK_FP32_OPS)
     say(f"phase 6 K1 decode_score_all (3 heads, batch {BATCH}): {k1_ms:.4f} ms, plain "
-        f"{k1_plain_ms:.4f} ms; K2 nms_keep ({BATCH}x{MAX_DET}): {k2_ms:.4f} ms, plain "
-        f"{k2_plain_ms:.4f} ms; on {card}")
+        f"{k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}, {k1_bound / k1_ms:.1%}); "
+        f"K2 nms_keep ({BATCH}x{MAX_DET}): {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, "
+        f"bound {k2_bound:.5f} ms ({k2_by}, {k2_bound / k2_ms:.1%}); on {card}")
     del det, heads, rows
 
     # 7. K3 and K4 against their plain versions
@@ -384,29 +429,52 @@ def main() -> None:
              "3x3 s1 13² 512->1024": ["acc", {"sx": "static", "act": "leaky"},
                                       {"splits": (256, 128, 128), "act": "mish",
                                        "out": "vector"}]}
+    edge = [("ragged M, tiles > SMs", 1, 1, (2, 97, 89, 64), 128, "acc"),
+            ("conv ragged M, tiles > SMs", 3, 1, (2, 100, 93, 32), 64,
+             {"sx": "static", "act": "leaky"}),
+            ("O=1024 (BN 256)", 1, 1, (1, 13, 13, 512), 1024, {"sx": "static", "act": "leaky"}),
+            ("O=16", 1, 1, (1, 20, 20, 64), 16, {"sx": "static", "act": "mish"}),
+            ("split (80, 176)", 1, 1, (2, 26, 26, 256), 128, {"splits": (80, 176), "act": "leaky"}),
+            ("split (48, 96, 112) int8 out O=72", 1, 1, (1, 26, 26, 256), 72,
+             {"splits": (48, 96, 112), "act": "leaky", "out": "vector"}),
+            ("s2 ragged O=72", 3, 2, (1, 27, 33, 48), 72, {"sx": "static", "act": "leaky"}),
+            ("int8 out O=40", 3, 1, (1, 13, 13, 64), 40, {"sx": "static", "act": "leaky",
+                                                          "out": "scalar"}),
+            ("byte path C=3", 3, 1, (2, 32, 32, 3), 16, "acc"),
+            ("byte path K=24", 1, 1, (1, 16, 16, 24), 32, {"sx": "static", "act": "leaky"})]
     cases = probe + [(f"{name} {m if isinstance(m, str) else m}", *v3_shapes[name], m)
-                     for name in v3_shapes for m in modes[name]]
+                     for name in v3_shapes for m in modes[name]] + edge
+    cores = {"wgmma": 0, "mma": 0}
     for name, k, stride, shape, o, mode in cases:
         xq, wq, st, pad, kw = int8_case(rng, k, stride, shape, o, mode, dev)
-        ours = run_int8(kernels, xq, wq, st, pad, kw)
         ref = run_int8(kernels, xq, wq, st, pad, kw, plain=True)
-        torch.cuda.synchronize()
-        key = "int8_gemm" if k == 1 and stride == 1 else "int8_conv"
-        if ours.dtype != ref.dtype or ours.shape != ref.shape:
-            fail(f"{key} {name}: {ours.dtype} {tuple(ours.shape)} vs plain {ref.dtype} "
-                 f"{tuple(ref.shape)}")
-        if ref.dtype == torch.float32:
-            err = max_err(ours, ref)
-            rel = float((abs_diff(ours, ref) / ref.abs().clamp_min(1e-30)).max())
-            ok = bool((abs_diff(ours, ref) <= 1e-6 * ref.abs()).all())
-            what = f"max abs err {err:.3g}, max rel err {rel:.3g} (tol 1e-6 rel.)"
-        else:
-            err = float((ours.long() - ref.long()).abs().max())
-            ok, what = err == 0, f"{ref.dtype} equal"
-        errs[key] = max(errs[key], err)
-        if not ok:
-            fail(f"{key} {name}: kernel disagrees with its plain version ({what}, {err})")
-        say(f"phase 7 {key} {name} {tuple(shape)}->{o}: ok, {what}")
+        want = int8_key(kernels, wq, st, kw)
+        for mma in (False, True):
+            key = want if not mma else want.removesuffix("_mma") + "_mma"
+            before = kernels.LAUNCHES[key]
+            ours = run_int8(kernels, xq, wq, st, pad, kw, mma=mma)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES[key] != before + 1:
+                fail(f"{name}: expected one launch of {key}, counts {kernels.LAUNCHES}")
+            if ours.dtype != ref.dtype or ours.shape != ref.shape:
+                fail(f"{key} {name}: {ours.dtype} {tuple(ours.shape)} vs plain {ref.dtype} "
+                     f"{tuple(ref.shape)}")
+            if ref.dtype == torch.float32:
+                err = max_err(ours, ref)
+                rel = float((abs_diff(ours, ref) / ref.abs().clamp_min(1e-30)).max())
+                ok = bool((abs_diff(ours, ref) <= 1e-6 * ref.abs()).all())
+                what = f"max abs err {err:.3g}, max rel err {rel:.3g} (tol 1e-6 rel.)"
+            else:
+                err = float((ours.long() - ref.long()).abs().max())
+                ok, what = err == 0, f"{ref.dtype} equal"
+            base_key = key.removesuffix("_mma")
+            errs[base_key] = max(errs[base_key], err)
+            cores["mma" if key.endswith("_mma") else "wgmma"] += 1
+            if not ok:
+                fail(f"{key} {name}: kernel disagrees with its plain version ({what}, {err})")
+            say(f"phase 7 {key} {name} {tuple(shape)}->{o}: ok, {what}")
+    say(f"phase 7: {len(cases)} cases, {cores['wgmma']} on the wgmma core and {cores['mma']} "
+        f"on the mma.sync core, all equal to the plain versions")
 
     # 8. int8 yolov3-tiny at fp32 glue: card against CPU.  Not 1.0: the fp32
     # head convs run in cuDNN on the card and in oneDNN on the CPU, and an
@@ -422,7 +490,7 @@ def main() -> None:
     gpu = det_gpu.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
     torch.cuda.synchronize()
     launches8 = dict(kernels.LAUNCHES)
-    if not all(launches8.values()):
+    if not all(launches8[k] for k in ("decode_score", "nms_keep", "int8_gemm", "int8_conv")):
         fail(f"int8 detect_batch on the card bypassed a kernel: {launches8}")
     cpu = det_cpu.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
     stats8 = detection_drift(cpu, gpu)
@@ -448,8 +516,14 @@ def main() -> None:
     kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
     times9, res9 = pipeline_ms(step9)
     launches9 = dict(kernels.LAUNCHES)
-    if not all(launches9.values()):
+    if not all(launches9[k] for k in ("decode_score", "nms_keep", "int8_gemm", "int8_conv")):
         fail(f"the int8sb path bypassed a kernel: {launches9}")
+    if launches9["int8_gemm_mma"] or launches9["int8_conv_mma"]:
+        fail(f"an int8sb conv ran on the mma.sync core: {launches9}")
+    n_int8 = launches9["int8_gemm"] + launches9["int8_conv"]
+    if n_int8 != len(det.model.qconvs) * (len(times9) + 3):  # 3 warm-up steps
+        fail(f"int8sb launched {n_int8} int8 convs in {len(times9) + 3} steps of "
+             f"{len(det.model.qconvs)}")
     check_result(res9, "int8sb")
     drift9 = detection_drift(bf16_dets, det._trim(res9, BATCH))
     ms9 = statistics.median(times9)
@@ -462,56 +536,75 @@ def main() -> None:
     say(f"phase 9 drift int8sb vs bf16 (He-init weights saturate: not gated): {drift9.row()}")
     del det, res9
 
-    # K3 and K4 at batch 128, beside their plain versions and cuDNN bf16
+    # K3 and K4 at batch 128: the wgmma core against the mma.sync core in
+    # turns, beside the plain version, cuDNN bf16, torch._int_mm and the bound
     timed = {}
     for name, (k, stride, shape, o) in v3_shapes.items():
         shape = (BATCH, *shape[1:])
         xq, wq, st, pad, kw = int8_case(rng, k, stride, shape, o,
                                         {"sx": "static", "act": "leaky"}, dev)
         key = "int8_gemm" if k == 1 and stride == 1 else "int8_conv"
-        got = run_int8(kernels, xq, wq, st, pad, kw)
         ref = run_int8(kernels, xq, wq, st, pad, kw, plain=True)
-        errs[key] = max(errs[key], max_err(got, ref))
-        if not bool((abs_diff(got, ref) <= 1e-6 * ref.abs()).all()):
-            fail(f"{key} {name} batch {BATCH}: kernel disagrees with its plain version")
+        for mma in (False, True):
+            got = run_int8(kernels, xq, wq, st, pad, kw, mma=mma)
+            errs[key] = max(errs[key], max_err(got, ref))
+            if not bool((abs_diff(got, ref) <= 1e-6 * ref.abs()).all()):
+                fail(f"{key} {name} batch {BATCH} (mma={mma}): kernel disagrees with its "
+                     "plain version")
         del ref
+        new = lambda: run_int8(kernels, xq, wq, st, pad, kw)  # noqa: E731
+        old = lambda: run_int8(kernels, xq, wq, st, pad, kw, mma=True)  # noqa: E731
+        new_ms, old_ms = in_turns(old, new)
+        pms = time_ms(lambda: run_int8(kernels, xq, wq, st, pad, kw, plain=True), 5, 1)
         xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels_last, as the bf16 path
         wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         bb = kw["b"].to(torch.bfloat16)
-        kms, pms = in_turns(lambda: run_int8(kernels, xq, wq, st, pad, kw, plain=True),
-                            lambda: run_int8(kernels, xq, wq, st, pad, kw), plain_iters=5)
         cms = time_ms(lambda: torch.nn.functional.conv2d(xb, wb, bb, stride=st, padding=pad))
-        ops = 2 * xq.shape[0] * got.shape[1] * got.shape[2] * o * k * k * xq.shape[3]
-        timed[name] = (key, kms, pms, cms)
-        say(f"phase 9 {key} {name} batch {BATCH} (static sx, leaky, fp32 out): {kms:.4f} ms "
-            f"({ops / kms / 1e9:.1f} TOPS), plain {pms:.4f} ms, cuDNN bf16 conv {cms:.4f} ms; "
+        ims = None
+        if key == "int8_gemm":  # int8 -> int32, no epilogue
+            x2, w2 = xq.reshape(-1, xq.shape[-1]), wq.reshape(o, -1)
+            ims = time_ms(lambda: torch._int_mm(x2, w2.t()))
+        ops, nbytes = kernels.igemm_work(tuple(xq.shape), tuple(wq.shape), st, pad, 4)
+        bms, by = bound(ops, nbytes, PEAK_INT8_OPS)
+        timed[name] = dict(key=key, ms=new_ms, old_ms=old_ms, plain_ms=pms, cudnn_ms=cms,
+                           int_mm_ms=ims, bound_ms=bms, bound_by=by)
+        say(f"phase 9 {key} {name} batch {BATCH} (static sx, leaky, fp32 out): wgmma "
+            f"{new_ms:.4f} ms ({ops / new_ms / 1e9:.1f} TOPS, {bms / new_ms:.1%} of bound), "
+            f"mma.sync {old_ms:.4f} ms ({bms / old_ms:.1%}), plain {pms:.4f} ms, cuDNN bf16 "
+            f"conv {cms:.4f} ms"
+            + (f", torch._int_mm {ims:.4f} ms" if ims is not None else "")
+            + f"; bound {bms:.4f} ms ({by}: {ops / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB); "
             f"on {card}")
-    del xq, wq, xb, wb, got
-    g_key, g_ms, g_plain, _ = timed["1x1 52² 256->128"]
-    c_key, c_ms, c_plain, _ = timed["3x3 s1 52² 128->256"]
+        del xq, wq, xb, wb, got
+    g9, c9 = timed["1x1 52² 256->128"], timed["3x3 s1 52² 128->256"]
+    say(f"phase 9 timings: {json.dumps(timed, ensure_ascii=False)}")
 
     report = {"kernels": [
         {"name": "decode_score", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/decode_score.cu",
          "replaces": "pytorch_yolo_tpu/ops/pallas_kernels.py:110",
          "launches": launches["decode_score"], "max_abs_err": max(k1_err, k1_main_err),
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None},
         {"name": "nms_keep", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/nms_keep.cu",
          "replaces": "pytorch_yolo_tpu/ops/pallas_kernels.py:312",
          "launches": launches["nms_keep"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": None},
         {"name": "int8_gemm", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/gemm_i8.cu",
          "replaces": "tools/int8_kernel_probe.py:181",
          "launches": launches9["int8_gemm"], "max_abs_err": errs["int8_gemm"],
-         "ms": g_ms, "plain_ms": g_plain},
+         "ms": g9["ms"], "plain_ms": g9["plain_ms"], "bound_ms": g9["bound_ms"],
+         "bound_by": g9["bound_by"], "library_ms": g9["int_mm_ms"]},
         {"name": "int8_conv", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/int8_conv.cu",
          "replaces": "pytorch_yolo_tpu/ops/quant.py:564",
          "launches": launches9["int8_conv"], "max_abs_err": errs["int8_conv"],
-         "ms": c_ms, "plain_ms": c_plain},
+         "ms": c9["ms"], "plain_ms": c9["plain_ms"], "bound_ms": c9["bound_ms"],
+         "bound_by": c9["bound_by"], "library_ms": c9["cudnn_ms"]},
     ]}
     say(json.dumps(report))
     say(card)

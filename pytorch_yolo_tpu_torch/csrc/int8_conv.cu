@@ -15,13 +15,23 @@
 // input pixel (n, oh*stride - pad + r, ow*stride - pad + s), whose channels
 // are contiguous in NHWC, so each 16-byte copy is one pixel's 16 channels;
 // taps that fall in the padding are zero-filled by the copy itself.  What
-// bounds it on an H100 (the tensor cores at yolov3's widths; 65.86 G ops per
-// yolov3@416 image against a 1,979 TOPS int8 peak) and the tiling: see
-// int8_igemm.cuh.
+// bounds it on an H100: the tensor cores at 13x13 (204 G ops over 104 MB at
+// batch 128 for 512 -> 1024) and HBM at 52x52, where the fp32 output is
+// most of the ~400 MB; both near 0.1 ms.  The design: int8_wgmma.cuh, whose
+// producer warpgroup gathers A with cp.async while TMA brings the weights.
+// The mma.sync core of int8_igemm.cuh keeps the byte path (C or a group
+// width not a multiple of 16, such as the RGB stem).
 
 #include "int8_igemm.cuh"
+#include "int8_wgmma.cuh"
 
-// `args` points to an IgemmArgs (ops/kernels.py: _IgemmArgs).
-extern "C" int yolo_int8_conv(const void* args, int vec, int device, void* stream) {
+// `args` points to an IgemmArgs (ops/kernels.py: _IgemmArgs).  The wgmma
+// core with a `bn`-column tile (128 or 256).
+extern "C" int yolo_int8_conv(const void* args, int bn, int device, void* stream) {
+  return wg::launch_wgmma<true>(static_cast<const IgemmArgs*>(args), bn, device, stream);
+}
+
+// The mma.sync core; `vec` = C and the group offsets are multiples of 16.
+extern "C" int yolo_int8_conv_mma(const void* args, int vec, int device, void* stream) {
   return launch_igemm<true>(static_cast<const IgemmArgs*>(args), vec, device, stream);
 }

@@ -1,6 +1,9 @@
-// The int8 implicit-GEMM core shared by K3 (gemm_i8.cu) and K4
+// The mma.sync int8 implicit-GEMM core shared by K3 (gemm_i8.cu) and K4
 // (int8_conv.cu): s8 x s8 -> s32 on the tensor cores, then one fused
-// epilogue per output element.
+// epilogue per output element.  int8_wgmma.cuh is the Hopper core that runs
+// every call whose C and group offsets are multiples of 16; this one keeps
+// the byte path (C or a group width not a multiple of 16, such as an int8
+// RGB stem) and is the baseline the wgmma core is timed against.
 //
 // Problem: out[m, o] = sum_k A[m, k] * W[o, k] over k = (tap, channel),
 //   A = the NHWC int8 input, gathered per output pixel m = (n, oh, ow) and
@@ -8,14 +11,7 @@
 //       (M, K) row-major matrix (K3);
 //   W = the (O, KH, KW, C) int8 kernel, K contiguous per output channel.
 //
-// What bounds it on an H100: at the widths of yolov3 the tensor cores.
-// A 3x3 conv over 52x52x128 -> 256 at batch 128 is 204 G int8 ops against
-// ~0.13 GB of input and output, ~1500 ops per byte, far above the ~590 ops
-// per byte where the 1,979 TOPS int8 peak meets 3.35 TB/s.  The smaller
-// convs at batch 8 are latency-bound.
-//
-// Design (a first version: right and simple; wgmma, TMA and persistence
-// are later work):
+// Design (simple and right first):
 //   * a 128 x 128 output tile per block of 8 warps (2 x 4), each warp
 //     64 x 32 as 4 x 4 mma.sync.m16n8k32 s8 tiles, int32 accumulators in
 //     registers;
@@ -116,13 +112,14 @@ __device__ __forceinline__ int8_t requant(float y) {
   return (int8_t)(int)fminf(fmaxf(rintf(y), -127.0f), 127.0f);
 }
 
-// One step of the K loop: channel group g, tap (r, s), channels [c0, c0 + 64).
+// One step of the K loop: channel group g, tap (r, s), channels [c0, c0 + step).
 struct KStep {
   int g, tap, c0;
 };
 
-__device__ __forceinline__ void advance(KStep& k, const IgemmArgs& a, int taps) {
-  k.c0 += kBK;
+__device__ __forceinline__ void advance(KStep& k, const IgemmArgs& a, int taps,
+                                        int step = kBK) {
+  k.c0 += step;
   if (k.c0 >= a.goff[k.g + 1]) {
     k.c0 = a.goff[k.g];
     if (++k.tap == taps) {

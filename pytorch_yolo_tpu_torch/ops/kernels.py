@@ -13,6 +13,12 @@
   with the serving epilogue (``pytorch_yolo_tpu/ops/quant.py:
   quantized_conv``); every other quantized conv.
 
+K3 and K4 run on the Hopper core ``csrc/int8_wgmma.cuh`` (wgmma, TMA, a
+warp-specialised ring, persistent blocks) whenever C and the group offsets
+are multiples of 16 (:func:`igemm_plan`); the ``mma.sync`` core
+``csrc/int8_igemm.cuh`` keeps the byte path, counted apart as
+``int8_gemm_mma`` / ``int8_conv_mma``.
+
 Each has a plain torch version beside it (``*_ref``).  A wrapper takes the
 plain version only when its input lies on the CPU; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, so a
@@ -44,14 +50,15 @@ from .decode import head_decode_args
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f) for f in
                 ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu"))
-HEADERS = (os.path.join(CSRC, "int8_igemm.cuh"),)
+HEADERS = tuple(os.path.join(CSRC, f) for f in ("int8_igemm.cuh", "int8_wgmma.cuh"))
 BUILD_DIR = os.path.join(CSRC, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libyolo_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"decode_score": 0, "nms_keep": 0, "int8_gemm": 0, "int8_conv": 0}
+LAUNCHES = {"decode_score": 0, "nms_keep": 0, "int8_gemm": 0, "int8_gemm_mma": 0,
+            "int8_conv": 0, "int8_conv_mma": 0}
 
 MAX_ANCHORS = 8    # csrc/decode_score.cu: kMaxAnchors
 MAX_NMS_K = 1024   # one thread per candidate in one block
@@ -135,7 +142,8 @@ def load_library() -> ctypes.CDLL:
             lib.yolo_decode_score.restype = i
             lib.yolo_nms_keep.argtypes = [p, p, p, p, i, i, f, i, p]
             lib.yolo_nms_keep.restype = i
-            for fn in (lib.yolo_int8_gemm, lib.yolo_int8_conv):
+            for fn in (lib.yolo_int8_gemm, lib.yolo_int8_conv, lib.yolo_int8_gemm_mma,
+                       lib.yolo_int8_conv_mma):
                 fn.argtypes = [ctypes.POINTER(_IgemmArgs), i, i, p]
                 fn.restype = i
             _lib = lib
@@ -474,11 +482,41 @@ def int8_conv_ref(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
     return _epilogue_ref(acc_of, xq.shape[-1], **epi)
 
 
+def igemm_plan(channels: int, goff: "list[int]", out_channels: int, split: bool,
+               aligned: bool) -> tuple[str, int]:
+    """The K3/K4 core for a call, from its shapes alone: ``("wgmma", BN)``
+    with a BN-column tile when the channel count and every group offset are
+    multiples of 16 and both operands are 16-byte aligned (what TMA and the
+    16-byte gather need); BN is 256 from 256 output channels on, 128 below
+    and for split groups (their fp32 group sums double the accumulators).
+    Else ``("mma", 128)``: the ``mma.sync`` core's byte path, which an int8
+    RGB stem takes (C = 3)."""
+    if aligned and channels % 16 == 0 and all(g % 16 == 0 for g in goff):
+        return "wgmma", 128 if split or out_channels < 256 else 256
+    return "mma", 128
+
+
+def igemm_work(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: int, pad: int,
+               out_bytes: int) -> tuple[int, int]:
+    """(int8 ops, bytes) of one K3/K4 launch: ``2 * M * O * KH * KW * C``
+    ops (a multiply-add is two), and the NHWC input, the (O, KH, KW, C)
+    weights and the (M, O) output each counted once, the output at
+    ``out_bytes`` a value (4 for fp32 and int32, 1 for int8)."""
+    n, h, w, c = x_shape
+    o, kh, kw, _ = w_shape
+    m = n * ((h + 2 * pad - kh) // stride + 1) * ((w + 2 * pad - kw) // stride + 1)
+    ops = 2 * m * o * kh * kw * c
+    return ops, n * h * w * c + o * kh * kw * c + m * o * out_bytes
+
+
 def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
            out_shape: tuple[int, ...], *, fixed=None, accumulators=False, ws=None, b=None,
-           activation="linear", sx=None, out_scale=None, sxg=None, splits=None) -> torch.Tensor:
-    """Check the arguments of K3/K4 on CUDA tensors and launch the kernel.
-    ``xq`` is (N, H, W, C) int8 and ``wq`` (O, KH, KW, C) int8."""
+           activation="linear", sx=None, out_scale=None, sxg=None, splits=None,
+           _mma: bool = False) -> torch.Tensor:
+    """Check the arguments of K3/K4 on CUDA tensors and launch the kernel
+    that :func:`igemm_plan` picks.  ``xq`` is (N, H, W, C) int8 and ``wq``
+    (O, KH, KW, C) int8.  ``_mma=True`` forces the ``mma.sync`` core, for
+    timing one core against the other; no serving path passes it."""
     n, h, w, c = xq.shape
     o, kh, kw, _ = wq.shape
     if accumulators:
@@ -523,8 +561,13 @@ def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
     device, stream = _cuda_args(name, xq, wq, ws, b, sxg, *scalar,
                                 *[t for t in (sx, out_scale) if t is not None and t.dim() == 1])
     out = torch.empty(out_shape, dtype=out_dtype, device=xq.device)
-    vec = (c % 16 == 0 and all(g % 16 == 0 for g in goff) and xq.data_ptr() % 16 == 0
-           and wq.data_ptr() % 16 == 0)
+    aligned = xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+    core, bn = igemm_plan(c, goff, o, sxg is not None, aligned)
+    if _mma or core == "mma":
+        # the mma.sync entry takes its 16-byte-copy flag, which needs what wgmma needs
+        key, arg = name + "_mma", int(core == "wgmma")
+    else:  # the wgmma entry takes the tile width
+        key, arg = name, bn
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     pre, mul, sh = fixed if fixed is not None else (0, 0, 0)
     m = out.numel() // o
@@ -535,13 +578,13 @@ def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
         out_shape[2] if len(out_shape) == 4 else 1, o, kh, kw, stride, pad, m, len(goff) - 1,
         (ctypes.c_int * (MAX_SPLIT_GROUPS + 1))(*goff), mode, _ACT[activation],
         int(out_scale is not None and out_scale.dim() == 1), pre, mul, sh)
-    fn = getattr(load_library(), "yolo_" + name)
-    _raise_on(fn(ctypes.byref(args), int(vec), device, stream), name)
-    LAUNCHES[name] += 1
+    fn = getattr(load_library(), "yolo_" + key)
+    _raise_on(fn(ctypes.byref(args), arg, device, stream), key)
+    LAUNCHES[key] += 1
     return out
 
 
-def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, **epi) -> torch.Tensor:
+def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, _mma: bool = False, **epi) -> torch.Tensor:
     """K3: (M, K) int8 x (N, K) int8 -> (M, N), the weight operand transposed
     (K contiguous per output column).
 
@@ -550,17 +593,19 @@ def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, **epi) -> torch.Tensor:
     else the serving epilogue (``ws``, ``b``, ``activation`` (default
     "linear"), and ``sx`` a 0-d input scale or a per-channel grid already
     folded into ``wq``, or ``sxg`` + ``splits`` for per-branch scales) ->
-    fp32, or int8 at ``out_scale``.  Scales are tensors on the device."""
+    fp32, or int8 at ``out_scale``.  Scales are tensors on the device.
+    ``_mma`` (CUDA only) forces the ``mma.sync`` core, for A/B timing."""
     if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
         raise ValueError(f"int8_gemm: (M, K) and (N, K) expected, got {tuple(xq.shape)} and "
                          f"{tuple(wq.shape)}")
     if xq.device.type == "cpu":
         return gemm_i8_ref(xq, wq, **epi)
     (m, k), n = xq.shape, wq.shape[0]
-    return _igemm("int8_gemm", xq.view(m, 1, 1, k), wq.view(n, 1, 1, k), 1, 0, (m, n), **epi)
+    return _igemm("int8_gemm", xq.view(m, 1, 1, k), wq.view(n, 1, 1, k), 1, 0, (m, n),
+                  _mma=_mma, **epi)
 
 
-def int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
+def int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int, _mma: bool = False,
               **epi) -> torch.Tensor:
     """K4: NHWC int8 ``xq`` (N, H, W, C) conv (O, KH, KW, C) int8 ``wq``,
     zero padding ``pad`` on each side -> NHWC (N, Ho, Wo, O), with the
@@ -576,4 +621,4 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
     if ho < 1 or wo < 1:
         raise ValueError(f"int8_conv: empty output for {tuple(xq.shape)} with a {kh}x{kw} "
                          f"kernel, stride {stride}, pad {pad}")
-    return _igemm("int8_conv", xq, wq, stride, pad, (n, ho, wo, o), **epi)
+    return _igemm("int8_conv", xq, wq, stride, pad, (n, ho, wo, o), _mma=_mma, **epi)

@@ -218,15 +218,22 @@ def collect_act_scales(spec: ModelSpec, params: Mapping[int, Mapping[str, np.nda
                        percentile: "float | None" = None,
                        concat_groups: "Mapping[int, tuple[int, ...]] | None" = None,
                        smooth_alpha: "float | None" = None,
-                       device: "str | torch.device" = "cpu") -> dict:
+                       device: "str | torch.device" = "cuda") -> dict:
     """Static activation scales from the fp32 forward on letterboxed
     calibration canvases ``x`` (N, H, W, 3) in [0, 1]: each conv's input
     ``max|x| * margin / 127``, a list of per-branch scales for the convs in
     ``concat_groups``, or with ``smooth_alpha`` a per-input-channel grid
     ``v_c = s_c * sx`` with ``s_c = a_c^alpha / w_c^(1 - alpha)`` for every
     conv.  ``params`` are the fp32 OIHW params; the forward runs at fp32 /
-    "highest" on ``device``.  Percentile calibration is not ported yet."""
+    "highest" on ``device``, the card unless the caller asks for the CPU
+    (it raises where CUDA is absent).  Percentile calibration is not ported
+    yet."""
     from ..models.darknet import Darknet
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"collect_act_scales on {device}, but torch.cuda.is_available() "
+                           "is False: pass device='cpu' to calibrate on the CPU")
 
     if percentile is not None:
         raise NotImplementedError("percentile calibration is not ported yet "

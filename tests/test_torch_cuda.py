@@ -96,7 +96,10 @@ NMS_CASES = [(seed, k, cw) for seed, k in ((0, 37), (1, 96), (2, 300)) for cw in
 # shape, output channels, epilogue).  "sx": "dynamic" (a device max|x|/127),
 # "static" (a 0-d scale), "vector" (a per-channel grid: deq = ws); "splits":
 # per-branch scales; "out": "scalar"/"vector" requant to int8.  Shapes cover
-# ragged M, N and K edges and the byte path (C not a multiple of 16).
+# ragged M, N and K edges and the byte path (C not a multiple of 16), and
+# the wgmma core's edges: more tiles than SMs, 256-column tiles, group
+# widths that are not multiples of its 128-byte K slice, int8 rows whose
+# width is not a multiple of 16 bytes.
 INT8_CASES = {
     "gemm_acc_ragged": (1, 1, (1, 25, 41, 48), 72, {"accumulators": True}),
     "gemm_fixed_probe": (1, 1, (1, 8, 128, 256), 128, {"fixed": (10, 181, 8)}),
@@ -121,7 +124,37 @@ INT8_CASES = {
     "conv3x3_split2_mish": (3, 1, (2, 13, 13, 384), 64, {"splits": (256, 128), "act": "mish"}),
     "conv3x3_split3_int8_out": (3, 1, (1, 13, 13, 128), 64,
                                 {"splits": (32, 64, 32), "act": "leaky", "out": "scalar"}),
+    "gemm_ragged_m_tiles_wrap_sms_acc": (1, 1, (2, 97, 89, 64), 128, {"accumulators": True}),
+    "conv3x3_ragged_m_tiles_wrap_sms_leaky": (3, 1, (2, 100, 93, 32), 64,
+                                              {"sx": "static", "act": "leaky"}),
+    "gemm_o1024_bn256_leaky": (1, 1, (1, 13, 13, 512), 1024, {"sx": "static", "act": "leaky"}),
+    "conv3x3_o1024_bn256_acc": (3, 1, (1, 13, 13, 64), 1024, {"accumulators": True}),
+    "gemm_o16_mish": (1, 1, (1, 20, 20, 64), 16, {"sx": "static", "act": "mish"}),
+    "conv3x3_o16_int8_out_scalar": (3, 1, (1, 16, 16, 32), 16,
+                                    {"sx": "static", "act": "leaky", "out": "scalar"}),
+    "gemm_split2_not_bk_widths_leaky": (1, 1, (2, 26, 26, 256), 128,
+                                        {"splits": (80, 176), "act": "leaky"}),
+    "gemm_split3_not_bk_widths_int8_out": (1, 1, (1, 26, 26, 256), 72,
+                                           {"splits": (48, 96, 112), "act": "leaky",
+                                            "out": "vector"}),
+    "conv3x3_s2_ragged_out_leaky": (3, 2, (1, 27, 33, 48), 72, {"sx": "static", "act": "leaky"}),
+    "conv3x3_int8_out_o40_not_16": (3, 1, (1, 13, 13, 64), 40,
+                                    {"sx": "static", "act": "leaky", "out": "scalar"}),
+    "gemm_int8_out_o72_not_16_vector": (1, 1, (1, 13, 13, 128), 72,
+                                        {"sx": "static", "act": "logistic", "out": "vector"}),
+    "gemm_k24_byte_path_leaky": (1, 1, (1, 16, 16, 24), 32, {"sx": "static", "act": "leaky"}),
 }
+
+
+def int8_core_key(name):
+    """The LAUNCHES key of the core that ``igemm_plan`` picks for a case."""
+    k, stride, shape, o, epi = INT8_CASES[name]
+    c = shape[-1]
+    splits = epi.get("splits", (c,))
+    goff = [0, *np.cumsum(splits).tolist()]
+    core, _ = tk.igemm_plan(c, goff, o, "splits" in epi, True)
+    base = "int8_gemm" if k == 1 else "int8_conv"
+    return base if core == "wgmma" else base + "_mma"
 
 
 def int8_case(name, device="cpu"):
@@ -160,14 +193,17 @@ def int8_case(name, device="cpu"):
     return xq, wq, stride, k // 2, kw
 
 
-def run_int8_case(name, xq, wq, stride, pad, kw, plain=False):
-    """Run one INT8_CASES entry through K3/K4 (or their plain versions)."""
+def run_int8_case(name, xq, wq, stride, pad, kw, plain=False, mma=False):
+    """Run one INT8_CASES entry through K3/K4 (or their plain versions;
+    ``mma`` forces the ``mma.sync`` core)."""
+    core = {} if plain else {"_mma": mma}
     if INT8_CASES[name][0] == 1:
         n, h, w, c = xq.shape
         fn = tk.gemm_i8_ref if plain else tk.int8_gemm
-        return fn(xq.reshape(-1, c), wq.reshape(wq.shape[0], c), **kw).reshape(n, h, w, -1)
+        return fn(xq.reshape(-1, c), wq.reshape(wq.shape[0], c), **core, **kw).reshape(
+            n, h, w, -1)
     fn = tk.int8_conv_ref if plain else tk.int8_conv
-    return fn(xq, wq, stride, pad, **kw)
+    return fn(xq, wq, stride, pad, **core, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -240,14 +276,20 @@ def test_cuda_detector_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("core", ["planned", "mma"])
 @pytest.mark.parametrize("name", list(INT8_CASES))
-def test_cuda_int8_kernels_match_plain(cuda, name):
+def test_cuda_int8_kernels_match_plain(cuda, name, core):
+    """Each case on the core ``igemm_plan`` picks (the wgmma core unless C
+    or a group offset is not a multiple of 16) and forced onto the
+    ``mma.sync`` core; the launch goes to the counter of the core that ran."""
     xq, wq, stride, pad, kw = int8_case(name, cuda)
-    key = "int8_gemm" if INT8_CASES[name][0] == 1 else "int8_conv"
-    before = tk.LAUNCHES[key]
-    ours = run_int8_case(name, xq, wq, stride, pad, kw)
+    key = int8_core_key(name)
+    if core == "mma":
+        key = key.removesuffix("_mma") + "_mma"
+    before = dict(tk.LAUNCHES)
+    ours = run_int8_case(name, xq, wq, stride, pad, kw, mma=core == "mma")
     torch.cuda.synchronize()
-    assert tk.LAUNCHES[key] == before + 1
+    assert tk.LAUNCHES == {**before, key: before[key] + 1}
     ref = run_int8_case(name, xq, wq, stride, pad, kw, plain=True)
     assert ours.dtype == ref.dtype and ours.shape == ref.shape
     if ref.dtype == torch.float32:

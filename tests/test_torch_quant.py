@@ -216,6 +216,67 @@ def test_gemm_i8_plain_matches_probe(m, k, n, pre, mul, sh):
 
 
 # ---------------------------------------------------------------------------
+# (c2) K3/K4: which core runs a call, and the work a launch does
+# ---------------------------------------------------------------------------
+
+
+# The four yolov3 shapes the card times, batch 128, fp32 out, counted by
+# hand: ops = 2 * M * O * KH * KW * C; bytes = input + weights + output.
+@pytest.mark.parametrize("x_shape,w_shape,stride,pad,ops,nbytes", [
+    # 1x1 52² 256->128: M = 128 * 52 * 52 = 346,112
+    ((128, 52, 52, 256), (128, 1, 1, 256), 1, 0, 2 * 346_112 * 128 * 256,
+     88_604_672 + 32_768 + 346_112 * 128 * 4),
+    # 3x3 s1 52² 128->256
+    ((128, 52, 52, 128), (256, 3, 3, 128), 1, 1, 2 * 346_112 * 256 * 1152,
+     44_302_336 + 294_912 + 346_112 * 256 * 4),
+    # 3x3 s2 104² -> 52², 128->256
+    ((128, 104, 104, 128), (256, 3, 3, 128), 2, 1, 2 * 346_112 * 256 * 1152,
+     177_209_344 + 294_912 + 346_112 * 256 * 4),
+    # 3x3 s1 13² 512->1024: M = 128 * 169 = 21,632
+    ((128, 13, 13, 512), (1024, 3, 3, 512), 1, 1, 2 * 21_632 * 1024 * 4608,
+     11_075_584 + 4_718_592 + 21_632 * 1024 * 4),
+])
+def test_igemm_work_counts(x_shape, w_shape, stride, pad, ops, nbytes):
+    assert tk.igemm_work(x_shape, w_shape, stride, pad, 4) == (ops, nbytes)
+    # the rounded figures the kernel table quotes: 22.7 G / 266 MB, 204 G / 399,
+    # 532 and 104 MB
+    assert round(ops / 1e9, 1) in (22.7, 204.1)
+    assert round(nbytes / 1e6) in (266, 399, 532, 104)
+    # int8 and int32 outputs: one byte and four bytes a value
+    o_bytes = ops // (2 * w_shape[1] * w_shape[2] * w_shape[3])
+    assert tk.igemm_work(x_shape, w_shape, stride, pad, 1)[1] == nbytes - 3 * o_bytes
+
+
+@pytest.mark.parametrize("c,goff,o,split,aligned,plan", [
+    (256, [0, 256], 128, False, True, ("wgmma", 128)),
+    (128, [0, 128], 256, False, True, ("wgmma", 256)),
+    (512, [0, 512], 1024, False, True, ("wgmma", 256)),
+    (64, [0, 64], 16, False, True, ("wgmma", 128)),
+    (384, [0, 128, 384], 256, True, True, ("wgmma", 128)),  # split: fp32 group sums
+    (256, [0, 80, 256], 128, True, True, ("wgmma", 128)),   # widths not multiples of 128
+    (3, [0, 3], 16, False, True, ("mma", 128)),              # the RGB stem: byte path
+    (24, [0, 24], 32, False, True, ("mma", 128)),
+    (128, [0, 40, 128], 64, True, True, ("mma", 128)),       # a group offset not 16-aligned
+    (256, [0, 256], 128, False, False, ("mma", 128)),        # an operand not 16-byte aligned
+])
+def test_igemm_plan_picks_core_by_shape(c, goff, o, split, aligned, plan):
+    assert tk.igemm_plan(c, goff, o, split, aligned) == plan
+
+
+def test_int8_wrappers_ignore_core_choice_on_cpu():
+    """``_mma`` picks a CUDA core; a CPU tensor runs the plain version either way."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 9, 9, 32)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (16, 3, 3, 32)).astype(np.int8))
+    before = dict(tk.LAUNCHES)
+    for fn, args in ((tk.int8_conv, (x, w, 1, 1)),
+                     (tk.int8_gemm, (x.reshape(-1, 32), w[:, 1, 1].contiguous()))):
+        np.testing.assert_array_equal(fn(*args, _mma=True, accumulators=True).numpy(),
+                                      fn(*args, accumulators=True).numpy())
+    assert tk.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
 # (d) quantized_conv, one conv per mode
 # ---------------------------------------------------------------------------
 
@@ -328,7 +389,7 @@ def test_collect_act_scales_matches_jax(mode):
     elif mode == "smooth":
         kw["smooth_alpha"] = 0.5
     ref = jq.collect_act_scales(jspec, jax.tree_util.tree_map(jnp.asarray, jp), x, **kw)
-    ours = tq.collect_act_scales(tspec, tp, x, **kw)
+    ours = tq.collect_act_scales(tspec, tp, x, device="cpu", **kw)
     assert ours.keys() == ref.keys()
     for i, r in ref.items():
         assert type(ours[i]) is type(r), i
@@ -336,6 +397,19 @@ def test_collect_act_scales_matches_jax(mode):
                                    rtol=1e-4 if mode == "smooth" else 1e-5, atol=0)
     if mode == "split":
         assert any(isinstance(v, list) for v in ours.values())
+
+
+def test_collect_act_scales_defaults_to_the_card(monkeypatch):
+    """Like ``Detector``, calibration runs on the card unless asked for the
+    CPU: without CUDA the default raises instead of running on the CPU."""
+    jspec, tspec = specs("yolov3-tiny")
+    _, tp = fp_params(jspec)
+    x = np.random.default_rng(9).uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        tq.collect_act_scales(tspec, tp, x)
+    scales = tq.collect_act_scales(tspec, tp, x, device="cpu")
+    assert scales and all(v > 0 for v in scales.values())
 
 
 # ---------------------------------------------------------------------------
