@@ -8,17 +8,26 @@ Phases, one line each (a failure in any phase exits non-zero):
   2. build the CUDA kernels from ``pytorch_yolo_tpu_torch/csrc``;
   3. K1 decode+score against its plain torch version on the card, at the
      yolov3@416 head shapes (batch 8) plus a [region] softmax head and a
-     4-anchor new_coords head;
-  4. K2 NMS keep mask against its plain version, K = 300, batch 8, crowded
-     boxes with ties and mixed classes (masks must be equal);
+     4-anchor new_coords head, each also equal to K1 as first ported
+     (``_v1``); the three yolov3 heads in bf16 in one launch, equal to the
+     first port on their fp32 widening; a misaligned head, which must raise;
+  4. K2 NMS keep mask against its plain version and the first port, batch
+     8: K = 300 crowded boxes with ties and mixed classes, a chain where
+     each box overlaps only its successor (K = 300 and 1024), and crowded
+     boxes at K = 1024 (masks must be equal);
   5. ``Detector.load("cfg/yolov3.cfg", device="cuda")`` fp32 / "highest"
      against the same detector on the CPU on four 480x640 uint8 frames
-     (set agreement must be 1.0), counting kernel launches;
+     (set agreement must be 1.0), one K1 and one K2 launch;
   6. the serving configuration of ``bench.py``: yolov3@416, bf16, batch 128,
      480x640 uint8 frames already on the device, conf 0.6, iou 0.45,
      max_det 300 — median ms/batch and img/s over 20 timed iterations after
-     3 warm-up ones (CUDA events), with the launch counts of that run; then
-     K1's and K2's times beside their plain versions' at those shapes;
+     3 warm-up ones (CUDA events), with the launch counts of that run (one
+     K1 and one K2 a step); then, at those shapes, old against new in turns
+     (old, new, new, old): the first port's cast of the bf16 heads to fp32
+     plus its K1 against the new K1 on the bf16 heads, both K1s on fp32
+     heads, the two K2s on the step's candidates and on a 1024-long chain
+     at batch 128, each beside its bound and its plain version; and the
+     fixpoint's round counts on those candidates;
   7. K3 (int8 GEMM) in the int8 probe's fixed-point mode at its two shapes,
      and K3/K4 (int8 implicit-GEMM conv) with the serving epilogue at four
      yolov3 conv shapes (batch 8), each epilogue mode once, plus edge cases
@@ -31,11 +40,13 @@ Phases, one line each (a failure in any phase exits non-zero):
   8. yolov3-tiny@416 ``quant="w8a8"`` with fp32 glue (every non-head conv
      int8, the maxpool ladder int8-resident), static scales calibrated on
      the card from 4 frames (``quant_recipe="none"``), against the CPU
-     serving the card's ``quant_state()`` (set agreement >= 0.995);
+     serving the card's ``quant_state()`` (set agreement >= 0.995), one K1
+     and one K2 launch;
   9. the int8 slice at full width, ``bench.py``'s ``int8sb``: yolov3@416
      w8a8 with bf16 glue, the stride-8 early skip, int8-resident chains,
      static scales from 4 frames, batch 128, the frames of phase 6 — median
-     ms/batch and img/s as in phase 6, the launch counts, the drift against
+     ms/batch and img/s as in phase 6, the launch counts (one K1 and one K2
+     a step, one K3/K4 launch a quantized conv), the drift against
      phase 6's bf16 detections (printed, not gated); it fails if any of its
      int8 convs ran on the ``mma.sync`` core.  Then K3's and K4's times at
      phase 7's four yolov3 shapes at batch 128: the wgmma core and the
@@ -195,11 +206,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(plain, kernel, plain_iters: int = 20) -> tuple[float, float]:
+def graph_ms(fn, iters: int = 20, warmup: int = 1) -> float:
+    """Mean device ms per call of ``iters`` calls captured in one CUDA graph
+    and replayed (device time only: no host time between launches).  The
+    capture is relaxed: a launcher may set a kernel attribute."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(plain, kernel, plain_iters: int = 20, timer=time_ms) -> tuple[float, float]:
     """Plain, kernel, kernel, plain; the mean of each pair (one card, one call)."""
-    p1 = time_ms(plain, plain_iters, min(3, plain_iters))
-    k1, k2 = time_ms(kernel), time_ms(kernel)
-    p2 = time_ms(plain, plain_iters, min(3, plain_iters))
+    p1 = timer(plain, plain_iters, min(3, plain_iters))
+    k1, k2 = timer(kernel), timer(kernel)
+    p2 = timer(plain, plain_iters, min(3, plain_iters))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -243,6 +276,24 @@ def crowded_boxes(rng, n: int, k: int, device):
             torch.from_numpy(cls).to(device))
 
 
+def plain_rows(kernels, heads, spec) -> torch.Tensor:
+    """K1's plain torch version over every head, on the heads' device."""
+    return torch.cat([kernels.decode_score_head_ref(raw, p.anchors, p.stride, p.classes,
+                                                    cls_act=p.cls_act, scale_xy=p.scale_xy,
+                                                    new_coords=p.new_coords)
+                      for raw, p in zip(heads, kernels.decode_plan(heads, spec))], dim=1)
+
+
+def chain_boxes(n: int, k: int, device):
+    """K boxes in a row, box i = [i, 0, i+3, 10]: IoU 0.5 with its successor,
+    0.2 with the one after, so greedy NMS keeps every other box and the
+    parallel fixpoint needs K rounds.  All valid, one class."""
+    x = torch.arange(k, dtype=torch.float32, device=device)
+    row = torch.stack([x, torch.zeros_like(x), x + 3, torch.full_like(x, 10.0)], -1)
+    return (row.expand(n, k, 4).contiguous(), torch.ones((n, k), dtype=torch.bool, device=device),
+            torch.zeros((n, k), device=device))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -254,6 +305,7 @@ def main() -> None:
     from pytorch_yolo_tpu_torch.config import head_strides, load_model_spec
     from pytorch_yolo_tpu_torch.ops import kernels
     from pytorch_yolo_tpu_torch.ops.decode import head_decode_args
+    from pytorch_yolo_tpu_torch.ops.nms import fixpoint_rounds, iou_matrix
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
     from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 
@@ -290,18 +342,44 @@ def main() -> None:
         anchors, cls_act, sxy, nc = head_decode_args(head, stride)
         x = rng.uniform(0, 1, shape) if pre else rng.normal(0, 2, shape)
         raw = torch.from_numpy(x.astype(np.float32)).to(dev)
-        ours = kernels.decode_score_head(raw, anchors, stride, head.classes, cls_act=cls_act,
-                                         scale_xy=sxy, new_coords=nc)
-        ref = kernels.decode_score_head_ref(raw, anchors, stride, head.classes, cls_act=cls_act,
-                                            scale_xy=sxy, new_coords=nc)
+        kw = dict(cls_act=cls_act, scale_xy=sxy, new_coords=nc)
+        ours = kernels.decode_score_head(raw, anchors, stride, head.classes, **kw)
+        ref = kernels.decode_score_head_ref(raw, anchors, stride, head.classes, **kw)
+        v1 = kernels.decode_score_head(raw, anchors, stride, head.classes, _v1=True, **kw)
         torch.cuda.synchronize()
         err = max_err(ours, ref)
         if not rows_close(ours, ref):
             fail(f"K1 {name}: kernel disagrees with its plain version (max abs err {err})")
+        if not torch.equal(ours, v1):
+            fail(f"K1 {name}: kernel differs from the first port (max abs err {max_err(ours, v1)})")
         if head in v3.yolo_layers:
             k1_err = max(k1_err, err)
         say(f"phase 3 K1 {name} {tuple(shape)}: ok, max abs err {err:.3g} "
-            f"(tol {TOL} rel. to row corners; cls_id exact)")
+            f"(tol {TOL} rel. to row corners; cls_id exact), equal to the first port")
+    heads_bf16 = tuple(torch.from_numpy(rng.normal(0, 2, shape).astype(np.float32))
+                       .to(torch.bfloat16).to(dev) for _, shape, _, _, _ in heads_v3)
+    before = dict(kernels.LAUNCHES)
+    ours = kernels.decode_score_all(heads_bf16, v3)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES != {**before, "decode_score": before["decode_score"] + 1}:
+        fail(f"K1 on three bf16 heads: expected one launch, counts {kernels.LAUNCHES}")
+    wide = tuple(h.to(torch.float32) for h in heads_bf16)
+    ref = plain_rows(kernels, heads_bf16, v3)
+    err = max_err(ours, ref)
+    k1_err = max(k1_err, err)
+    if not rows_close(ours, ref):
+        fail(f"K1 bf16 yolov3 heads: kernel disagrees with its plain version ({err})")
+    if not torch.equal(ours, kernels.decode_score_all(wide, v3, _v1=True)):
+        fail("K1 bf16 yolov3 heads: rows differ from the first port's on the fp32 widening")
+    say(f"phase 3 K1 yolov3 bf16 heads, batch 8, one launch: ok, max abs err {err:.3g}, equal "
+        "to the first port on the fp32 widening")
+    odd = torch.zeros(heads_bf16[0].numel() + 1, dtype=torch.bfloat16, device=dev)
+    try:
+        kernels.decode_score_head(odd[1:].view(heads_bf16[0].shape), v3.yolo_layers[0].anchors,
+                                  32, 80)
+        fail("K1 took a head that is not 16-byte aligned")
+    except ValueError as e:
+        say(f"phase 3 K1 misaligned head: raised ({e})")
     ties = torch.zeros((2, 13, 13, 3 * 85), device=dev)
     ties[..., [5 + 2, 85 + 5 + 2, 170 + 5 + 2]] = 3.0
     ties[..., [5 + 4, 85 + 5 + 4, 170 + 5 + 4]] = 3.0
@@ -312,18 +390,26 @@ def main() -> None:
 
     # 4. K2 against its plain version
     k2_err = 0.0
-    for class_wise in (True, False):
-        boxes, valid, cls = crowded_boxes(rng, 8, MAX_DET, dev)
-        c = cls if class_wise else None
-        ours = kernels.nms_keep(boxes, valid, IOU, c)
-        ref = kernels.nms_keep_ref(boxes, valid, IOU, c)
-        torch.cuda.synchronize()
-        diff = int((ours != ref).sum())
-        k2_err = max(k2_err, float(diff))
-        if diff:
-            fail(f"K2 class_wise={class_wise}: {diff} keep entries differ from the plain version")
-        say(f"phase 4 K2 K={MAX_DET} batch 8 class_wise={class_wise}: ok, keep masks equal "
-            f"({int(ours.sum())} kept of {int(valid.sum())} valid)")
+    for case, k in (("crowded", MAX_DET), ("chain", MAX_DET), ("chain", 1024), ("crowded", 1024)):
+        for class_wise in (True, False):
+            boxes, valid, cls = (crowded_boxes(rng, 8, k, dev) if case == "crowded"
+                                 else chain_boxes(8, k, dev))
+            c = cls if class_wise else None
+            ours = kernels.nms_keep(boxes, valid, IOU, c)
+            ref = kernels.nms_keep_ref(boxes, valid, IOU, c)
+            v1 = kernels.nms_keep(boxes, valid, IOU, c, _v1=True)
+            torch.cuda.synchronize()
+            diff = int((ours != ref).sum())
+            k2_err = max(k2_err, float(diff))
+            if diff:
+                fail(f"K2 {case} K={k} class_wise={class_wise}: {diff} keep entries differ from "
+                     "the plain version")
+            if not torch.equal(ours, v1):
+                fail(f"K2 {case} K={k} class_wise={class_wise}: keep mask differs from the "
+                     "first port's")
+            say(f"phase 4 K2 {case} K={k} batch 8 class_wise={class_wise}: ok, keep masks equal "
+                f"to the plain version's and the first port's ({int(ours.sum())} kept of "
+                f"{int(valid.sum())} valid)")
 
     # 5. the slice at fp32 on the card against the CPU
     frames4 = rng.integers(0, 256, size=(4, 480, 640, 3), dtype=np.uint8)
@@ -333,8 +419,8 @@ def main() -> None:
     gpu = det_gpu.detect_batch(frames4, size=SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
     torch.cuda.synchronize()
     launches5 = dict(kernels.LAUNCHES)
-    if not (launches5["decode_score"] and launches5["nms_keep"]):
-        fail(f"fp32 detect_batch on the card bypassed a kernel: {launches5}")
+    if not (launches5["decode_score"] == 1 and launches5["nms_keep"] == 1):
+        fail(f"fp32 detect_batch on the card: expected one K1 and one K2 launch: {launches5}")
     cpu = det_cpu.detect_batch(frames4, size=SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
     stats = detection_drift(cpu, gpu)
     if not (stats.ref_dets > 0 and stats.set_agreement == 1.0):
@@ -356,8 +442,10 @@ def main() -> None:
     kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
     times, res = pipeline_ms(step)
     launches = dict(kernels.LAUNCHES)
-    if not (launches["decode_score"] and launches["nms_keep"]):
-        fail(f"the bf16 main path bypassed a kernel: {launches}")
+    steps = len(times) + 3  # 3 warm-up steps
+    if not (launches["decode_score"] == steps and launches["nms_keep"] == steps):
+        fail(f"the bf16 main path: expected one K1 and one K2 launch in each of {steps} steps: "
+             f"{launches}")
     check_result(res, "bf16")
     bf16_dets = det._trim(res, BATCH)
     ms = statistics.median(times)
@@ -365,52 +453,103 @@ def main() -> None:
         f"{BATCH / ms * 1e3:.1f} img/s (min {min(times):.3f}, max {max(times):.3f} ms; "
         f"{int(res.valid.sum())} kept) on {card}; launches {launches}")
 
-    # kernel times at the main path's shapes, beside the plain versions
+    # kernel times at the main path's shapes: old against new in turns,
+    # beside the plain versions and the bounds
     with torch.no_grad():
-        heads = det.model(letterbox_batch(frames, SIZE))
+        heads = det.model(letterbox_batch(frames, SIZE), _native_heads=True)  # as served
     spec = det.spec
+    if any(h.dtype != torch.bfloat16 for h in heads):
+        fail(f"the bf16 pipeline's heads are {[h.dtype for h in heads]}, not bf16")
+    heads32 = tuple(h.to(torch.float32).contiguous() for h in heads)
 
-    def k1():
+    def k1():  # the main path: the head convs' bf16 output, one launch
         return kernels.decode_score_all(heads, spec)
 
-    def k1_plain():
-        outs = []
-        for raw, head, stride in zip(heads, spec.yolo_layers, head_strides(spec)):
-            anchors, cls_act, sxy, nc = head_decode_args(head, stride)
-            outs.append(kernels.decode_score_head_ref(raw, anchors, stride, head.classes,
-                                                      cls_act=cls_act, scale_xy=sxy,
-                                                      new_coords=nc))
-        return torch.cat(outs, dim=1)
+    def cast():  # the first port's input: the heads cast to fp32
+        return tuple(h.to(torch.float32).contiguous() for h in heads)
+
+    def k1_v1_cast():
+        return kernels.decode_score_all(cast(), spec, _v1=True)
 
     rows = k1()
-    k1_main_err = max_err(rows, k1_plain())
-    if not rows_close(rows, k1_plain()):
+    k1_plain_rows = plain_rows(kernels, heads, spec)
+    k1_main_err = max_err(rows, k1_plain_rows)
+    if not rows_close(rows, k1_plain_rows):
         fail(f"K1 on the main path's heads disagrees with its plain version ({k1_main_err})")
+    if not torch.equal(rows, kernels.decode_score_all(heads32, spec, _v1=True)):
+        fail("K1 on the main path's heads differs from the first port on their fp32 widening")
+    del k1_plain_rows
     masked = torch.where(rows[..., 4] > CONF, rows[..., 7], torch.full_like(rows[..., 7], -1.0))
     top, idx = torch.sort(masked, dim=1, descending=True, stable=True)
     sel = torch.gather(rows, 1, idx[:, :MAX_DET, None].expand(BATCH, MAX_DET, 8))
     boxes, cls_f = sel[..., :4].contiguous(), sel[..., 6].contiguous()
     valid = (top[:, :MAX_DET] > 0).contiguous()
-    if not torch.equal(kernels.nms_keep(boxes, valid, IOU, cls_f),
-                       kernels.nms_keep_ref(boxes, valid, IOU, cls_f)):
-        fail("K2 on the main path's candidates disagrees with its plain version")
-    k1_ms, k1_plain_ms = in_turns(k1_plain, k1)
-    k2_ms, k2_plain_ms = in_turns(lambda: kernels.nms_keep_ref(boxes, valid, IOU, cls_f),
-                                  lambda: kernels.nms_keep(boxes, valid, IOU, cls_f))
+    keep = kernels.nms_keep(boxes, valid, IOU, cls_f)
+    if not (torch.equal(keep, kernels.nms_keep_ref(boxes, valid, IOU, cls_f))
+            and torch.equal(keep, kernels.nms_keep(boxes, valid, IOU, cls_f, _v1=True))):
+        fail("K2 on the main path's candidates disagrees with its plain version or first port")
+    over = iou_matrix(boxes) > IOU
+    over &= (cls_f[:, :, None] - cls_f[:, None, :]).abs() < 0.5
+    rounds = fixpoint_rounds(over, valid)
+    chain = chain_boxes(BATCH, 1024, dev)
+    chain_rounds = fixpoint_rounds(iou_matrix(chain[0][:2]) > IOU, chain[1][:2])
+    del over
+
+    # device time (CUDA graph) for the kernels' figures; eager calls, host
+    # time between launches included, beside them for K1 and K2
+    k1_ms, k1_v1_cast_ms = in_turns(k1_v1_cast, k1, timer=graph_ms)
+    k1_eager_ms, k1_v1_cast_eager_ms = in_turns(k1_v1_cast, k1)
+    k1_32_ms, k1_v1_ms = in_turns(lambda: kernels.decode_score_all(heads32, spec, _v1=True),
+                                  lambda: kernels.decode_score_all(heads32, spec), timer=graph_ms)
+    cast_ms = graph_ms(cast)
+    k1_plain_ms = time_ms(lambda: plain_rows(kernels, heads, spec), 5, 1)
+    k2_v1 = lambda: kernels.nms_keep(boxes, valid, IOU, cls_f, _v1=True)  # noqa: E731
+    k2 = lambda: kernels.nms_keep(boxes, valid, IOU, cls_f)  # noqa: E731
+    k2_ms, k2_v1_ms = in_turns(k2_v1, k2, timer=graph_ms)
+    k2_eager_ms, k2_v1_eager_ms = in_turns(k2_v1, k2)
+    k2_plain_ms = time_ms(lambda: kernels.nms_keep_ref(boxes, valid, IOU, cls_f))
+    # where K2's time goes: no candidate valid (no IoU, nothing to decide:
+    # launch, loads, barriers, the scan's loads, the stores) and class-agnostic
+    none = torch.zeros_like(valid)
+    k2_floor_ms = graph_ms(lambda: kernels.nms_keep(boxes, none, IOU, cls_f))
+    k2_agnostic_ms = graph_ms(lambda: kernels.nms_keep(boxes, valid, IOU))
+    if not torch.equal(kernels.nms_keep(*chain[:2], IOU), kernels.nms_keep(*chain[:2], IOU,
+                                                                           _v1=True)):
+        fail("K2 on the 1024-long chain at batch 128 differs from the first port")
+    k2_chain_ms, k2_chain_v1_ms = in_turns(lambda: kernels.nms_keep(*chain[:2], IOU, _v1=True),
+                                           lambda: kernels.nms_keep(*chain[:2], IOU), 5,
+                                           timer=graph_ms)
     # K1 reads each head once and writes the rows once; ~2 fp32 ops per class
     # (max, argmax) and ~40 per row (activations, box) are far below that.
-    k1_bytes = sum(h.numel() * h.element_size() for h in heads) + rows.numel() * 4
+    out_bytes = rows.numel() * 4
     k1_ops = rows.shape[0] * rows.shape[1] * (2 * spec.yolo_layers[0].classes + 40)
-    k1_bound, k1_by = bound(k1_ops, k1_bytes, PEAK_FP32_OPS)
-    # K2 reads boxes, valid and class ids and writes the mask once; its IoU
-    # matrix is ~15 fp32 ops per candidate pair (the fixpoint rounds reuse it).
-    k2_bound, k2_by = bound(15 * BATCH * MAX_DET ** 2, BATCH * MAX_DET * (16 + 1 + 4 + 1),
-                            PEAK_FP32_OPS)
-    say(f"phase 6 K1 decode_score_all (3 heads, batch {BATCH}): {k1_ms:.4f} ms, plain "
-        f"{k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}, {k1_bound / k1_ms:.1%}); "
-        f"K2 nms_keep ({BATCH}x{MAX_DET}): {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, "
-        f"bound {k2_bound:.5f} ms ({k2_by}, {k2_bound / k2_ms:.1%}); on {card}")
-    del det, heads, rows
+    k1_bound, k1_by = bound(k1_ops, sum(h.numel() * 2 for h in heads) + out_bytes, PEAK_FP32_OPS)
+    k1_32_bound, _ = bound(k1_ops, sum(h.numel() * 4 for h in heads) + out_bytes, PEAK_FP32_OPS)
+    cast_bound, _ = bound(0, sum(h.numel() * 6 for h in heads), PEAK_FP32_OPS)
+    # K2 reads boxes, valid and class ids and writes the mask once; the
+    # relation needs ~15 fp32 ops for each of the K(K-1)/2 pairs j < i (the
+    # suppression reuses it).
+    k2_bound, k2_by = bound(15 * BATCH * MAX_DET * (MAX_DET - 1) / 2,
+                            BATCH * MAX_DET * (16 + 1 + 4 + 1), PEAK_FP32_OPS)
+    k2_chain_bound, _ = bound(15 * BATCH * 1024 * 1023 / 2, BATCH * 1024 * (16 + 1 + 1),
+                              PEAK_FP32_OPS)
+    say(f"phase 6 K1 decode_score_all, 3 bf16 heads, batch {BATCH}, one launch: {k1_ms:.4f} ms "
+        f"device ({k1_bound / k1_ms:.1%} of its {k1_bound:.4f} ms bound, {k1_by}), "
+        f"{k1_eager_ms:.4f} ms eager; first port on the same heads, cast to fp32 + 3 launches: "
+        f"{k1_v1_cast_ms:.4f} ms device, {k1_v1_cast_eager_ms:.4f} eager (the cast alone "
+        f"{cast_ms:.4f} ms, bound {cast_bound:.4f}); plain {k1_plain_ms:.4f} ms; on {card}")
+    say(f"phase 6 K1 on fp32 heads, device: new {k1_32_ms:.4f} ms ({k1_32_bound / k1_32_ms:.1%} "
+        f"of {k1_32_bound:.4f} ms), first port {k1_v1_ms:.4f} ms ({k1_32_bound / k1_v1_ms:.1%})")
+    say(f"phase 6 K2 nms_keep {BATCH}x{MAX_DET} (the step's candidates, {int(valid.sum())} valid, "
+        f"fixpoint rounds {rounds}): new {k2_ms:.4f} ms device ({k2_bound / k2_ms:.1%} of "
+        f"{k2_bound:.5f} ms, {k2_by}), {k2_eager_ms:.4f} eager; first port {k2_v1_ms:.4f} ms "
+        f"device, {k2_v1_eager_ms:.4f} eager; plain {k2_plain_ms:.4f} ms; the same boxes with "
+        f"no candidate valid {k2_floor_ms:.4f} ms, class-agnostic {k2_agnostic_ms:.4f} ms; "
+        f"1024-long chain "
+        f"at batch {BATCH} (fixpoint rounds {chain_rounds}), device: new {k2_chain_ms:.4f} ms "
+        f"({k2_chain_bound / k2_chain_ms:.1%} of {k2_chain_bound:.5f} ms), first port "
+        f"{k2_chain_v1_ms:.4f} ms")
+    del det, heads, heads32, rows, chain
 
     # 7. K3 and K4 against their plain versions
     errs = {"int8_gemm": 0.0, "int8_conv": 0.0}
@@ -490,8 +629,10 @@ def main() -> None:
     gpu = det_gpu.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
     torch.cuda.synchronize()
     launches8 = dict(kernels.LAUNCHES)
-    if not all(launches8[k] for k in ("decode_score", "nms_keep", "int8_gemm", "int8_conv")):
+    if not all(launches8[k] for k in ("int8_gemm", "int8_conv")):
         fail(f"int8 detect_batch on the card bypassed a kernel: {launches8}")
+    if not (launches8["decode_score"] == 1 and launches8["nms_keep"] == 1):
+        fail(f"int8 detect_batch: expected one K1 and one K2 launch: {launches8}")
     cpu = det_cpu.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
     stats8 = detection_drift(cpu, gpu)
     if not (stats8.ref_dets > 0 and stats8.set_agreement >= 0.995):
@@ -516,8 +657,11 @@ def main() -> None:
     kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
     times9, res9 = pipeline_ms(step9)
     launches9 = dict(kernels.LAUNCHES)
-    if not all(launches9[k] for k in ("decode_score", "nms_keep", "int8_gemm", "int8_conv")):
+    if not all(launches9[k] for k in ("int8_gemm", "int8_conv")):
         fail(f"the int8sb path bypassed a kernel: {launches9}")
+    if not (launches9["decode_score"] == steps and launches9["nms_keep"] == steps):
+        fail(f"the int8sb path: expected one K1 and one K2 launch in each of {steps} steps: "
+             f"{launches9}")
     if launches9["int8_gemm_mma"] or launches9["int8_conv_mma"]:
         fail(f"an int8sb conv ran on the mma.sync core: {launches9}")
     n_int8 = launches9["int8_gemm"] + launches9["int8_conv"]
@@ -586,25 +730,29 @@ def main() -> None:
          "replaces": "pytorch_yolo_tpu/ops/pallas_kernels.py:110",
          "launches": launches["decode_score"], "max_abs_err": max(k1_err, k1_main_err),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
+         "library_ms": None,
+         # the first port on the same bf16 heads: the cast to fp32 + its 3 launches
+         "v1_ms": k1_v1_cast_ms, "v1_kernel_ms": k1_v1_ms, "fp32_ms": k1_32_ms,
+         "eager_ms": k1_eager_ms},
         {"name": "nms_keep", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/nms_keep.cu",
          "replaces": "pytorch_yolo_tpu/ops/pallas_kernels.py:312",
          "launches": launches["nms_keep"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None},
+         "library_ms": None, "v1_ms": k2_v1_ms, "eager_ms": k2_eager_ms},
         {"name": "int8_gemm", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/gemm_i8.cu",
          "replaces": "tools/int8_kernel_probe.py:181",
          "launches": launches9["int8_gemm"], "max_abs_err": errs["int8_gemm"],
          "ms": g9["ms"], "plain_ms": g9["plain_ms"], "bound_ms": g9["bound_ms"],
-         "bound_by": g9["bound_by"], "library_ms": g9["int_mm_ms"]},
+         "bound_by": g9["bound_by"], "library_ms": g9["int_mm_ms"],
+         "v1_ms": g9["old_ms"]},  # the mma.sync core, as first ported
         {"name": "int8_conv", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/int8_conv.cu",
          "replaces": "pytorch_yolo_tpu/ops/quant.py:564",
          "launches": launches9["int8_conv"], "max_abs_err": errs["int8_conv"],
          "ms": c9["ms"], "plain_ms": c9["plain_ms"], "bound_ms": c9["bound_ms"],
-         "bound_by": c9["bound_by"], "library_ms": c9["cudnn_ms"]},
+         "bound_by": c9["bound_by"], "library_ms": c9["cudnn_ms"], "v1_ms": c9["old_ms"]},
     ]}
     say(json.dumps(report))
     say(card)

@@ -342,7 +342,7 @@ class Detector:
 
         def pipeline(imgs: torch.Tensor) -> NMSResult:
             x = letterbox_batch(imgs, size=key.size, bgr=key.bgr)
-            rows = decode_score_all(model(x), spec)
+            rows = decode_score_all(model(x, _native_heads=True), spec)  # bf16 heads as they are
             res = batched_nms_fused(rows, conf_thresh=key.conf, iou_thresh=key.iou,
                                     max_det=key.max_det)
             return res._replace(boxes=unletterbox_boxes(res.boxes, geo))

@@ -24,7 +24,10 @@ Precision: ``dtype=torch.float32`` with ``precision="highest"`` is the
 parity mode — cuDNN's TF32 is switched off for the duration of the forward
 only (it is on by default for fp32 convs, the same trap the JAX package
 documents for XLA's default precision).  ``dtype=torch.bfloat16`` is the
-serving mode: weights and activations in bf16, heads cast to fp32.
+serving mode: weights and activations in bf16, heads cast to fp32 — except
+in the serving pipeline, which asks for the heads in the forward's dtype
+(``_native_heads=True``) and hands the bf16 views straight to K1, which
+widens them in registers (bf16 -> fp32 is exact, so the rows are the same).
 """
 
 from __future__ import annotations
@@ -216,12 +219,16 @@ class Darknet(nn.Module):
         return y.permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor,
-                collect_conv_in_stats: "Callable[[int, torch.Tensor], Any] | None" = None):
+                collect_conv_in_stats: "Callable[[int, torch.Tensor], Any] | None" = None,
+                _native_heads: bool = False):
         """(N, H, W, 3) float in [0, 1] -> raw (N, Gy, Gx, A*(5+C)) fp32 heads.
 
         ``collect_conv_in_stats=f`` also returns ``{conv index: f(index,
         conv input as an NHWC view)}`` for every conv where ``f`` returns
-        something other than None (the calibration hook)."""
+        something other than None (the calibration hook).
+        ``_native_heads=True`` (the serving pipeline's) returns bf16 and fp32
+        heads as they are, the NHWC view of the head conv's ``channels_last``
+        output with no copy; other dtypes still become fp32."""
         x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view; each fp conv casts
         cache: dict[int, torch.Tensor] = {}
         heads: list[torch.Tensor] = []
@@ -254,7 +261,10 @@ class Darknet(nn.Module):
                 elif isinstance(layer, ShortcutSpec):
                     x = cache[layer.index - 1] + cache[layer.from_layer]
                 elif isinstance(layer, (YoloSpec, RegionSpec)):
-                    heads.append(x.permute(0, 2, 3, 1).to(torch.float32).contiguous())
+                    h = x.permute(0, 2, 3, 1)
+                    if not (_native_heads and h.dtype in (torch.bfloat16, torch.float32)):
+                        h = h.to(torch.float32)
+                    heads.append(h.contiguous())
                 if layer.index in self._needed:
                     cache[layer.index] = x
         if collect_conv_in_stats is not None:

@@ -1,10 +1,13 @@
 """The hand-written CUDA kernels, their plain versions, and their build.
 
-* **K1** :func:`decode_score_head` (``csrc/decode_score.cu``): one head's
-  raw map -> (N, R, 8) rows ``[x1, y1, x2, y2, obj, cls_score, cls_id, rank]``
-  (``pytorch_yolo_tpu/ops/pallas_kernels.py: decode_score_head``).
+* **K1** :func:`decode_score_all` / :func:`decode_score_head`
+  (``csrc/decode_score.cu``): every head's raw map, bf16 or fp32, -> one
+  (N, D, 8) buffer of rows ``[x1, y1, x2, y2, obj, cls_score, cls_id,
+  rank]`` in one launch (``pytorch_yolo_tpu/ops/pallas_kernels.py:
+  decode_score_head``); :func:`decode_plan` is its launch table.
 * **K2** :func:`nms_keep` (``csrc/nms_keep.cu``): batched greedy-NMS keep
-  mask by parallel fixpoint (``pallas_kernels.py: nms_keep_pallas``).
+  mask, the overlap bitmask built by the whole block and scanned by one
+  warp (``pallas_kernels.py: nms_keep_pallas``).
 * **K3** :func:`int8_gemm` (``csrc/gemm_i8.cu``): s8 x s8 -> s32 GEMM with
   the probe's fixed-point requant (``tools/int8_kernel_probe.py:
   gemm_i8_pallas``) or the int8 serving epilogue; every quantized 1x1
@@ -22,7 +25,10 @@ are multiples of 16 (:func:`igemm_plan`); the ``mma.sync`` core
 Each has a plain torch version beside it (``*_ref``).  A wrapper takes the
 plain version only when its input lies on the CPU; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, so a
-run can show that the main path went through the kernels.
+run can show that the main path went through the kernels.  K1 and K2 as
+first ported (``csrc/decode_score_v1.cu``, ``csrc/nms_keep_v1.cu``) stay
+for A/B timing only, behind a private ``_v1=True`` argument, and are
+counted apart (``decode_score_v1``, ``nms_keep_v1``).
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` (Hopper)
 into ``csrc/_build/``: one nvcc per source, all started together, then one
@@ -40,6 +46,7 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +56,8 @@ from .decode import head_decode_args
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f) for f in
-                ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu"))
+                ("decode_score.cu", "decode_score_v1.cu", "nms_keep.cu", "nms_keep_v1.cu",
+                 "gemm_i8.cu", "int8_conv.cu"))
 HEADERS = tuple(os.path.join(CSRC, f) for f in ("int8_igemm.cuh", "int8_wgmma.cuh"))
 BUILD_DIR = os.path.join(CSRC, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libyolo_kernels.so")
@@ -57,11 +65,13 @@ BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"decode_score": 0, "nms_keep": 0, "int8_gemm": 0, "int8_gemm_mma": 0,
-            "int8_conv": 0, "int8_conv_mma": 0}
+LAUNCHES = {"decode_score": 0, "decode_score_v1": 0, "nms_keep": 0, "nms_keep_v1": 0,
+            "int8_gemm": 0, "int8_gemm_mma": 0, "int8_conv": 0, "int8_conv_mma": 0}
 
-MAX_ANCHORS = 8    # csrc/decode_score.cu: kMaxAnchors
-MAX_NMS_K = 1024   # one thread per candidate in one block
+MAX_ANCHORS = 8         # csrc/decode_score.cu: kMaxAnchors
+MAX_HEADS = 8           # csrc/decode_score.cu: kMaxHeads, heads in one K1 launch
+DECODE_TILE_ROWS = 128  # csrc/decode_score.cu: kTileRows, rows a K1 tile
+MAX_NMS_K = 1024        # csrc/nms_keep.cu: kMaxK, one bitmask word a lane
 _SMEM_LIMIT = 227 * 1024
 _CLS_ACT = {"sigmoid": 0, "softmax": 1, "linear": 2}
 _SCORE_MODE = {"obj": 0, "obj*cls": 1}
@@ -137,11 +147,14 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             f, ll = ctypes.c_float, ctypes.c_longlong
-            lib.yolo_decode_score.argtypes = [p, p, i, i, i, i, i, ctypes.POINTER(f), f, f, f,
-                                              i, i, i, ll, i, i, p]
-            lib.yolo_decode_score.restype = i
-            lib.yolo_nms_keep.argtypes = [p, p, p, p, i, i, f, i, p]
-            lib.yolo_nms_keep.restype = i
+            lib.yolo_decode_score.argtypes = [ctypes.POINTER(_DecodeArgs), i, i, p]
+            lib.yolo_decode_score_v1.argtypes = [p, p, i, i, i, i, i, ctypes.POINTER(f), f, f,
+                                                 f, i, i, i, ll, i, i, p]
+            for fn in (lib.yolo_nms_keep, lib.yolo_nms_keep_v1):
+                fn.argtypes = [p, p, p, p, i, i, f, i, p]
+            for fn in (lib.yolo_decode_score, lib.yolo_decode_score_v1, lib.yolo_nms_keep,
+                       lib.yolo_nms_keep_v1):
+                fn.restype = i
             for fn in (lib.yolo_int8_gemm, lib.yolo_int8_conv, lib.yolo_int8_gemm_mma,
                        lib.yolo_int8_conv_mma):
                 fn.argtypes = [ctypes.POINTER(_IgemmArgs), i, i, p]
@@ -240,6 +253,168 @@ def decode_score_head_ref(
                         obj, cls_score, cls_id, rank], dim=-1)
 
 
+class HeadPlan(NamedTuple):
+    """One head's entry in K1's launch table (:func:`decode_plan`)."""
+
+    batch: int
+    gy: int
+    gx: int
+    anchors: tuple
+    stride: int
+    classes: int
+    cls_act: str
+    scale_xy: float
+    new_coords: bool
+    rows: int        # rows an image, Gy*Gx*A
+    out_row0: int    # the head's first row in an image of the (N, D, 8) output
+    first_tile: int  # tiles of DECODE_TILE_ROWS rows, numbered across heads
+    tiles: int       # ceil(N * rows / DECODE_TILE_ROWS)
+
+
+def _head_plan(shape, anchors, stride, classes, cls_act="sigmoid", scale_xy=1.0,
+               new_coords=False, out_row0=0, first_tile=0) -> HeadPlan:
+    n, gy, gx, ch = shape
+    a = len(anchors)
+    if ch != a * (5 + classes):
+        raise ValueError(f"head has {ch} channels, expected {a}*(5+{classes})")
+    if cls_act not in _CLS_ACT:
+        raise ValueError(f"unknown cls_act {cls_act!r}")
+    rows = gy * gx * a
+    return HeadPlan(n, gy, gx, tuple(anchors), stride, classes, cls_act, scale_xy,
+                    bool(new_coords), rows, out_row0, first_tile,
+                    -(-n * rows // DECODE_TILE_ROWS))
+
+
+_PLANS: dict = {}  # (id(spec), shapes) -> (spec, plans): a step reuses its table
+
+
+def decode_plan(shapes, spec: ModelSpec) -> tuple[HeadPlan, ...]:
+    """K1's launch table for heads of the given (N, Gy, Gx, A*(5+C)) shapes
+    (or tensors) of ``spec``: each head's decode arguments, its row range in
+    the (N, D, 8) output and its tiles.  Head h's tile ``first_tile + t``
+    holds its rows ``[t * DECODE_TILE_ROWS, (t + 1) * DECODE_TILE_ROWS)`` of
+    N * rows (image-major), row ``n * rows + r`` going to output row
+    ``out_row0 + r`` of image n.  D is the last entry's ``out_row0 + rows``.
+    Tables are cached by spec and shapes: ``spec.yolo_layers`` walks every
+    layer on each call, which cost more host time than the kernel."""
+    shapes = tuple(tuple(getattr(s, "shape", s)) for s in shapes)
+    hit = _PLANS.get((id(spec), shapes))
+    if hit is not None and hit[0] is spec:
+        return hit[1]
+    plans: list[HeadPlan] = []
+    r0 = t0 = 0
+    layers = spec.yolo_layers
+    for shape, head, stride in zip(shapes, layers, head_strides(spec)):
+        anchors, cls_act, sxy, nc = head_decode_args(head, stride)
+        plan = _head_plan(shape, anchors, stride, head.classes, cls_act, sxy, nc, r0, t0)
+        if plan.batch != (plans[0].batch if plans else plan.batch):
+            raise ValueError("heads of one batch must have one batch size")
+        plans.append(plan)
+        r0 += plan.rows
+        t0 += plan.tiles
+    if len(plans) != len(layers):
+        raise ValueError(f"{len(plans)} heads for a model of {len(layers)}")
+    if len(_PLANS) >= 64:
+        _PLANS.clear()
+    _PLANS[(id(spec), shapes)] = (spec, tuple(plans))
+    return tuple(plans)
+
+
+class _DecodeHead(ctypes.Structure):
+    """csrc/decode_score.cu: DecodeHead, field for field."""
+
+    _fields_ = ([("raw", ctypes.c_void_p), ("rows_total", ctypes.c_longlong),
+                 ("out_row0", ctypes.c_longlong)]
+                + [(n, ctypes.c_int) for n in ("rows", "gx", "num_anchors", "attrs",
+                                               "num_classes", "cls_act", "new_coords",
+                                               "first_tile")]
+                + [(n, ctypes.c_float) for n in ("stride", "scale_xy", "shift_xy")]
+                + [("anchors", ctypes.c_float * (2 * MAX_ANCHORS))])
+
+
+class _DecodeArgs(ctypes.Structure):
+    """csrc/decode_score.cu: DecodeArgs, field for field."""
+
+    _fields_ = ([("head", _DecodeHead * MAX_HEADS), ("out", ctypes.c_void_p),
+                 ("out_batch_stride", ctypes.c_longlong)]
+                + [(n, ctypes.c_int) for n in ("num_heads", "total_tiles", "score_mode",
+                                               "stages", "stage_bytes")])
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_args(plans: tuple[HeadPlan, ...], score_mode: str, elem_bytes: int) -> bytes:
+    """K1's launch arguments for a table, without the tensors' addresses."""
+    if not 1 <= len(plans) <= MAX_HEADS:
+        raise ValueError(f"decode_score: {len(plans)} heads, one launch takes 1..{MAX_HEADS}")
+    args = _DecodeArgs(num_heads=len(plans), total_tiles=sum(p.tiles for p in plans),
+                       score_mode=_SCORE_MODE[score_mode])
+    for slot, p in zip(args.head, plans):
+        a, attrs = len(p.anchors), 5 + p.classes
+        if not 1 <= a <= MAX_ANCHORS:
+            raise ValueError(f"decode_score: {a} anchors, the kernel takes 1..{MAX_ANCHORS}")
+        if p.batch * p.rows >= 2 ** 31:
+            raise ValueError("decode_score: a head of 2**31 rows or more")
+        if 2 * DECODE_TILE_ROWS * attrs * elem_bytes + 128 > _SMEM_LIMIT:
+            raise ValueError(f"decode_score: {p.classes} classes exceed the shared-memory ring")
+        slot.rows_total, slot.out_row0 = p.batch * p.rows, p.out_row0
+        slot.rows, slot.gx, slot.num_anchors, slot.attrs = p.rows, p.gx, a, attrs
+        slot.num_classes, slot.cls_act = p.classes, _CLS_ACT[p.cls_act]
+        slot.new_coords, slot.first_tile = int(p.new_coords), p.first_tile
+        slot.stride, slot.scale_xy = float(p.stride), float(p.scale_xy)
+        slot.shift_xy = 0.5 * (float(p.scale_xy) - 1.0)
+        slot.anchors[:2 * a] = [float(v) for wh in p.anchors for v in wh]
+    return bytes(args)
+
+
+def _launch_decode(heads, plans: tuple[HeadPlan, ...], out: torch.Tensor,
+                   score_mode: str) -> None:
+    """One launch of K1 over ``heads`` (CUDA tensors of one dtype, bf16 or
+    fp32) into ``out``, an (N, D', 8) fp32 view with contiguous rows."""
+    device, stream = _cuda_args("decode_score", *heads)
+    dtype = heads[0].dtype
+    if dtype not in (torch.bfloat16, torch.float32) or any(h.dtype != dtype for h in heads):
+        raise ValueError("decode_score: heads must all be bfloat16 or all float32, got "
+                         f"{[h.dtype for h in heads]}")
+    if any(h.data_ptr() % 16 for h in heads):
+        raise ValueError("decode_score: a head's data is not 16-byte aligned (the bulk copy "
+                         "needs it; the kernel does not copy it for you)")
+    if out.device != heads[0].device or out.data_ptr() % 16 or out.stride(0) % 4:
+        raise ValueError("decode_score: out must be 16-byte aligned on the heads' device")
+    args = _DecodeArgs.from_buffer_copy(_decode_args(tuple(plans), score_mode,
+                                                     heads[0].element_size()))
+    args.out, args.out_batch_stride = out.data_ptr(), out.stride(0)
+    for slot, raw in zip(args.head, heads):
+        slot.raw = raw.data_ptr()
+    rc = load_library().yolo_decode_score(ctypes.byref(args), heads[0].element_size(), device,
+                                          stream)
+    _raise_on(rc, "decode_score")
+    LAUNCHES["decode_score"] += 1
+
+
+def _launch_decode_v1(raw: torch.Tensor, p: HeadPlan, out: torch.Tensor, score_mode: str) -> None:
+    """K1 as first ported (``csrc/decode_score_v1.cu``), one fp32 head a
+    launch; for A/B timing only."""
+    if raw.dtype != torch.float32:
+        raise ValueError(f"decode_score (v1): raw must be float32, got {raw.dtype}")
+    a, attrs = len(p.anchors), 5 + p.classes
+    if not 1 <= a <= MAX_ANCHORS:
+        raise ValueError(f"decode_score: {a} anchors, the kernel takes 1..{MAX_ANCHORS}")
+    if out.device != raw.device or out.data_ptr() % 16:
+        raise ValueError("decode_score: out must be 16-byte aligned on the input's device")
+    rows_per_block = 128 if 128 * attrs * 4 <= 48 * 1024 else 32
+    if rows_per_block * attrs * 4 > _SMEM_LIMIT:
+        raise ValueError(f"decode_score: {p.classes} classes exceed the shared-memory tile")
+    device, stream = _cuda_args("decode_score", raw)
+    anchors_wh = (ctypes.c_float * (2 * a))(*[float(v) for wh in p.anchors for v in wh])
+    rc = load_library().yolo_decode_score_v1(
+        raw.data_ptr(), out.data_ptr(), p.batch, p.gy, p.gx, a, p.classes, anchors_wh,
+        float(p.stride), float(p.scale_xy), 0.5 * (float(p.scale_xy) - 1.0),
+        int(p.new_coords), _CLS_ACT[p.cls_act], _SCORE_MODE[score_mode], out.stride(0),
+        rows_per_block, device, stream)
+    _raise_on(rc, "decode_score_v1")
+    LAUNCHES["decode_score_v1"] += 1
+
+
 def decode_score_head(
     raw: torch.Tensor,
     anchors: tuple[tuple[float, float], ...],
@@ -250,63 +425,49 @@ def decode_score_head(
     scale_xy: float = 1.0,
     new_coords: bool = False,
     out: "torch.Tensor | None" = None,
+    _v1: bool = False,
 ) -> torch.Tensor:
-    """K1: (N, Gy, Gx, A*(5+C)) fp32 raw head -> (N, Gy*Gx*A, 8) fp32 rows.
+    """K1 on one head: (N, Gy, Gx, A*(5+C)) raw, bf16 or fp32 -> (N,
+    Gy*Gx*A, 8) fp32 rows.
 
     ``out``, when given, is an (N, R, 8) fp32 view whose rows are contiguous
-    (a row range of a larger (N, D, 8) buffer); the rows are written there."""
-    n, gy, gx, ch = raw.shape
-    a, attrs = len(anchors), 5 + num_classes
-    if ch != a * attrs:
-        raise ValueError(f"head has {ch} channels, expected {a}*(5+{num_classes})")
-    if cls_act not in _CLS_ACT or score_mode not in _SCORE_MODE:
-        raise ValueError(f"unknown cls_act {cls_act!r} or score_mode {score_mode!r}")
-    rows = gy * gx * a
+    (a row range of a larger (N, D, 8) buffer); the rows are written there.
+    ``_v1`` (CUDA, fp32 only) runs K1 as first ported, for A/B timing."""
+    n = raw.shape[0]
+    plan = _head_plan(tuple(raw.shape), anchors, stride, num_classes, cls_act, scale_xy,
+                      new_coords)
+    if score_mode not in _SCORE_MODE:
+        raise ValueError(f"unknown score_mode {score_mode!r}")
     if out is None:
-        out = torch.empty((n, rows, 8), dtype=torch.float32, device=raw.device)
-    elif (tuple(out.shape) != (n, rows, 8) or out.dtype != torch.float32
+        out = torch.empty((n, plan.rows, 8), dtype=torch.float32, device=raw.device)
+    elif (tuple(out.shape) != (n, plan.rows, 8) or out.dtype != torch.float32
           or out.stride(2) != 1 or out.stride(1) != 8):
-        raise ValueError(f"out must be an ({n}, {rows}, 8) fp32 view with contiguous rows")
+        raise ValueError(f"out must be an ({n}, {plan.rows}, 8) fp32 view with contiguous rows")
     if raw.device.type == "cpu":
         out.copy_(decode_score_head_ref(raw, anchors, stride, num_classes, score_mode,
                                         cls_act, scale_xy, new_coords))
-        return out
-
-    if raw.dtype != torch.float32:
-        raise ValueError(f"decode_score: raw must be float32, got {raw.dtype}")
-    if not 1 <= a <= MAX_ANCHORS:
-        raise ValueError(f"decode_score: {a} anchors, the kernel takes 1..{MAX_ANCHORS}")
-    if out.device != raw.device or out.data_ptr() % 16:
-        raise ValueError("decode_score: out must be 16-byte aligned on the input's device")
-    rows_per_block = 128 if 128 * attrs * 4 <= 48 * 1024 else 32
-    if rows_per_block * attrs * 4 > _SMEM_LIMIT:
-        raise ValueError(f"decode_score: {num_classes} classes exceed the shared-memory tile")
-    device, stream = _cuda_args("decode_score", raw)
-    anchors_wh = (ctypes.c_float * (2 * a))(*[float(v) for wh in anchors for v in wh])
-    rc = load_library().yolo_decode_score(
-        raw.data_ptr(), out.data_ptr(), n, gy, gx, a, num_classes, anchors_wh,
-        float(stride), float(scale_xy), 0.5 * (float(scale_xy) - 1.0), int(new_coords),
-        _CLS_ACT[cls_act], _SCORE_MODE[score_mode], out.stride(0), rows_per_block,
-        device, stream)
-    _raise_on(rc, "decode_score")
-    LAUNCHES["decode_score"] += 1
+    elif _v1:
+        _launch_decode_v1(raw, plan, out, score_mode)
+    else:
+        _launch_decode([raw], [plan], out, score_mode)
     return out
 
 
 def decode_score_all(heads: tuple[torch.Tensor, ...], spec: ModelSpec,
-                     score_mode: str = "obj") -> torch.Tensor:
-    """K1 over every head -> (N, D, 8), each head written into its row range."""
-    strides = head_strides(spec)
-    sizes = [h.shape[1] * h.shape[2] * len(s.anchors) for h, s in zip(heads, spec.yolo_layers)]
-    out = torch.empty((heads[0].shape[0], sum(sizes), 8), dtype=torch.float32,
-                      device=heads[0].device)
-    r0 = 0
-    for raw, head, stride, rows in zip(heads, spec.yolo_layers, strides, sizes):
-        anchors, cls_act, sxy, nc = head_decode_args(head, stride)
-        decode_score_head(raw, anchors, stride, head.classes, score_mode=score_mode,
-                          cls_act=cls_act, scale_xy=sxy, new_coords=nc,
-                          out=out[:, r0:r0 + rows])
-        r0 += rows
+                     score_mode: str = "obj", _v1: bool = False) -> torch.Tensor:
+    """K1 over every head (bf16 or fp32) -> (N, D, 8) fp32, each head written
+    into its row range; one launch on the card.  ``_v1`` (CUDA, fp32 only)
+    runs K1 as first ported, one launch a head, for A/B timing."""
+    plans = decode_plan(heads, spec)
+    out = torch.empty((plans[0].batch, plans[-1].out_row0 + plans[-1].rows, 8),
+                      dtype=torch.float32, device=heads[0].device)
+    if heads[0].device.type == "cuda" and not _v1:
+        _launch_decode(heads, plans, out, score_mode)
+        return out
+    for raw, p in zip(heads, plans):
+        decode_score_head(raw, p.anchors, p.stride, p.classes, score_mode=score_mode,
+                          cls_act=p.cls_act, scale_xy=p.scale_xy, new_coords=p.new_coords,
+                          out=out[:, p.out_row0:p.out_row0 + p.rows], _v1=_v1)
     return out
 
 
@@ -331,9 +492,10 @@ def nms_keep_ref(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
 
 
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
-             cls_id: "torch.Tensor | None" = None) -> torch.Tensor:
+             cls_id: "torch.Tensor | None" = None, _v1: bool = False) -> torch.Tensor:
     """K2: (N, K, 4) score-sorted corner boxes, (N, K) bool valid, optional
-    (N, K) fp32 class ids (class-wise suppression) -> (N, K) bool keep mask."""
+    (N, K) fp32 class ids (class-wise suppression) -> (N, K) bool keep mask.
+    ``_v1`` (CUDA only) runs K2 as first ported, for A/B timing."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (N, K, 4), got {tuple(boxes.shape)}")
     n, k, _ = boxes.shape
@@ -349,12 +511,15 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     if not 1 <= k <= MAX_NMS_K:
         raise ValueError(f"nms_keep: K={k}, the kernel takes 1..{MAX_NMS_K}")
     device, stream = _cuda_args("nms_keep", boxes, valid, cls_id)
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms_keep: boxes must be 16-byte aligned")
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
-    rc = load_library().yolo_nms_keep(
+    key = "nms_keep_v1" if _v1 else "nms_keep"
+    rc = getattr(load_library(), "yolo_" + key)(
         boxes.data_ptr(), valid.data_ptr(), None if cls_id is None else cls_id.data_ptr(),
         keep.data_ptr(), n, k, float(iou_thresh), device, stream)
-    _raise_on(rc, "nms_keep")
-    LAUNCHES["nms_keep"] += 1
+    _raise_on(rc, key)
+    LAUNCHES[key] += 1
     return keep
 
 

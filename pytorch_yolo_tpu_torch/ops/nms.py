@@ -64,17 +64,29 @@ def fixpoint_keep(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     every undecided candidate with no unkilled higher-ranked overlapper and
     kills every undecided one with a kept overlapper; invalid rows start
     killed.  The keep-set equals sequential greedy NMS's."""
+    return _fixpoint(over, valid)[0]
+
+
+def fixpoint_rounds(over: torch.Tensor, valid: torch.Tensor) -> int:
+    """The number of rounds :func:`fixpoint_keep` takes on a batch (its
+    deepest image): the depth of the longest suppression chain, plus one."""
+    return _fixpoint(over, valid)[1]
+
+
+def _fixpoint(over: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, int]:
     k = over.shape[-1]
     over = over & torch.ones((k, k), dtype=torch.bool, device=over.device).triu(1)
     kept = torch.zeros_like(valid)
     killed = ~valid
+    rounds = 0
     while bool((~(kept | killed)).any()):
         undecided = ~(kept | killed)
         blocked = (over & ~killed[..., :, None]).any(dim=-2)
         kill_now = (over & kept[..., :, None]).any(dim=-2)
         kept = kept | (undecided & ~blocked)
         killed = killed | (undecided & kill_now)
-    return kept
+        rounds += 1
+    return kept, rounds
 
 
 def greedy_suppress(iou: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:

@@ -13,6 +13,8 @@ versions against the JAX package's Pallas kernels on the CPU.
 Tolerances: decode rows rtol = atol = 1e-5 (``expf`` and summation order),
 with box columns relative to the row's largest corner (a corner is a
 difference of two values up to ~1e4 px); ``cls_id`` and keep masks exact.
+K1 and K2 also equal their first ports (``_v1``) exactly: the same
+arithmetic in the same order, bf16 heads widened exactly to fp32.
 The int8 kernels K3/K4: int32 accumulators and int8 outputs exact; fp32
 outputs within 1e-6 relative (the kernels follow the plain versions'
 operation order, each multiply-add one explicit FMA as in the plain
@@ -89,7 +91,43 @@ def crowded_boxes(seed, n, k):
     return boxes, valid, cls
 
 
-NMS_CASES = [(seed, k, cw) for seed, k in ((0, 37), (1, 96), (2, 300)) for cw in (False, True)]
+def nms_input(seed, n, k):
+    """(boxes, valid, cls) of an NMS case: an int seed gives
+    :func:`crowded_boxes`; a name gives an edge case of K candidates:
+    "chain" (box i overlaps box i+1 only, IoU 0.5, and box i+2 at IoU 0.2:
+    greedy keeps every other box, the fixpoint takes K rounds), "crowded"
+    (crowded boxes at an odd K), "all_invalid", "identical" (every box the
+    same, all valid), "nan_corners" (crowded, one corner NaN in ~15% of
+    rows)."""
+    if not isinstance(seed, str):
+        return crowded_boxes(seed, n, k)
+    if seed == "chain":
+        x = np.arange(k, dtype=np.float32)
+        row = np.stack([x, np.zeros_like(x), x + 3, np.full_like(x, 10)], -1)
+        return (np.broadcast_to(row, (n, k, 4)).copy(), np.ones((n, k), bool),
+                np.zeros((n, k), np.float32))
+    boxes, valid, cls = crowded_boxes(k, n, k)
+    if seed == "all_invalid":
+        valid[:] = False
+    elif seed == "identical":
+        boxes[:] = boxes[:, :1]
+        valid[:] = True
+    elif seed == "nan_corners":
+        rng = np.random.default_rng(k)
+        nan = rng.uniform(size=(n, k)) < 0.15
+        boxes[nan, rng.integers(0, 4, int(nan.sum()))] = np.nan
+    return boxes, valid, cls
+
+
+# (seed or edge case, K, class-wise)
+NMS_CASES = ([(seed, k, cw) for seed, k in ((0, 37), (1, 96), (2, 300)) for cw in (False, True)]
+             + [(kind, k, cw) for kind, k in (("chain", 300), ("crowded", 1), ("crowded", 31),
+                                              ("crowded", 32), ("crowded", 33),
+                                              ("all_invalid", 64), ("identical", 40),
+                                              ("nan_corners", 96))
+                for cw in (False, True)])
+# the card only: the kernels' largest K (the plain fixpoint takes 1024 rounds on the chain)
+NMS_CARD_CASES = NMS_CASES + [(kind, 1024, cw) for kind in ("chain", 3) for cw in (False, True)]
 
 
 # K3 (1x1 stride 1) and K4 cases: name -> (kernel size, stride, NHWC input
@@ -223,19 +261,47 @@ def cuda():
 def test_cuda_decode_score_matches_plain(cuda, name):
     _, anchors, stride, classes, kw, _, _ = DECODE_CASES[name]
     raw = torch.from_numpy(decode_input(name)).to(cuda)
-    before = tk.LAUNCHES["decode_score"]
+    before = dict(tk.LAUNCHES)
     ours = tk.decode_score_head(raw, anchors, stride, classes, **kw)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["decode_score"] == before + 1
+    assert tk.LAUNCHES == {**before, "decode_score": before["decode_score"] + 1}
+    assert_rows_close(ours.cpu().numpy(),
+                      tk.decode_score_head_ref(raw, anchors, stride, classes, **kw).cpu().numpy(),
+                      rtol=1e-5, atol=1e-5)
+    # the same arithmetic as K1 as first ported, so the same bits
+    assert torch.equal(ours, tk.decode_score_head(raw, anchors, stride, classes, _v1=True, **kw))
+    assert tk.LAUNCHES["decode_score_v1"] == before["decode_score_v1"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_cuda_decode_score_bf16_heads(cuda, name):
+    """bf16 heads are widened in registers: the rows equal those of their
+    fp32 widening, from the new kernel and from K1 as first ported."""
+    _, anchors, stride, classes, kw, _, _ = DECODE_CASES[name]
+    raw = torch.from_numpy(decode_input(name)).to(torch.bfloat16).to(cuda)
+    wide = raw.to(torch.float32)
+    ours = tk.decode_score_head(raw, anchors, stride, classes, **kw)
+    assert torch.equal(ours, tk.decode_score_head(wide, anchors, stride, classes, **kw))
+    assert torch.equal(ours, tk.decode_score_head(wide, anchors, stride, classes, _v1=True, **kw))
     assert_rows_close(ours.cpu().numpy(),
                       tk.decode_score_head_ref(raw, anchors, stride, classes, **kw).cpu().numpy(),
                       rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,k,class_wise", NMS_CASES)
+def test_cuda_decode_score_misaligned_head_raises(cuda):
+    """The bulk copy needs 16-byte aligned heads; the wrapper raises, it
+    does not copy."""
+    buf = torch.zeros(2 * 13 * 13 * 255 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk.decode_score_head(buf[1:].view(2, 13, 13, 255), ANCHORS, 32, 80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,k,class_wise", NMS_CARD_CASES)
 def test_cuda_nms_keep_matches_plain(cuda, seed, k, class_wise):
-    boxes, valid, cls = (torch.from_numpy(a).to(cuda) for a in crowded_boxes(seed, 8, k))
+    boxes, valid, cls = (torch.from_numpy(a).to(cuda) for a in nms_input(seed, 8, k))
     c = cls if class_wise else None
     before = tk.LAUNCHES["nms_keep"]
     ours = tk.nms_keep(boxes, valid, 0.45, c)
@@ -243,6 +309,7 @@ def test_cuda_nms_keep_matches_plain(cuda, seed, k, class_wise):
     assert tk.LAUNCHES["nms_keep"] == before + 1
     np.testing.assert_array_equal(ours.cpu().numpy(),
                                   tk.nms_keep_ref(boxes, valid, 0.45, c).cpu().numpy())
+    assert torch.equal(ours, tk.nms_keep(boxes, valid, 0.45, c, _v1=True))
 
 
 @pytest.mark.cuda
@@ -259,6 +326,25 @@ def test_cuda_decode_score_all_writes_every_row(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_score_all_is_one_launch(cuda, dtype):
+    """Every head in one launch, ragged last tiles included (batch 3: 1521,
+    6084 and 24336 rows, none a multiple of the 128-row tile, the first two
+    not of 8 either), equal to one launch a head of K1 as first ported."""
+    spec = pt.Detector.load("yolov3", device="cpu").spec
+    rng = np.random.default_rng(12)
+    heads = tuple(torch.from_numpy(rng.normal(0, 2, (3, g, g, 255)).astype(np.float32))
+                  .to(dtype).to(cuda) for g in (13, 26, 52))
+    before = dict(tk.LAUNCHES)
+    ours = tk.decode_score_all(heads, spec)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {**before, "decode_score": before["decode_score"] + 1}
+    v1 = tk.decode_score_all(tuple(h.float() for h in heads), spec, _v1=True)
+    assert tk.LAUNCHES["decode_score_v1"] == before["decode_score_v1"] + 3
+    assert torch.equal(ours, v1)
+
+
+@pytest.mark.cuda
 def test_cuda_detector_matches_cpu(cuda):
     """The slice on the card (fp32, no TF32) agrees with the port on the CPU
     and goes through both kernels."""
@@ -266,7 +352,7 @@ def test_cuda_detector_matches_cpu(cuda):
     ref = pt.Detector.load("yolov3-tiny", device="cpu").detect_batch(frames, size=416)
     before = dict(tk.LAUNCHES)
     ours = pt.Detector.load("yolov3-tiny", device=cuda).detect_batch(frames, size=416)
-    assert tk.LAUNCHES["decode_score"] == before["decode_score"] + 2  # one per head
+    assert tk.LAUNCHES["decode_score"] == before["decode_score"] + 1  # both heads, one launch
     assert tk.LAUNCHES["nms_keep"] == before["nms_keep"] + 1
     stats = detection_drift(ref, ours)
     assert stats.ref_dets > 0 and stats.set_agreement == 1.0, stats.row()

@@ -91,3 +91,21 @@ def test_bfloat16_forward_tracks_fp32():
         assert o.dtype == torch.float32
         rel = (o - r).abs() / (r.abs() + 1.0)
         assert float(rel.quantile(0.99)) < 0.1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_native_heads_are_the_head_convs_output(dtype):
+    """The serving pipeline's ``_native_heads=True``: the heads in the
+    forward's dtype, contiguous NHWC, whose fp32 widening is exactly the
+    default fp32 heads (so K1 reads them with no cast pass)."""
+    text = _GENERATORS["yolov3-tiny"]()
+    tspec = tcfg.build_spec(tcfg.parse_cfg_text(text))
+    jspec = jcfg.build_spec(jcfg.parse_cfg_text(text))
+    model = tdn.Darknet(tspec, params_from_jax(jw.fold_batchnorm(jspec, jw.random_raw_params(
+        jspec))), dtype=dtype)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, 96, 96, 3)).astype(np.float32))
+    native, ref = model(x, _native_heads=True), model(x)
+    for h, r in zip(native, ref):
+        assert h.dtype == dtype and h.is_contiguous() and h.shape == r.shape
+        assert r.dtype == torch.float32
+        np.testing.assert_array_equal(h.to(torch.float32).numpy(), r.numpy())

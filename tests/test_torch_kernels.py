@@ -12,7 +12,9 @@ Tolerances:
     one-ulp difference between XLA's and torch's ``exp`` shows up at the
     operands' scale; box columns are therefore held to 1e-6 relative to
     the row's largest corner magnitude.  ``cls_id`` is exact.
-  * NMS keep masks: exact.
+  * NMS keep masks: exact, on crowded boxes and on edge cases (a suppression
+    chain, K = 1, 31, 32, 33, all rows invalid, identical boxes, NaN corners).
+  * bf16 heads: rows equal to those of their fp32 widening, bit for bit.
 """
 
 import os
@@ -36,7 +38,7 @@ from pytorch_yolo_tpu_torch.ops import kernels as tk
 from pytorch_yolo_tpu_torch.ops import nms as tnms
 from pytorch_yolo_tpu_torch.ops.decode import decode_all, decode_head, head_decode_args
 from tests.test_torch_cuda import (ANCHORS, DECODE_CASES, NMS_CASES, assert_rows_close,
-                                   crowded_boxes, decode_input)
+                                   crowded_boxes, decode_input, nms_input)
 
 CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cfg")
 
@@ -88,6 +90,54 @@ def test_decode_score_all_matches_pallas():
                                                              spec, 416)), rtol=1e-6, atol=1e-5)
 
 
+@pytest.mark.parametrize("name,size", [("yolov3", 128), ("yolov3-tiny", 416)])
+def test_decode_score_all_bf16_heads_match_pallas(name, size):
+    """bf16 heads (the serving pipeline hands K1 the head convs' bf16
+    output) give the rows of their fp32 widening bit for bit, and both match
+    the Pallas kernel on the widened values."""
+    spec, tspec = specs(name)
+    rng = np.random.default_rng(4)
+    heads = [torch.from_numpy(rng.normal(0, 2, size=s).astype(np.float32)).to(torch.bfloat16)
+             for s in head_shapes(spec, size, 2)]
+    wide = [h.to(torch.float32) for h in heads]
+    ours = tk.decode_score_all(tuple(heads), tspec)
+    np.testing.assert_array_equal(ours.numpy(), tk.decode_score_all(tuple(wide), tspec).numpy())
+    ref = jpk.decode_score_all(tuple(jnp.asarray(h.numpy()) for h in wide), spec, size,
+                               use_pallas=True)
+    assert_rows_close(ours.numpy(), ref)
+
+
+@pytest.mark.parametrize("name,size,batch", [("yolov3", 416, 3), ("yolov3-tiny", 416, 2),
+                                             ("yolov4-p6", 128, 3)])
+def test_decode_plan_covers_every_row_once(name, size, batch):
+    """K1's launch table, walked as the kernel walks it (tile -> head by
+    first_tile, DECODE_TILE_ROWS rows a tile, row n*R + r -> output row
+    out_row0 + r of image n), writes each output row exactly once."""
+    spec, tspec = specs(name)
+    shapes = head_shapes(spec, size, batch)
+    plans = tk.decode_plan(shapes, tspec)
+    assert len(plans) == len(tspec.yolo_layers)
+    d = plans[-1].out_row0 + plans[-1].rows
+    assert d == sum(s[1] * s[2] * len(h.anchors) for s, h in zip(shapes, tspec.yolo_layers))
+    firsts = [p.first_tile for p in plans]
+    total = plans[-1].first_tile + plans[-1].tiles
+    hits = np.zeros(batch * d, np.int64)
+    t = tk.DECODE_TILE_ROWS
+    for tile in range(total):
+        p = plans[int(np.searchsorted(firsts, tile, side="right")) - 1]
+        rows = np.arange((tile - p.first_tile) * t, min((tile - p.first_tile + 1) * t,
+                                                        p.batch * p.rows))
+        assert rows.size > 0
+        np.add.at(hits, rows // p.rows * d + p.out_row0 + rows % p.rows, 1)
+    np.testing.assert_array_equal(hits, 1)
+    for p, s, head, stride in zip(plans, shapes, tspec.yolo_layers, tcfg.head_strides(tspec)):
+        assert (p.batch, p.gy, p.gx, p.rows) == (batch, s[1], s[2], s[1] * s[2] * len(head.anchors))
+        assert (p.anchors, p.cls_act, p.scale_xy, p.new_coords) == head_decode_args(head, stride)
+        assert p.tiles == -(-batch * p.rows // t)
+    with pytest.raises(ValueError):
+        tk.decode_plan([(batch, 4, 4, 254)] + list(shapes[1:]), tspec)
+
+
 def test_head_decode_args_match():
     for name in ("yolov3", "yolov2-tiny", "yolov4-csp"):
         spec, tspec = specs(name)
@@ -133,7 +183,7 @@ def test_decode_score_out_view_and_checks():
 
 @pytest.mark.parametrize("seed,k,class_wise", NMS_CASES)
 def test_nms_keep_matches_pallas_and_greedy(seed, k, class_wise):
-    boxes, valid, cls = crowded_boxes(seed, 3, k)
+    boxes, valid, cls = nms_input(seed, 3, k)
     c = cls if class_wise else None
     ref = np.asarray(jpk.nms_keep_pallas(jnp.asarray(boxes), jnp.asarray(valid), 0.45,
                                          cls_id=None if c is None else jnp.asarray(c),
@@ -153,7 +203,29 @@ def test_nms_keep_matches_pallas_and_greedy(seed, k, class_wise):
             jnms.greedy_suppress(jiou, jnp.asarray(valid[i]), 0.45)))
         np.testing.assert_array_equal(tnms.fixpoint_suppress(iou, v, 0.45).numpy(), greedy)
         np.testing.assert_array_equal(ours[i], greedy)
-    assert 0 < ours.sum() < valid.sum()  # something kept, something suppressed
+    if not isinstance(seed, str):
+        assert 0 < ours.sum() < valid.sum()  # something kept, something suppressed
+
+
+def test_nms_edge_cases_are_what_they_claim():
+    """The named NMS cases: the chain keeps every other box and takes the
+    fixpoint K rounds; identical boxes keep the first; all-invalid keeps
+    nothing; NaN corners suppress nothing and are suppressed by nothing."""
+    boxes, valid, _ = (torch.from_numpy(a) for a in nms_input("chain", 2, 300))
+    over = tnms.iou_matrix(boxes) > 0.45
+    assert tnms.fixpoint_rounds(over, valid) == 300
+    keep = tk.nms_keep(boxes, valid, 0.45)
+    assert keep[:, ::2].all() and not keep[:, 1::2].any()
+    boxes, valid, _ = (torch.from_numpy(a) for a in nms_input("identical", 2, 40))
+    np.testing.assert_array_equal(tk.nms_keep(boxes, valid, 0.45).numpy(),
+                                  np.arange(40)[None].repeat(2, 0) == 0)
+    boxes, valid, _ = (torch.from_numpy(a) for a in nms_input("all_invalid", 2, 64))
+    assert not tk.nms_keep(boxes, valid, 0.45).any()
+    boxes, valid, _ = (torch.from_numpy(a) for a in nms_input("nan_corners", 2, 96))
+    nan = torch.isnan(boxes).any(-1)
+    assert nan.any() and not (tnms.iou_matrix(boxes)[nan[:, :, None] | nan[:, None, :]]
+                              > 0.45).any()
+    assert torch.equal(tk.nms_keep(boxes, valid, 0.45)[nan], valid[nan])
 
 
 def test_iou_matrix_matches_jax():
