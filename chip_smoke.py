@@ -8,13 +8,13 @@ Phases, one line each (a failure in any phase exits non-zero):
   2. build the CUDA kernels from ``pytorch_yolo_tpu_torch/csrc``;
   3. K1 decode+score against its plain torch version on the card, at the
      yolov3@416 head shapes (batch 8) plus a [region] softmax head and a
-     4-anchor new_coords head, each also equal to K1 as first ported
-     (``_v1``); the three yolov3 heads in bf16 in one launch, equal to the
-     first port on their fp32 widening; a misaligned head, which must raise;
-  4. K2 NMS keep mask against its plain version and the first port, batch
-     8: K = 300 crowded boxes with ties and mixed classes, a chain where
-     each box overlaps only its successor (K = 300 and 1024), and crowded
-     boxes at K = 1024 (masks must be equal);
+     4-anchor new_coords head; the three yolov3 heads in bf16 in one
+     launch, equal bit for bit to K1 on their fp32 widening; a misaligned
+     head, which must raise; a class tie (the lowest index wins);
+  4. K2 NMS keep mask against its plain version, batch 8: K = 300 crowded
+     boxes with ties and mixed classes, a chain where each box overlaps
+     only its successor (K = 300 and 1024), and crowded boxes at K = 1024
+     (masks must be equal);
   5. ``Detector.load("cfg/yolov3.cfg", device="cuda")`` fp32 / "highest"
      against the same detector on the CPU on four 480x640 uint8 frames
      (set agreement must be 1.0), one K1 and one K2 launch;
@@ -22,12 +22,14 @@ Phases, one line each (a failure in any phase exits non-zero):
      480x640 uint8 frames already on the device, conf 0.6, iou 0.45,
      max_det 300 — median ms/batch and img/s over 20 timed iterations after
      3 warm-up ones (CUDA events), with the launch counts of that run (one
-     K1 and one K2 a step); then, at those shapes, old against new in turns
-     (old, new, new, old): the first port's cast of the bf16 heads to fp32
-     plus its K1 against the new K1 on the bf16 heads, both K1s on fp32
-     heads, the two K2s on the step's candidates and on a 1024-long chain
-     at batch 128, each beside its bound and its plain version; and the
-     fixpoint's round counts on those candidates;
+     K1 and one K2 a step); then, at those shapes, K1 on the step's bf16
+     heads against the cast of those heads to fp32 plus K1 on that, in
+     turns (cast, bf16, bf16, cast), and K1 on fp32 heads; K2 on the step's
+     candidates, on crowded boxes at 128 x 300 and on a 1024-long chain at
+     batch 128; each as eager time (``ms``: back-to-back calls between CUDA
+     events, host time included, as for K3/K4) and as device time
+     (``device_ms``: the same calls replayed from one CUDA graph), beside
+     its bound and its plain version; and the fixpoint's round counts;
   7. K3 (int8 GEMM) in the int8 probe's fixed-point mode at its two shapes,
      and K3/K4 (int8 implicit-GEMM conv) with the serving epilogue at four
      yolov3 conv shapes (batch 8), each epilogue mode once, plus edge cases
@@ -50,12 +52,15 @@ Phases, one line each (a failure in any phase exits non-zero):
      phase 6's bf16 detections (printed, not gated); it fails if any of its
      int8 convs ran on the ``mma.sync`` core.  Then K3's and K4's times at
      phase 7's four yolov3 shapes at batch 128: the wgmma core and the
-     ``mma.sync`` core in turns (old, new, new, old), the plain version, a
-     cuDNN bf16 ``F.conv2d`` of the same shape, ``torch._int_mm`` for K3,
-     and the bound (ops at 1,979 TOPS or bytes at 3.35 TB/s, whichever is
-     longer) with the share of it each core reaches.
+     ``mma.sync`` core in turns (old, new, new, old), the wgmma core's
+     device time, the plain version, a cuDNN bf16 ``F.conv2d`` of the same
+     shape, ``torch._int_mm`` for K3, and the bound (ops at 1,979 TOPS or
+     bytes at 3.35 TB/s, whichever is longer) with the share of it each
+     core reaches.
 
-The line before the second-to-last is the kernels' JSON report; the
+The line before the second-to-last is the kernels' JSON report (``ms``
+eager time, as every kernel's figure since the port began; ``device_ms``
+the CUDA-graph device time of the same calls); the
 second-to-last is the card as nvidia-smi names it; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
@@ -345,17 +350,14 @@ def main() -> None:
         kw = dict(cls_act=cls_act, scale_xy=sxy, new_coords=nc)
         ours = kernels.decode_score_head(raw, anchors, stride, head.classes, **kw)
         ref = kernels.decode_score_head_ref(raw, anchors, stride, head.classes, **kw)
-        v1 = kernels.decode_score_head(raw, anchors, stride, head.classes, _v1=True, **kw)
         torch.cuda.synchronize()
         err = max_err(ours, ref)
         if not rows_close(ours, ref):
             fail(f"K1 {name}: kernel disagrees with its plain version (max abs err {err})")
-        if not torch.equal(ours, v1):
-            fail(f"K1 {name}: kernel differs from the first port (max abs err {max_err(ours, v1)})")
         if head in v3.yolo_layers:
             k1_err = max(k1_err, err)
         say(f"phase 3 K1 {name} {tuple(shape)}: ok, max abs err {err:.3g} "
-            f"(tol {TOL} rel. to row corners; cls_id exact), equal to the first port")
+            f"(tol {TOL} rel. to row corners; cls_id exact)")
     heads_bf16 = tuple(torch.from_numpy(rng.normal(0, 2, shape).astype(np.float32))
                        .to(torch.bfloat16).to(dev) for _, shape, _, _, _ in heads_v3)
     before = dict(kernels.LAUNCHES)
@@ -369,10 +371,10 @@ def main() -> None:
     k1_err = max(k1_err, err)
     if not rows_close(ours, ref):
         fail(f"K1 bf16 yolov3 heads: kernel disagrees with its plain version ({err})")
-    if not torch.equal(ours, kernels.decode_score_all(wide, v3, _v1=True)):
-        fail("K1 bf16 yolov3 heads: rows differ from the first port's on the fp32 widening")
+    if not torch.equal(ours, kernels.decode_score_all(wide, v3)):
+        fail("K1 bf16 yolov3 heads: rows differ from K1's on their fp32 widening")
     say(f"phase 3 K1 yolov3 bf16 heads, batch 8, one launch: ok, max abs err {err:.3g}, equal "
-        "to the first port on the fp32 widening")
+        "to K1 on the fp32 widening")
     odd = torch.zeros(heads_bf16[0].numel() + 1, dtype=torch.bfloat16, device=dev)
     try:
         kernels.decode_score_head(odd[1:].view(heads_bf16[0].shape), v3.yolo_layers[0].anchors,
@@ -397,19 +399,14 @@ def main() -> None:
             c = cls if class_wise else None
             ours = kernels.nms_keep(boxes, valid, IOU, c)
             ref = kernels.nms_keep_ref(boxes, valid, IOU, c)
-            v1 = kernels.nms_keep(boxes, valid, IOU, c, _v1=True)
             torch.cuda.synchronize()
             diff = int((ours != ref).sum())
             k2_err = max(k2_err, float(diff))
             if diff:
                 fail(f"K2 {case} K={k} class_wise={class_wise}: {diff} keep entries differ from "
                      "the plain version")
-            if not torch.equal(ours, v1):
-                fail(f"K2 {case} K={k} class_wise={class_wise}: keep mask differs from the "
-                     "first port's")
-            say(f"phase 4 K2 {case} K={k} batch 8 class_wise={class_wise}: ok, keep masks equal "
-                f"to the plain version's and the first port's ({int(ours.sum())} kept of "
-                f"{int(valid.sum())} valid)")
+            say(f"phase 4 K2 {case} K={k} batch 8 class_wise={class_wise}: ok, keep mask equal "
+                f"to the plain version's ({int(ours.sum())} kept of {int(valid.sum())} valid)")
 
     # 5. the slice at fp32 on the card against the CPU
     frames4 = rng.integers(0, 256, size=(4, 480, 640, 3), dtype=np.uint8)
@@ -453,8 +450,8 @@ def main() -> None:
         f"{BATCH / ms * 1e3:.1f} img/s (min {min(times):.3f}, max {max(times):.3f} ms; "
         f"{int(res.valid.sum())} kept) on {card}; launches {launches}")
 
-    # kernel times at the main path's shapes: old against new in turns,
-    # beside the plain versions and the bounds
+    # kernel times at the main path's shapes, beside the plain versions and
+    # the bounds: eager (``ms``, as K3/K4) and device time (``device_ms``)
     with torch.no_grad():
         heads = det.model(letterbox_batch(frames, SIZE), _native_heads=True)  # as served
     spec = det.spec
@@ -465,60 +462,64 @@ def main() -> None:
     def k1():  # the main path: the head convs' bf16 output, one launch
         return kernels.decode_score_all(heads, spec)
 
-    def cast():  # the first port's input: the heads cast to fp32
+    def cast():  # what K1 read before it took bf16: the heads cast to fp32
         return tuple(h.to(torch.float32).contiguous() for h in heads)
 
-    def k1_v1_cast():
-        return kernels.decode_score_all(cast(), spec, _v1=True)
+    def k1_cast():
+        return kernels.decode_score_all(cast(), spec)
 
     rows = k1()
     k1_plain_rows = plain_rows(kernels, heads, spec)
     k1_main_err = max_err(rows, k1_plain_rows)
     if not rows_close(rows, k1_plain_rows):
         fail(f"K1 on the main path's heads disagrees with its plain version ({k1_main_err})")
-    if not torch.equal(rows, kernels.decode_score_all(heads32, spec, _v1=True)):
-        fail("K1 on the main path's heads differs from the first port on their fp32 widening")
+    if not torch.equal(rows, kernels.decode_score_all(heads32, spec)):
+        fail("K1 on the main path's bf16 heads differs from K1 on their fp32 widening")
     del k1_plain_rows
     masked = torch.where(rows[..., 4] > CONF, rows[..., 7], torch.full_like(rows[..., 7], -1.0))
     top, idx = torch.sort(masked, dim=1, descending=True, stable=True)
     sel = torch.gather(rows, 1, idx[:, :MAX_DET, None].expand(BATCH, MAX_DET, 8))
     boxes, cls_f = sel[..., :4].contiguous(), sel[..., 6].contiguous()
     valid = (top[:, :MAX_DET] > 0).contiguous()
-    keep = kernels.nms_keep(boxes, valid, IOU, cls_f)
-    if not (torch.equal(keep, kernels.nms_keep_ref(boxes, valid, IOU, cls_f))
-            and torch.equal(keep, kernels.nms_keep(boxes, valid, IOU, cls_f, _v1=True))):
-        fail("K2 on the main path's candidates disagrees with its plain version or first port")
+    if not torch.equal(kernels.nms_keep(boxes, valid, IOU, cls_f),
+                       kernels.nms_keep_ref(boxes, valid, IOU, cls_f)):
+        fail("K2 on the main path's candidates disagrees with its plain version")
+    crowd = crowded_boxes(rng, BATCH, MAX_DET, dev)
+    if not torch.equal(kernels.nms_keep(crowd[0], crowd[1], IOU, crowd[2]),
+                       kernels.nms_keep_ref(crowd[0], crowd[1], IOU, crowd[2])):
+        fail(f"K2 on crowded boxes at {BATCH}x{MAX_DET} disagrees with its plain version")
     over = iou_matrix(boxes) > IOU
     over &= (cls_f[:, :, None] - cls_f[:, None, :]).abs() < 0.5
     rounds = fixpoint_rounds(over, valid)
+    over = iou_matrix(crowd[0]) > IOU
+    over &= (crowd[2][:, :, None] - crowd[2][:, None, :]).abs() < 0.5
+    crowd_rounds = fixpoint_rounds(over, crowd[1])
     chain = chain_boxes(BATCH, 1024, dev)
     chain_rounds = fixpoint_rounds(iou_matrix(chain[0][:2]) > IOU, chain[1][:2])
+    every_other = (torch.arange(1024, device=dev) % 2 == 0).expand(BATCH, 1024)
+    if not torch.equal(kernels.nms_keep(*chain[:2], IOU), every_other):
+        fail("K2 on the 1024-long chain at batch 128 does not keep every other box")
     del over
 
-    # device time (CUDA graph) for the kernels' figures; eager calls, host
-    # time between launches included, beside them for K1 and K2
-    k1_ms, k1_v1_cast_ms = in_turns(k1_v1_cast, k1, timer=graph_ms)
-    k1_eager_ms, k1_v1_cast_eager_ms = in_turns(k1_v1_cast, k1)
-    k1_32_ms, k1_v1_ms = in_turns(lambda: kernels.decode_score_all(heads32, spec, _v1=True),
-                                  lambda: kernels.decode_score_all(heads32, spec), timer=graph_ms)
+    k1_ms, k1_cast_ms = in_turns(k1_cast, k1)
+    k1_dev_ms, k1_cast_dev_ms = in_turns(k1_cast, k1, timer=graph_ms)
+    k1_32 = lambda: kernels.decode_score_all(heads32, spec)  # noqa: E731
+    k1_32_ms, k1_32_dev_ms = time_ms(k1_32), graph_ms(k1_32)
     cast_ms = graph_ms(cast)
     k1_plain_ms = time_ms(lambda: plain_rows(kernels, heads, spec), 5, 1)
-    k2_v1 = lambda: kernels.nms_keep(boxes, valid, IOU, cls_f, _v1=True)  # noqa: E731
     k2 = lambda: kernels.nms_keep(boxes, valid, IOU, cls_f)  # noqa: E731
-    k2_ms, k2_v1_ms = in_turns(k2_v1, k2, timer=graph_ms)
-    k2_eager_ms, k2_v1_eager_ms = in_turns(k2_v1, k2)
+    k2_ms, k2_dev_ms = time_ms(k2), graph_ms(k2)
     k2_plain_ms = time_ms(lambda: kernels.nms_keep_ref(boxes, valid, IOU, cls_f))
+    k2_crowd = lambda: kernels.nms_keep(crowd[0], crowd[1], IOU, crowd[2])  # noqa: E731
+    k2_crowd_ms, k2_crowd_dev_ms = time_ms(k2_crowd), graph_ms(k2_crowd)
+    k2_crowd_plain_ms = time_ms(lambda: kernels.nms_keep_ref(crowd[0], crowd[1], IOU, crowd[2]))
     # where K2's time goes: no candidate valid (no IoU, nothing to decide:
     # launch, loads, barriers, the scan's loads, the stores) and class-agnostic
     none = torch.zeros_like(valid)
     k2_floor_ms = graph_ms(lambda: kernels.nms_keep(boxes, none, IOU, cls_f))
     k2_agnostic_ms = graph_ms(lambda: kernels.nms_keep(boxes, valid, IOU))
-    if not torch.equal(kernels.nms_keep(*chain[:2], IOU), kernels.nms_keep(*chain[:2], IOU,
-                                                                           _v1=True)):
-        fail("K2 on the 1024-long chain at batch 128 differs from the first port")
-    k2_chain_ms, k2_chain_v1_ms = in_turns(lambda: kernels.nms_keep(*chain[:2], IOU, _v1=True),
-                                           lambda: kernels.nms_keep(*chain[:2], IOU), 5,
-                                           timer=graph_ms)
+    k2_chain = lambda: kernels.nms_keep(*chain[:2], IOU)  # noqa: E731
+    k2_chain_ms, k2_chain_dev_ms = time_ms(k2_chain), graph_ms(k2_chain)
     # K1 reads each head once and writes the rows once; ~2 fp32 ops per class
     # (max, argmax) and ~40 per row (activations, box) are far below that.
     out_bytes = rows.numel() * 4
@@ -526,30 +527,39 @@ def main() -> None:
     k1_bound, k1_by = bound(k1_ops, sum(h.numel() * 2 for h in heads) + out_bytes, PEAK_FP32_OPS)
     k1_32_bound, _ = bound(k1_ops, sum(h.numel() * 4 for h in heads) + out_bytes, PEAK_FP32_OPS)
     cast_bound, _ = bound(0, sum(h.numel() * 6 for h in heads), PEAK_FP32_OPS)
-    # K2 reads boxes, valid and class ids and writes the mask once; the
-    # relation needs ~15 fp32 ops for each of the K(K-1)/2 pairs j < i (the
-    # suppression reuses it).
-    k2_bound, k2_by = bound(15 * BATCH * MAX_DET * (MAX_DET - 1) / 2,
-                            BATCH * MAX_DET * (16 + 1 + 4 + 1), PEAK_FP32_OPS)
-    k2_chain_bound, _ = bound(15 * BATCH * 1024 * 1023 / 2, BATCH * 1024 * (16 + 1 + 1),
-                              PEAK_FP32_OPS)
+
+    def k2_bound_of(valid_mask, class_ids: bool) -> tuple[float, str]:
+        """K2 reads boxes, valid (and class ids) and writes the mask once; the
+        relation needs ~15 fp32 ops for each pair j < i of valid candidates
+        (the suppression reuses it)."""
+        v = valid_mask.sum(1).double()
+        n, k = valid_mask.shape
+        return bound(15 * float((v * (v - 1) / 2).sum()),
+                     n * k * (16 + 1 + 1 + (4 if class_ids else 0)), PEAK_FP32_OPS)
+
+    k2_bound, k2_by = k2_bound_of(valid, True)
+    k2_crowd_bound, _ = k2_bound_of(crowd[1], True)
+    k2_chain_bound, _ = k2_bound_of(chain[1], False)
     say(f"phase 6 K1 decode_score_all, 3 bf16 heads, batch {BATCH}, one launch: {k1_ms:.4f} ms "
-        f"device ({k1_bound / k1_ms:.1%} of its {k1_bound:.4f} ms bound, {k1_by}), "
-        f"{k1_eager_ms:.4f} ms eager; first port on the same heads, cast to fp32 + 3 launches: "
-        f"{k1_v1_cast_ms:.4f} ms device, {k1_v1_cast_eager_ms:.4f} eager (the cast alone "
-        f"{cast_ms:.4f} ms, bound {cast_bound:.4f}); plain {k1_plain_ms:.4f} ms; on {card}")
-    say(f"phase 6 K1 on fp32 heads, device: new {k1_32_ms:.4f} ms ({k1_32_bound / k1_32_ms:.1%} "
-        f"of {k1_32_bound:.4f} ms), first port {k1_v1_ms:.4f} ms ({k1_32_bound / k1_v1_ms:.1%})")
-    say(f"phase 6 K2 nms_keep {BATCH}x{MAX_DET} (the step's candidates, {int(valid.sum())} valid, "
-        f"fixpoint rounds {rounds}): new {k2_ms:.4f} ms device ({k2_bound / k2_ms:.1%} of "
-        f"{k2_bound:.5f} ms, {k2_by}), {k2_eager_ms:.4f} eager; first port {k2_v1_ms:.4f} ms "
-        f"device, {k2_v1_eager_ms:.4f} eager; plain {k2_plain_ms:.4f} ms; the same boxes with "
-        f"no candidate valid {k2_floor_ms:.4f} ms, class-agnostic {k2_agnostic_ms:.4f} ms; "
-        f"1024-long chain "
-        f"at batch {BATCH} (fixpoint rounds {chain_rounds}), device: new {k2_chain_ms:.4f} ms "
-        f"({k2_chain_bound / k2_chain_ms:.1%} of {k2_chain_bound:.5f} ms), first port "
-        f"{k2_chain_v1_ms:.4f} ms")
-    del det, heads, heads32, rows, chain
+        f"eager, {k1_dev_ms:.4f} ms device ({k1_bound / k1_dev_ms:.1%} of its {k1_bound:.4f} ms "
+        f"bound, {k1_by}); the same heads cast to fp32 + K1: {k1_cast_ms:.4f} ms eager, "
+        f"{k1_cast_dev_ms:.4f} ms device (the cast alone {cast_ms:.4f} ms device, bound "
+        f"{cast_bound:.4f}); plain {k1_plain_ms:.4f} ms; on {card}")
+    say(f"phase 6 K1 on fp32 heads: {k1_32_ms:.4f} ms eager, {k1_32_dev_ms:.4f} ms device "
+        f"({k1_32_bound / k1_32_dev_ms:.1%} of {k1_32_bound:.4f} ms)")
+    say(f"phase 6 K2 nms_keep {BATCH}x{MAX_DET} on the step's candidates ({int(valid.sum())} valid, "
+        f"fixpoint rounds {rounds}): {k2_ms:.4f} ms eager, {k2_dev_ms:.4f} ms device "
+        f"({k2_bound / k2_dev_ms:.1%} of {k2_bound:.5f} ms, {k2_by}); plain {k2_plain_ms:.4f} ms; "
+        f"the same boxes with no candidate valid {k2_floor_ms:.4f} ms device, class-agnostic "
+        f"{k2_agnostic_ms:.4f} ms device")
+    say(f"phase 6 K2 nms_keep {BATCH}x{MAX_DET} on crowded boxes ({int(crowd[1].sum())} valid, "
+        f"4 classes, fixpoint rounds {crowd_rounds}): {k2_crowd_ms:.4f} ms eager, "
+        f"{k2_crowd_dev_ms:.4f} ms device ({k2_crowd_bound / k2_crowd_dev_ms:.1%} of "
+        f"{k2_crowd_bound:.5f} ms); plain {k2_crowd_plain_ms:.4f} ms; 1024-long chain at batch "
+        f"{BATCH} (fixpoint rounds {chain_rounds}): {k2_chain_ms:.4f} ms eager, "
+        f"{k2_chain_dev_ms:.4f} ms device ({k2_chain_bound / k2_chain_dev_ms:.1%} of "
+        f"{k2_chain_bound:.5f} ms)")
+    del det, heads, heads32, rows, chain, crowd
 
     # 7. K3 and K4 against their plain versions
     errs = {"int8_gemm": 0.0, "int8_conv": 0.0}
@@ -699,6 +709,7 @@ def main() -> None:
         new = lambda: run_int8(kernels, xq, wq, st, pad, kw)  # noqa: E731
         old = lambda: run_int8(kernels, xq, wq, st, pad, kw, mma=True)  # noqa: E731
         new_ms, old_ms = in_turns(old, new)
+        dev_ms = graph_ms(new)
         pms = time_ms(lambda: run_int8(kernels, xq, wq, st, pad, kw, plain=True), 5, 1)
         xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels_last, as the bf16 path
         wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
@@ -711,10 +722,11 @@ def main() -> None:
             ims = time_ms(lambda: torch._int_mm(x2, w2.t()))
         ops, nbytes = kernels.igemm_work(tuple(xq.shape), tuple(wq.shape), st, pad, 4)
         bms, by = bound(ops, nbytes, PEAK_INT8_OPS)
-        timed[name] = dict(key=key, ms=new_ms, old_ms=old_ms, plain_ms=pms, cudnn_ms=cms,
-                           int_mm_ms=ims, bound_ms=bms, bound_by=by)
+        timed[name] = dict(key=key, ms=new_ms, device_ms=dev_ms, old_ms=old_ms, plain_ms=pms,
+                           cudnn_ms=cms, int_mm_ms=ims, bound_ms=bms, bound_by=by)
         say(f"phase 9 {key} {name} batch {BATCH} (static sx, leaky, fp32 out): wgmma "
-            f"{new_ms:.4f} ms ({ops / new_ms / 1e9:.1f} TOPS, {bms / new_ms:.1%} of bound), "
+            f"{new_ms:.4f} ms ({ops / new_ms / 1e9:.1f} TOPS, {bms / new_ms:.1%} of bound; "
+            f"device {dev_ms:.4f} ms), "
             f"mma.sync {old_ms:.4f} ms ({bms / old_ms:.1%}), plain {pms:.4f} ms, cuDNN bf16 "
             f"conv {cms:.4f} ms"
             + (f", torch._int_mm {ims:.4f} ms" if ims is not None else "")
@@ -730,29 +742,29 @@ def main() -> None:
          "replaces": "pytorch_yolo_tpu/ops/pallas_kernels.py:110",
          "launches": launches["decode_score"], "max_abs_err": max(k1_err, k1_main_err),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None,
-         # the first port on the same bf16 heads: the cast to fp32 + its 3 launches
-         "v1_ms": k1_v1_cast_ms, "v1_kernel_ms": k1_v1_ms, "fp32_ms": k1_32_ms,
-         "eager_ms": k1_eager_ms},
+         "library_ms": None, "device_ms": k1_dev_ms,
+         # the same heads cast to fp32 + K1, and K1 on fp32 heads (device time)
+         "cast_ms": k1_cast_dev_ms, "fp32_ms": k1_32_dev_ms},
         {"name": "nms_keep", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/nms_keep.cu",
          "replaces": "pytorch_yolo_tpu/ops/pallas_kernels.py:312",
          "launches": launches["nms_keep"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None, "v1_ms": k2_v1_ms, "eager_ms": k2_eager_ms},
+         "library_ms": None, "device_ms": k2_dev_ms, "crowded_device_ms": k2_crowd_dev_ms},
         {"name": "int8_gemm", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/gemm_i8.cu",
          "replaces": "tools/int8_kernel_probe.py:181",
          "launches": launches9["int8_gemm"], "max_abs_err": errs["int8_gemm"],
          "ms": g9["ms"], "plain_ms": g9["plain_ms"], "bound_ms": g9["bound_ms"],
          "bound_by": g9["bound_by"], "library_ms": g9["int_mm_ms"],
-         "v1_ms": g9["old_ms"]},  # the mma.sync core, as first ported
+         "device_ms": g9["device_ms"], "v1_ms": g9["old_ms"]},  # the mma.sync core
         {"name": "int8_conv", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/int8_conv.cu",
          "replaces": "pytorch_yolo_tpu/ops/quant.py:564",
          "launches": launches9["int8_conv"], "max_abs_err": errs["int8_conv"],
          "ms": c9["ms"], "plain_ms": c9["plain_ms"], "bound_ms": c9["bound_ms"],
-         "bound_by": c9["bound_by"], "library_ms": c9["cudnn_ms"], "v1_ms": c9["old_ms"]},
+         "bound_by": c9["bound_by"], "library_ms": c9["cudnn_ms"],
+         "device_ms": c9["device_ms"], "v1_ms": c9["old_ms"]},
     ]}
     say(json.dumps(report))
     say(card)

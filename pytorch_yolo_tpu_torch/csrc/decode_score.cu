@@ -35,10 +35,11 @@
 //     of the max: one thread a row issues fewer instructions than splitting
 //     the row over lanes and reducing with shuffles, and the 8-12 warps a
 //     SM hide the compare chain's latency.
-// The arithmetic after the load is decode_score_v1.cu's, operation for
-// operation (the _rn intrinsics keep nvcc from contracting products into
-// FMAs; expf differs from torch's exp in the last ulps only), so both give
-// equal rows on equal fp32 values.
+// The arithmetic after the load follows the plain version
+// (ops/kernels.py: decode_score_head_ref) operation for operation (the _rn
+// intrinsics keep nvcc from contracting products into FMAs; expf differs
+// from torch's exp in the last ulps only), and bf16 heads give the rows of
+// their fp32 widening bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -228,7 +228,9 @@ class Darknet(nn.Module):
         something other than None (the calibration hook).
         ``_native_heads=True`` (the serving pipeline's) returns bf16 and fp32
         heads as they are, the NHWC view of the head conv's ``channels_last``
-        output with no copy; other dtypes still become fp32."""
+        output with no copy, when they share one dtype (K1 reads one dtype a
+        launch); mixed heads (an int8 head conv gives fp32 beside a skipped
+        bf16 one) and other dtypes still become fp32."""
         x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view; each fp conv casts
         cache: dict[int, torch.Tensor] = {}
         heads: list[torch.Tensor] = []
@@ -267,6 +269,8 @@ class Darknet(nn.Module):
                     heads.append(h.contiguous())
                 if layer.index in self._needed:
                     cache[layer.index] = x
+        if len({h.dtype for h in heads}) > 1:
+            heads = [h.to(torch.float32) for h in heads]
         if collect_conv_in_stats is not None:
             return tuple(heads), stats
         return tuple(heads)

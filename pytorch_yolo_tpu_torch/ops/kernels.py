@@ -25,10 +25,7 @@ are multiples of 16 (:func:`igemm_plan`); the ``mma.sync`` core
 Each has a plain torch version beside it (``*_ref``).  A wrapper takes the
 plain version only when its input lies on the CPU; for a CUDA tensor it
 launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, so a
-run can show that the main path went through the kernels.  K1 and K2 as
-first ported (``csrc/decode_score_v1.cu``, ``csrc/nms_keep_v1.cu``) stay
-for A/B timing only, behind a private ``_v1=True`` argument, and are
-counted apart (``decode_score_v1``, ``nms_keep_v1``).
+run can show that the main path went through the kernels.
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` (Hopper)
 into ``csrc/_build/``: one nvcc per source, all started together, then one
@@ -56,8 +53,7 @@ from .decode import head_decode_args
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f) for f in
-                ("decode_score.cu", "decode_score_v1.cu", "nms_keep.cu", "nms_keep_v1.cu",
-                 "gemm_i8.cu", "int8_conv.cu"))
+                ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu"))
 HEADERS = tuple(os.path.join(CSRC, f) for f in ("int8_igemm.cuh", "int8_wgmma.cuh"))
 BUILD_DIR = os.path.join(CSRC, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libyolo_kernels.so")
@@ -65,8 +61,8 @@ BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"decode_score": 0, "decode_score_v1": 0, "nms_keep": 0, "nms_keep_v1": 0,
-            "int8_gemm": 0, "int8_gemm_mma": 0, "int8_conv": 0, "int8_conv_mma": 0}
+LAUNCHES = {"decode_score": 0, "nms_keep": 0, "int8_gemm": 0, "int8_gemm_mma": 0,
+            "int8_conv": 0, "int8_conv_mma": 0}
 
 MAX_ANCHORS = 8         # csrc/decode_score.cu: kMaxAnchors
 MAX_HEADS = 8           # csrc/decode_score.cu: kMaxHeads, heads in one K1 launch
@@ -146,14 +142,9 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
-            f, ll = ctypes.c_float, ctypes.c_longlong
             lib.yolo_decode_score.argtypes = [ctypes.POINTER(_DecodeArgs), i, i, p]
-            lib.yolo_decode_score_v1.argtypes = [p, p, i, i, i, i, i, ctypes.POINTER(f), f, f,
-                                                 f, i, i, i, ll, i, i, p]
-            for fn in (lib.yolo_nms_keep, lib.yolo_nms_keep_v1):
-                fn.argtypes = [p, p, p, p, i, i, f, i, p]
-            for fn in (lib.yolo_decode_score, lib.yolo_decode_score_v1, lib.yolo_nms_keep,
-                       lib.yolo_nms_keep_v1):
+            lib.yolo_nms_keep.argtypes = [p, p, p, p, i, i, ctypes.c_float, i, p]
+            for fn in (lib.yolo_decode_score, lib.yolo_nms_keep):
                 fn.restype = i
             for fn in (lib.yolo_int8_gemm, lib.yolo_int8_conv, lib.yolo_int8_gemm_mma,
                        lib.yolo_int8_conv_mma):
@@ -391,30 +382,6 @@ def _launch_decode(heads, plans: tuple[HeadPlan, ...], out: torch.Tensor,
     LAUNCHES["decode_score"] += 1
 
 
-def _launch_decode_v1(raw: torch.Tensor, p: HeadPlan, out: torch.Tensor, score_mode: str) -> None:
-    """K1 as first ported (``csrc/decode_score_v1.cu``), one fp32 head a
-    launch; for A/B timing only."""
-    if raw.dtype != torch.float32:
-        raise ValueError(f"decode_score (v1): raw must be float32, got {raw.dtype}")
-    a, attrs = len(p.anchors), 5 + p.classes
-    if not 1 <= a <= MAX_ANCHORS:
-        raise ValueError(f"decode_score: {a} anchors, the kernel takes 1..{MAX_ANCHORS}")
-    if out.device != raw.device or out.data_ptr() % 16:
-        raise ValueError("decode_score: out must be 16-byte aligned on the input's device")
-    rows_per_block = 128 if 128 * attrs * 4 <= 48 * 1024 else 32
-    if rows_per_block * attrs * 4 > _SMEM_LIMIT:
-        raise ValueError(f"decode_score: {p.classes} classes exceed the shared-memory tile")
-    device, stream = _cuda_args("decode_score", raw)
-    anchors_wh = (ctypes.c_float * (2 * a))(*[float(v) for wh in p.anchors for v in wh])
-    rc = load_library().yolo_decode_score_v1(
-        raw.data_ptr(), out.data_ptr(), p.batch, p.gy, p.gx, a, p.classes, anchors_wh,
-        float(p.stride), float(p.scale_xy), 0.5 * (float(p.scale_xy) - 1.0),
-        int(p.new_coords), _CLS_ACT[p.cls_act], _SCORE_MODE[score_mode], out.stride(0),
-        rows_per_block, device, stream)
-    _raise_on(rc, "decode_score_v1")
-    LAUNCHES["decode_score_v1"] += 1
-
-
 def decode_score_head(
     raw: torch.Tensor,
     anchors: tuple[tuple[float, float], ...],
@@ -425,14 +392,12 @@ def decode_score_head(
     scale_xy: float = 1.0,
     new_coords: bool = False,
     out: "torch.Tensor | None" = None,
-    _v1: bool = False,
 ) -> torch.Tensor:
     """K1 on one head: (N, Gy, Gx, A*(5+C)) raw, bf16 or fp32 -> (N,
     Gy*Gx*A, 8) fp32 rows.
 
     ``out``, when given, is an (N, R, 8) fp32 view whose rows are contiguous
-    (a row range of a larger (N, D, 8) buffer); the rows are written there.
-    ``_v1`` (CUDA, fp32 only) runs K1 as first ported, for A/B timing."""
+    (a row range of a larger (N, D, 8) buffer); the rows are written there."""
     n = raw.shape[0]
     plan = _head_plan(tuple(raw.shape), anchors, stride, num_classes, cls_act, scale_xy,
                       new_coords)
@@ -446,28 +411,25 @@ def decode_score_head(
     if raw.device.type == "cpu":
         out.copy_(decode_score_head_ref(raw, anchors, stride, num_classes, score_mode,
                                         cls_act, scale_xy, new_coords))
-    elif _v1:
-        _launch_decode_v1(raw, plan, out, score_mode)
     else:
         _launch_decode([raw], [plan], out, score_mode)
     return out
 
 
 def decode_score_all(heads: tuple[torch.Tensor, ...], spec: ModelSpec,
-                     score_mode: str = "obj", _v1: bool = False) -> torch.Tensor:
+                     score_mode: str = "obj") -> torch.Tensor:
     """K1 over every head (bf16 or fp32) -> (N, D, 8) fp32, each head written
-    into its row range; one launch on the card.  ``_v1`` (CUDA, fp32 only)
-    runs K1 as first ported, one launch a head, for A/B timing."""
+    into its row range; one launch on the card."""
     plans = decode_plan(heads, spec)
     out = torch.empty((plans[0].batch, plans[-1].out_row0 + plans[-1].rows, 8),
                       dtype=torch.float32, device=heads[0].device)
-    if heads[0].device.type == "cuda" and not _v1:
+    if heads[0].device.type == "cuda":
         _launch_decode(heads, plans, out, score_mode)
         return out
     for raw, p in zip(heads, plans):
         decode_score_head(raw, p.anchors, p.stride, p.classes, score_mode=score_mode,
                           cls_act=p.cls_act, scale_xy=p.scale_xy, new_coords=p.new_coords,
-                          out=out[:, p.out_row0:p.out_row0 + p.rows], _v1=_v1)
+                          out=out[:, p.out_row0:p.out_row0 + p.rows])
     return out
 
 
@@ -492,10 +454,9 @@ def nms_keep_ref(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
 
 
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
-             cls_id: "torch.Tensor | None" = None, _v1: bool = False) -> torch.Tensor:
+             cls_id: "torch.Tensor | None" = None) -> torch.Tensor:
     """K2: (N, K, 4) score-sorted corner boxes, (N, K) bool valid, optional
-    (N, K) fp32 class ids (class-wise suppression) -> (N, K) bool keep mask.
-    ``_v1`` (CUDA only) runs K2 as first ported, for A/B timing."""
+    (N, K) fp32 class ids (class-wise suppression) -> (N, K) bool keep mask."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (N, K, 4), got {tuple(boxes.shape)}")
     n, k, _ = boxes.shape
@@ -514,12 +475,11 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     if boxes.data_ptr() % 16:
         raise ValueError("nms_keep: boxes must be 16-byte aligned")
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
-    key = "nms_keep_v1" if _v1 else "nms_keep"
-    rc = getattr(load_library(), "yolo_" + key)(
+    rc = load_library().yolo_nms_keep(
         boxes.data_ptr(), valid.data_ptr(), None if cls_id is None else cls_id.data_ptr(),
         keep.data_ptr(), n, k, float(iou_thresh), device, stream)
-    _raise_on(rc, key)
-    LAUNCHES[key] += 1
+    _raise_on(rc, "nms_keep")
+    LAUNCHES["nms_keep"] += 1
     return keep
 
 

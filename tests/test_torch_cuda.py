@@ -13,8 +13,9 @@ versions against the JAX package's Pallas kernels on the CPU.
 Tolerances: decode rows rtol = atol = 1e-5 (``expf`` and summation order),
 with box columns relative to the row's largest corner (a corner is a
 difference of two values up to ~1e4 px); ``cls_id`` and keep masks exact.
-K1 and K2 also equal their first ports (``_v1``) exactly: the same
-arithmetic in the same order, bf16 heads widened exactly to fp32.
+K1 on bf16 heads equals K1 on their fp32 widening exactly (the widening
+is exact, the arithmetic after the load the same), and its one launch over
+every head equals one launch a head.
 The int8 kernels K3/K4: int32 accumulators and int8 outputs exact; fp32
 outputs within 1e-6 relative (the kernels follow the plain versions'
 operation order, each multiply-add one explicit FMA as in the plain
@@ -268,22 +269,18 @@ def test_cuda_decode_score_matches_plain(cuda, name):
     assert_rows_close(ours.cpu().numpy(),
                       tk.decode_score_head_ref(raw, anchors, stride, classes, **kw).cpu().numpy(),
                       rtol=1e-5, atol=1e-5)
-    # the same arithmetic as K1 as first ported, so the same bits
-    assert torch.equal(ours, tk.decode_score_head(raw, anchors, stride, classes, _v1=True, **kw))
-    assert tk.LAUNCHES["decode_score_v1"] == before["decode_score_v1"] + 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(DECODE_CASES))
 def test_cuda_decode_score_bf16_heads(cuda, name):
     """bf16 heads are widened in registers: the rows equal those of their
-    fp32 widening, from the new kernel and from K1 as first ported."""
+    fp32 widening."""
     _, anchors, stride, classes, kw, _, _ = DECODE_CASES[name]
     raw = torch.from_numpy(decode_input(name)).to(torch.bfloat16).to(cuda)
     wide = raw.to(torch.float32)
     ours = tk.decode_score_head(raw, anchors, stride, classes, **kw)
     assert torch.equal(ours, tk.decode_score_head(wide, anchors, stride, classes, **kw))
-    assert torch.equal(ours, tk.decode_score_head(wide, anchors, stride, classes, _v1=True, **kw))
     assert_rows_close(ours.cpu().numpy(),
                       tk.decode_score_head_ref(raw, anchors, stride, classes, **kw).cpu().numpy(),
                       rtol=1e-5, atol=1e-5)
@@ -309,7 +306,6 @@ def test_cuda_nms_keep_matches_plain(cuda, seed, k, class_wise):
     assert tk.LAUNCHES["nms_keep"] == before + 1
     np.testing.assert_array_equal(ours.cpu().numpy(),
                                   tk.nms_keep_ref(boxes, valid, 0.45, c).cpu().numpy())
-    assert torch.equal(ours, tk.nms_keep(boxes, valid, 0.45, c, _v1=True))
 
 
 @pytest.mark.cuda
@@ -330,7 +326,7 @@ def test_cuda_decode_score_all_writes_every_row(cuda):
 def test_cuda_decode_score_all_is_one_launch(cuda, dtype):
     """Every head in one launch, ragged last tiles included (batch 3: 1521,
     6084 and 24336 rows, none a multiple of the 128-row tile, the first two
-    not of 8 either), equal to one launch a head of K1 as first ported."""
+    not of 8 either), equal to one launch a head on their fp32 widening."""
     spec = pt.Detector.load("yolov3", device="cpu").spec
     rng = np.random.default_rng(12)
     heads = tuple(torch.from_numpy(rng.normal(0, 2, (3, g, g, 255)).astype(np.float32))
@@ -339,9 +335,11 @@ def test_cuda_decode_score_all_is_one_launch(cuda, dtype):
     ours = tk.decode_score_all(heads, spec)
     torch.cuda.synchronize()
     assert tk.LAUNCHES == {**before, "decode_score": before["decode_score"] + 1}
-    v1 = tk.decode_score_all(tuple(h.float() for h in heads), spec, _v1=True)
-    assert tk.LAUNCHES["decode_score_v1"] == before["decode_score_v1"] + 3
-    assert torch.equal(ours, v1)
+    for h, p in zip(heads, tk.decode_plan(heads, spec)):
+        one = tk.decode_score_head(h.float(), p.anchors, p.stride, p.classes, cls_act=p.cls_act,
+                                   scale_xy=p.scale_xy, new_coords=p.new_coords)
+        assert torch.equal(ours[:, p.out_row0:p.out_row0 + p.rows], one)
+    assert tk.LAUNCHES["decode_score"] == before["decode_score"] + 4
 
 
 @pytest.mark.cuda
@@ -416,3 +414,28 @@ def test_cuda_int8_detector(cuda):
                            quant_skip_layers=frozenset(state["skip"])).detect_batch(frames, size=416)
     stats = detection_drift(ref, ours)
     assert stats.ref_dets > 0 and stats.set_agreement >= 0.995, stats.row()
+
+
+@pytest.mark.cuda
+def test_cuda_int8_detector_mixed_head_dtypes(cuda):
+    """bf16 W8A8 with one head conv of two skipped: the int8 head conv gives
+    fp32 and the skipped one bf16, so the forward widens both to fp32 and
+    the detector serves through one K1 launch."""
+    from pytorch_yolo_tpu_torch.ops.quant import head_conv_indices
+
+    frames = np.random.default_rng(0).integers(0, 256, size=(2, 480, 640, 3), dtype=np.uint8)
+    spec = pt.Detector.load("yolov3-tiny", device="cpu").spec
+    det = pt.Detector.load("yolov3-tiny", device=cuda, dtype=torch.bfloat16, precision="default",
+                           quant="w8a8", quant_calib=list(frames), quant_recipe="none",
+                           quant_skip_layers={min(head_conv_indices(spec))})
+    x = torch.rand((2, 96, 96, 3), generator=torch.Generator().manual_seed(0)).to(cuda)
+    native, wide = det.model(x, _native_heads=True), det.model(x)
+    assert [h.dtype for h in native] == [torch.float32] * 2
+    for h, w in zip(native, wide):
+        assert torch.equal(h, w)
+    before = dict(tk.LAUNCHES)
+    dets = det.detect_batch(frames, size=416)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["decode_score"] == before["decode_score"] + 1
+    assert tk.LAUNCHES["int8_gemm"] > before["int8_gemm"]
+    assert len(dets) == 2 and all(np.isfinite(d.boxes).all() for d in dets)

@@ -109,3 +109,24 @@ def test_native_heads_are_the_head_convs_output(dtype):
         assert h.dtype == dtype and h.is_contiguous() and h.shape == r.shape
         assert r.dtype == torch.float32
         np.testing.assert_array_equal(h.to(torch.float32).numpy(), r.numpy())
+
+
+def test_native_heads_of_mixed_dtypes_are_fp32():
+    """A bf16 W8A8 model whose skip list names one head conv of two: the
+    int8 head conv gives fp32 and the skipped one bf16.  K1 reads one dtype
+    a launch, so the native heads are widened to fp32, equal to the default
+    heads."""
+    from pytorch_yolo_tpu_torch.ops import quant as tq
+
+    text = _GENERATORS["yolov3-tiny"]()
+    tspec = tcfg.build_spec(tcfg.parse_cfg_text(text))
+    jspec = jcfg.build_spec(jcfg.parse_cfg_text(text))
+    params = params_from_jax(jw.fold_batchnorm(jspec, jw.random_raw_params(jspec)))
+    qp = tq.quantize_params(tspec, params, skip_layers={min(tq.head_conv_indices(tspec))})
+    model = tdn.Darknet(tspec, qp, dtype=torch.bfloat16, precision="default", quant="w8a8")
+    x = torch.from_numpy(np.random.default_rng(6).uniform(0, 1, (2, 96, 96, 3)).astype(np.float32))
+    native, ref = model(x, _native_heads=True), model(x)
+    assert [h.dtype for h in native] == [torch.float32] * 2
+    for h, r in zip(native, ref):
+        assert h.is_contiguous()
+        np.testing.assert_array_equal(h.numpy(), r.numpy())
