@@ -56,7 +56,26 @@ Phases, one line each (a failure in any phase exits non-zero):
      device time, the plain version, a cuDNN bf16 ``F.conv2d`` of the same
      shape, ``torch._int_mm`` for K3, and the bound (ops at 1,979 TOPS or
      bytes at 3.35 TB/s, whichever is longer) with the share of it each
-     core reaches.
+     core reaches;
+ 10. live weights: ``Detector.load("cfg/yolov3.cfg", synthetic="live")`` on
+     the card at fp32 / "highest" (the LSUV equalizer runs there; its sweeps
+     and largest |log std| printed), the same weights served on the CPU on
+     2 frames (set agreement must be 1.0), one K1 and one K2 launch;
+ 11. drift on the card, the JAX package's ``bench.measure_drift`` table:
+     yolov3@416 live weights, 4 eval frames (seed 0), 4 held-out
+     calibration frames (seeds 100-103), each mode against the fp32
+     reference: bf16 with the s2d stem and without, int8 dynamic, int8
+     static (``quant_recipe="none"``), int8sb "none" and int8sb "auto" (the
+     recipe: percentile ranging, smoothing, bias correction; its K3/K4
+     calibration launches and the K1/K2 serving launches checked).  Fails
+     on a degenerate row, or if "auto" does not beat "none" on int8sb;
+     then yolov3-tiny@416 live, "auto" calibrated on the card, against the
+     CPU serving the card's ``quant_state()`` (>= 0.995);
+ 12. A/B at batch 128 on the live weights, phase 6's method: bf16 with the
+     s2d stem off, on, on, off, and the two stems' layers timed alone;
+     int8sb "none", "auto", "auto", "none"; and K2 eager and device ms on
+     the live step's candidates, with its bound and the fixpoint's rounds,
+     beside phase 6's.
 
 The line before the second-to-last is the kernels' JSON report (``ms``
 eager time, as every kernel's figure since the port began; ``device_ms``
@@ -64,7 +83,8 @@ the CUDA-graph device time of the same calls); the
 second-to-last is the card as nvidia-smi names it; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
-Synthetic He-init weights (seed 0), frames from numpy seed 0.
+Synthetic He-init weights (seed 0) in phases 3-9, live (equalized) ones
+in 10-12; frames from numpy seed 0.
 """
 
 from __future__ import annotations
@@ -735,6 +755,188 @@ def main() -> None:
         del xq, wq, xb, wb, got
     g9, c9 = timed["1x1 52² 256->128"], timed["3x3 s1 52² 128->256"]
     say(f"phase 9 timings: {json.dumps(timed, ensure_ascii=False)}")
+
+    # 10. live weights: the equalizer on the card, fp32 card vs CPU
+    from pytorch_yolo_tpu_torch.utils.drift import measure_mode_drift
+    from pytorch_yolo_tpu_torch.weights import (equalize_raw_params, fold_batchnorm,
+                                                random_raw_params)
+
+    t0 = time.perf_counter()
+    info = {}
+    live = fold_batchnorm(v3, equalize_raw_params(v3, random_raw_params(v3), device=dev,
+                                                  info=info))
+    eq_s = time.perf_counter() - t0
+    det_ref = Detector(v3, live, device=dev, precision="highest")
+    det_load = Detector.load(cfg, device=dev, precision="highest", synthetic="live")
+    det_cpu = Detector(v3, live, device="cpu", precision="highest")
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    gpu = det_load.detect_batch(frames4[:2], size=SIZE)
+    torch.cuda.synchronize()
+    launches10 = dict(kernels.LAUNCHES)
+    if not (launches10["decode_score"] == 1 and launches10["nms_keep"] == 1):
+        fail(f"live detect_batch on the card: expected one K1 and one K2 launch: {launches10}")
+    same = detection_drift(det_ref.detect_batch(frames4[:2], size=SIZE), gpu)
+    cpu = det_cpu.detect_batch(frames4[:2], size=SIZE)
+    stats10 = detection_drift(cpu, gpu)
+    if not (same.ref_dets > 0 and same.set_agreement == 1.0):
+        fail(f"Detector.load(synthetic='live') differs from the equalized weights: {same.row()}")
+    if not (stats10.ref_dets > 0 and stats10.set_agreement == 1.0):
+        fail(f"live fp32 card vs CPU: {stats10.row()}")
+    say(f"phase 10 yolov3@{SIZE} live weights: equalizer {info['sweeps']} sweeps "
+        f"(converged {info['converged']}, largest |log std| after the last "
+        f"{info['max_log_std']:.4f}, unscaled convs {info['unscaled']}) in {eq_s:.1f} s on the card; "
+        f"fp32 highest, 2 frames, card vs CPU: {stats10.row()}; launches {launches10}")
+    del det_load, det_cpu
+
+    # 11. drift on the card against fp32 "highest", live weights
+    img_rng = np.random.default_rng(0)
+    drift_imgs = [img_rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
+    calib_live = [np.random.default_rng(100 + i).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                  for i in range(4)]
+    bf16 = dict(dtype=torch.bfloat16, precision="default")
+    static = dict(quant_calib=calib_live, quant_calib_size=SIZE)
+    modes = {"bf16 s2d": dict(stem_s2d=True, **bf16),
+             "bf16 natural stem": dict(stem_s2d=False, **bf16),
+             "int8 dynamic": dict(quant="w8a8"),
+             "int8-static none": dict(quant="w8a8", quant_recipe="none", **static),
+             "int8sb none": dict(quant="w8a8", quant_recipe="none", **static, **bf16),
+             "int8sb auto": dict(quant="w8a8", **static, **bf16)}
+    ref_stats = None
+    rows11 = {}
+    for name, kw in modes.items():
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        det = Detector(v3, live, device=dev, **kw)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        calib_launches = dict(kernels.LAUNCHES)
+        st = measure_mode_drift(det_ref, det, drift_imgs, size=SIZE)
+        torch.cuda.synchronize()
+        launches11 = {k: v - calib_launches[k] for k, v in kernels.LAUNCHES.items()}
+        if ref_stats is None:
+            ref = [det_ref.detect(im, size=SIZE) for im in drift_imgs]
+            ref_stats = detection_drift(ref, ref)
+        if st.degenerate:
+            fail(f"drift {name}: degenerate regime: {st.row()}")
+        if not (launches11["decode_score"] == 2 * len(drift_imgs)
+                and launches11["nms_keep"] == 2 * len(drift_imgs)):
+            fail(f"drift {name}: expected one K1 and one K2 launch a frame: {launches11}")
+        if name == "int8sb auto" and not (calib_launches["int8_gemm"]
+                                          and calib_launches["int8_conv"]):
+            fail(f"the recipe's calibration bypassed K3/K4: {calib_launches}")
+        if kw.get("quant") and not (launches11["int8_gemm"] and launches11["int8_conv"]):
+            fail(f"drift {name}: int8 serving bypassed K3/K4: {launches11}")
+        rows11[name] = dict(agree=st.set_agreement, box_p99=st.box_p99_px, score_p99=st.score_p99,
+                            load_s=load_s, stem_s2d=det.stem_s2d, recipe=det.quant_state().get(
+                                "recipe") if det.quant else None)
+        say(f"phase 11 drift yolov3@{SIZE} live, {name} (stem_s2d={det.stem_s2d}) vs fp32 "
+            f"highest: {st.row()}; load+calibrate {load_s:.2f} s; calibration launches "
+            f"{ {k: v for k, v in calib_launches.items() if v} }")
+        del det
+    if ref_stats.ref_sat_frac > 0.5 or ref_stats.ref_score_spread < 0.02:
+        fail(f"the live fp32 reference is degenerate: {ref_stats.row()}")
+    if not rows11["int8sb auto"]["agree"] > rows11["int8sb none"]["agree"]:
+        fail(f"int8sb 'auto' does not beat 'none': {rows11['int8sb auto']['agree']:.4f} vs "
+             f"{rows11['int8sb none']['agree']:.4f}")
+    say(f"phase 11 fp32 reference: {ref_stats.ref_dets} dets, saturated share "
+        f"{ref_stats.ref_sat_frac:.2f}, score spread {ref_stats.ref_score_spread:.3f} (not degenerate)")
+    say(f"phase 11 rows: {json.dumps(rows11)}")
+    tiny_spec = load_model_spec(tiny)
+    tiny_live = fold_batchnorm(tiny_spec, equalize_raw_params(tiny_spec, random_raw_params(tiny_spec),
+                                                              device=dev))
+    det_gpu = Detector(tiny_spec, tiny_live, device=dev, quant="w8a8", quant_calib=calib_live,
+                       quant_calib_size=SIZE)
+    state = json.loads(json.dumps(det_gpu.quant_state()))
+    if state.get("recipe") != "auto" or not state.get("bias_delta"):
+        fail(f"yolov3-tiny bare quant_calib did not serve the recipe: {sorted(state)}")
+    det_cpu = Detector(tiny_spec, tiny_live, device="cpu", quant="w8a8",
+                       quant_act_scales=state["scales"], quant_skip_layers=frozenset(state["skip"]),
+                       quant_bias_delta=state["bias_delta"])
+    gpu = det_gpu.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
+    stats11 = detection_drift(det_cpu.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU,
+                                                   max_det=MAX_DET), gpu)
+    if not (stats11.ref_dets > 0 and stats11.set_agreement >= 0.995):
+        fail(f"yolov3-tiny live 'auto' card vs CPU: {stats11.row()}")
+    say(f"phase 11 yolov3-tiny@{SIZE} live w8a8 'auto' calibrated on the card, CPU on the card's "
+        f"state: set agreement {stats11.set_agreement:.4f} (>= 0.995); {stats11.row()}")
+    del det_gpu, det_cpu, det_ref
+
+    # 12. A/B at batch 128 on the live weights: the s2d stem, the recipe, K2
+    def pipeline_median(det_ab) -> float:
+        times_ab, _ = pipeline_ms(lambda: det_ab.raw_result(frames, size=SIZE, conf=CONF, iou=IOU,
+                                                            max_det=MAX_DET))
+        return statistics.median(times_ab)
+
+    ab = {}
+    for tag, make in (("bf16 s2d", lambda s2d: Detector(v3, live, device=dev, stem_s2d=s2d,
+                                                          **bf16)),
+                      ("int8sb recipe", lambda auto: Detector(
+                          v3, live, device=dev, quant="w8a8",
+                          quant_recipe=None if auto else "none", **static, **bf16))):
+        off, on = make(False), make(True)
+        t_off1, t_on1, t_on2, t_off2 = (pipeline_median(off), pipeline_median(on),
+                                        pipeline_median(on), pipeline_median(off))
+        ab[tag] = dict(off=[t_off1, t_off2], on=[t_on1, t_on2],
+                       gain=(t_off1 + t_off2) / (t_on1 + t_on2) - 1.0,
+                       stem_s2d=[off.stem_s2d, on.stem_s2d])
+        say(f"phase 12 {tag} A/B, yolov3@{SIZE} live batch {BATCH} (off, on, on, off): "
+            f"off {t_off1:.3f} / {t_off2:.3f}, on {t_on1:.3f} / {t_on2:.3f} ms/batch; "
+            f"on is {ab[tag]['gain']:+.2%} faster ({BATCH / statistics.mean([t_on1, t_on2]) * 1e3:.1f}"
+            f" vs {BATCH / statistics.mean([t_off1, t_off2]) * 1e3:.1f} img/s) on {card}")
+        if tag == "bf16 s2d":
+            det12 = Detector(v3, live, device=dev, **bf16)  # the default stem
+        del off, on
+    # where the s2d stem's time goes: the stem alone, natural and packed
+    stem_on = Detector(v3, live, device=dev, stem_s2d=True, **bf16).model
+    xs = letterbox_batch(frames, SIZE)
+    nat0, nat1 = det12.model.convs["0"], det12.model.convs["1"]
+    from pytorch_yolo_tpu_torch.models.darknet import _space_to_depth, apply_activation
+
+    with torch.no_grad():
+        xn = xs.permute(0, 3, 1, 2).to(torch.bfloat16)
+        y0n = apply_activation(nat0(xn), "leaky")
+        ys = _space_to_depth(xs).permute(0, 3, 1, 2).to(torch.bfloat16)
+        y0s = apply_activation(stem_on.stem0(ys), "leaky")
+        y0p = torch.nn.functional.pad(y0s, (1, 0, 1, 0))
+        parts = {
+            "natural conv0+leaky": lambda: apply_activation(nat0(xn), "leaky"),
+            "natural conv1+leaky": lambda: apply_activation(nat1(y0n), "leaky"),
+            "s2d permute+cast": lambda: _space_to_depth(xs).permute(0, 3, 1, 2).to(torch.bfloat16),
+            "s2d conv0+leaky": lambda: apply_activation(stem_on.stem0(ys), "leaky"),
+            "s2d pad": lambda: torch.nn.functional.pad(y0s, (1, 0, 1, 0)),
+            "s2d conv1+leaky": lambda: apply_activation(stem_on.stem1(y0p), "leaky")}
+        stem_ms = {k: time_ms(f, 10, 2) for k, f in parts.items()}
+    layouts = {k: bool(t.is_contiguous(memory_format=torch.channels_last))
+               for k, t in (("natural conv0 out", y0n), ("s2d input", ys), ("s2d conv0 out", y0s),
+                            ("s2d pad out", y0p))}
+    say(f"phase 12 stem alone, bf16 batch {BATCH} (eager ms): {json.dumps(stem_ms)}; "
+        f"channels_last {layouts}")
+    del stem_on, xs, xn, y0n, ys, y0s, y0p
+    with torch.no_grad():
+        heads = det12.model(letterbox_batch(frames, SIZE), _native_heads=True)
+    rows = kernels.decode_score_all(heads, det12.spec)
+    masked = torch.where(rows[..., 4] > CONF, rows[..., 7], torch.full_like(rows[..., 7], -1.0))
+    top, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    sel = torch.gather(rows, 1, idx[:, :MAX_DET, None].expand(BATCH, MAX_DET, 8))
+    lboxes, lcls = sel[..., :4].contiguous(), sel[..., 6].contiguous()
+    lvalid = (top[:, :MAX_DET] > 0).contiguous()
+    lkeep = kernels.nms_keep(lboxes, lvalid, IOU, lcls)
+    if not torch.equal(lkeep, kernels.nms_keep_ref(lboxes, lvalid, IOU, lcls)):
+        fail("K2 on the live step's candidates disagrees with its plain version")
+    over = iou_matrix(lboxes) > IOU
+    over &= (lcls[:, :, None] - lcls[:, None, :]).abs() < 0.5
+    live_rounds = fixpoint_rounds(over, lvalid)
+    suppressed = int((lvalid & ~lkeep).sum())
+    k2l = lambda: kernels.nms_keep(lboxes, lvalid, IOU, lcls)  # noqa: E731
+    k2l_ms, k2l_dev_ms = time_ms(k2l), graph_ms(k2l)
+    k2l_bound, k2l_by = k2_bound_of(lvalid, True)
+    say(f"phase 12 K2 nms_keep {BATCH}x{MAX_DET} on the live step's candidates "
+        f"({int(lvalid.sum())} valid, {suppressed} suppressed, fixpoint rounds {live_rounds}): "
+        f"{k2l_ms:.4f} ms eager, {k2l_dev_ms:.4f} ms device ({k2l_bound / k2l_dev_ms:.1%} of "
+        f"{k2l_bound:.5f} ms, {k2l_by}); phase 6's degenerate candidates {k2_dev_ms:.4f} ms device "
+        f"(fixpoint rounds {rounds})")
+    say(f"phase 12 timings: {json.dumps(ab)}")
+    del det12, heads, rows
 
     report = {"kernels": [
         {"name": "decode_score", "route": "cuda",

@@ -7,8 +7,11 @@ class-wise NMS keep mask (K2) -> un-letterbox.  The only host<->device
 traffic is the uint8 images in and one fixed-shape result out.
 
 ``quant="w8a8"`` serves the conv stack in int8 (the int8 kernels K3/K4,
-``ops/quant.py``) with dynamic or calibrated static activation scales;
-``quant="w8"`` stores int8 weights and runs fp convs.
+``ops/quant.py``) with dynamic or calibrated static activation scales
+(by default the "auto" recipe: percentile ranging, per-channel smoothing
+and bias correction); ``quant="w8"`` stores int8 weights and runs fp
+convs.  ``stem_s2d`` picks the space-to-depth stem; ``load(...,
+synthetic="live")`` gives variance-equalized synthetic weights.
 """
 
 from __future__ import annotations
@@ -30,7 +33,14 @@ from .ops.nms import NMSResult, batched_nms_fused
 from .ops.postprocess import unletterbox_boxes
 from .ops.preprocess import letterbox_batch, letterbox_geometry, letterbox_host
 from .utils.names import load_classes
-from .weights import Params, fold_batchnorm, random_raw_params, read_weights_file
+from .weights import (Params, equalize_raw_params, fold_batchnorm, random_raw_params,
+                      read_weights_file)
+
+# The H100 A/B of the space-to-depth stem (chip_smoke.py phase 12, bf16
+# yolov3@416 batch 128, H100 80GB HBM3 at 700 W): 53.09 ms/batch with s2d
+# against 46.07 with the natural stem, 13.2 % slower, so the bf16 default
+# (which the JAX package turns on from a TPU measurement) is off here.
+S2D_BF16_DEFAULT = False
 
 CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cfg")
 
@@ -74,10 +84,7 @@ class _PipelineKey:
     iou: float
     max_det: int
     bgr: bool
-
-
-_NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 8: percentile calibration, bias "
-               "correction, noise ranking and quant_recipe='auto' come in a later PR)")
+    score_mode: str = "obj"
 
 
 def _revive_scale(v):
@@ -102,12 +109,23 @@ class Detector:
     ``quant="w8a8"`` quantizes every conv except the head convs (and, with
     bf16 glue, the early large-spatial convs: ``PYTORCH_YOLO_INT8_EARLY_STRIDE``
     overrides) and serves dynamic activation scales, or static ones from
-    ``quant_calib`` images (``quant_recipe="none"``: max calibration, with
-    ``quant_split_concat`` or ``quant_smooth``) or from a persisted
-    ``quant_act_scales`` / ``quant_state()``.  ``quant="w8"`` is weight-only.
-    Percentile calibration, bias correction, noise ranking and the "auto"
-    recipe (what a bare ``quant_calib`` resolves to) raise
-    ``NotImplementedError``: they are not ported yet."""
+    ``quant_calib`` images or from a persisted ``quant_act_scales`` /
+    ``quant_state()``.  A bare ``quant_calib`` means ``quant_recipe="auto"``:
+    p99.9 percentile ranging, per-channel smoothing at 0.5 and bias
+    correction.  ``quant_recipe="none"`` drives the knobs by hand:
+    ``quant_calib_percentile``, ``quant_split_concat`` or ``quant_smooth``,
+    ``quant_bias_correct``, and ``quant_skip_noisy=K`` (keep the K convs with
+    the largest isolated int8 error in fp).  ``quant="w8"`` is weight-only.
+    Calibration runs on the detector's device.
+
+    ``score_mode`` ranks candidates by objectness (``"obj"``) or by
+    ``"obj*cls"``.  ``stem_s2d`` runs the space-to-depth stem (an exact
+    reparameterization of the first two layers); None picks it as the JAX
+    package does — for a Darknet-53 (conv_conv) stem in bf16 serving and in
+    int8 whose stem convs stay fp, never at fp32 — except in bf16 (int8's
+    bf16 glue included): the H100 A/B measured s2d 13.2 % slower there
+    (``S2D_BF16_DEFAULT``), so it stays off.  ``PYTORCH_YOLO_STEM_S2D`` = 0
+    or 1 forces it off or on."""
 
     def __init__(
         self,
@@ -117,6 +135,8 @@ class Detector:
         device: "str | torch.device" = "cuda",
         dtype: torch.dtype = torch.float32,
         precision: str = "highest",
+        score_mode: str = "obj",
+        stem_s2d: "bool | None" = None,
         quant: str | None = None,
         quant_skip_layers: "object" = "heads",
         quant_calib: "Sequence[np.ndarray] | None" = None,
@@ -138,25 +158,33 @@ class Detector:
                                "is False")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+        if score_mode not in ("obj", "obj*cls"):
+            raise ValueError(f"unknown score_mode {score_mode!r} ('obj' or 'obj*cls')")
         self.spec = spec
         self.class_names = tuple(class_names) if class_names else load_classes()
         self.dtype = dtype
         self.precision = precision
-        quant = self._check_quant_args(
-            params, quant, quant_calib, quant_calib_percentile, quant_skip_noisy,
-            quant_split_concat, quant_smooth, quant_bias_correct, quant_recipe,
-            quant_act_scales, quant_bias_delta)
+        self.score_mode = score_mode
+        quant, quant_recipe, quant_calib_percentile, quant_smooth, quant_bias_correct = (
+            self._check_quant_args(
+                params, quant, quant_calib, quant_calib_percentile, quant_skip_noisy,
+                quant_split_concat, quant_smooth, quant_bias_correct, quant_recipe,
+                quant_act_scales, quant_bias_delta))
         self.quant = quant
         self._quant_skip: frozenset[int] = frozenset()
         self._bias_deltas: "dict[int, np.ndarray]" = {}
         self._quant_calib_size: "tuple[int, int] | None" = None
+        # "none" (the explicit opt-out) persists like no recipe: no stamp
+        self._quant_recipe = None if quant_recipe == "none" else quant_recipe
         if quant is not None:
             params = self._quantize(params, quant, quant_skip_layers, quant_calib,
                                     quant_calib_bgr, quant_calib_margin, quant_calib_size,
-                                    quant_split_concat, quant_smooth, quant_act_scales,
+                                    quant_calib_percentile, quant_skip_noisy, quant_split_concat,
+                                    quant_smooth, quant_bias_correct, quant_act_scales,
                                     quant_bias_delta)
+        self.stem_s2d = self._resolve_stem_s2d(stem_s2d)
         self.model = Darknet(spec, params, dtype=dtype, precision=precision,
-                             quant=quant).to(self.device)
+                             quant=quant, stem_s2d=self.stem_s2d).to(self.device)
         self._pipelines: "collections.OrderedDict[_PipelineKey, object]" = (
             collections.OrderedDict())
         self.max_cached_pipelines = 32  # LRU bound for long-running servers
@@ -166,9 +194,8 @@ class Detector:
                           quant_split_concat, quant_smooth, quant_bias_correct, quant_recipe,
                           quant_act_scales, quant_bias_delta):
         """The JAX Detector's argument checks, in its order; returns the
-        resolved quant mode.  The parts not ported raise NotImplementedError
-        after the checks the JAX package would fail, so no recipe is ever
-        served and ``quant_state()`` stamps none."""
+        resolved quant mode, recipe, and the knobs "auto" sets (p99.9
+        percentile, smoothing 0.5, bias correction)."""
         if quant is None and any("wq" in p for p in params.values()):
             quant = "w8a8"  # params arrived pre-quantized
         if quant is None and quant_calib is not None:
@@ -200,6 +227,7 @@ class Detector:
             if explicit:
                 raise ValueError("quant_recipe='auto' chooses the int8 knobs itself — drop "
                                  "the explicit knob arguments (or pass quant_recipe='none')")
+            quant_calib_percentile, quant_smooth, quant_bias_correct = 99.9, 0.5, True
         for needed, what in ((quant_skip_noisy, "quant_skip_noisy"),
                              (quant_split_concat, "quant_split_concat"),
                              (quant_smooth is not None, "quant_smooth"),
@@ -216,21 +244,14 @@ class Detector:
         if quant_act_scales is not None and quant_calib is not None:
             raise ValueError("pass either quant_calib (images) or quant_act_scales (persisted "
                              "scales), not both")
-        if quant_recipe == "auto":
-            raise NotImplementedError(
-                f"quant_recipe='auto' (what a bare quant_calib resolves to) {_NOT_PORTED}; "
-                "pass quant_recipe='none' for max calibration")
-        for given, what in ((quant_calib_percentile is not None, "quant_calib_percentile"),
-                            (quant_bias_correct, "quant_bias_correct"),
-                            (quant_skip_noisy, "quant_skip_noisy")):
-            if given:
-                raise NotImplementedError(f"{what} {_NOT_PORTED}")
-        return quant
+        return quant, quant_recipe, quant_calib_percentile, quant_smooth, quant_bias_correct
 
     def _quantize(self, params, quant, skip_layers, calib, calib_bgr, calib_margin, calib_size,
-                  split_concat, smooth, act_scales, bias_delta) -> dict:
-        """Resolve the skip set, calibrate or revive the static scales, and
-        quantize (``api.py:237-407`` of the JAX package)."""
+                  percentile, skip_noisy, split_concat, smooth, bias_correct, act_scales,
+                  bias_delta) -> dict:
+        """Resolve the skip set, calibrate or revive the static scales,
+        widen the skip set by the noisiest convs, quantize, and correct the
+        biases (``api.py:237-407`` of the JAX package)."""
         spec = self.spec
         early = (q.default_early_min_stride(spec)
                  if quant == "w8a8" and self.dtype == torch.bfloat16 else 0)
@@ -258,10 +279,19 @@ class Detector:
             groups = ({i: g for i, g in q.concat_split_groups(spec).items() if i not in skip}
                       if split_concat else None)
             scales = q.collect_act_scales(spec, params, canvases, margin=calib_margin,
-                                          concat_groups=groups, smooth_alpha=smooth,
-                                          device=self.device)
+                                          percentile=percentile, concat_groups=groups,
+                                          smooth_alpha=smooth, device=self.device)
+            if skip_noisy:  # rank each conv's isolated int8 error on the first canvas
+                qtmp = q.quantize_params(spec, params, skip_layers=skip, act_scales=scales)
+                ranked = q.rank_quant_noise(spec, params, qtmp, canvases[:1], device=self.device)
+                skip = skip | frozenset(i for i, _ in ranked[:skip_noisy])
+                self._quant_skip = skip
+        fp_params = params
         params = q.quantize_params(spec, params, skip_layers=skip, act_scales=scales)
-        if bias_delta:
+        if bias_correct:
+            params, self._bias_deltas = q.bias_correct_params(spec, fp_params, params,
+                                                              canvases[:1], device=self.device)
+        elif bias_delta:
             self._bias_deltas = {int(k): np.asarray(v, np.float32) for k, v in bias_delta.items()}
             params = q.apply_bias_deltas(params, self._bias_deltas)
         if act_scales is not None:
@@ -275,6 +305,26 @@ class Detector:
                     "full static int8", stacklevel=3)
         return params
 
+    def _resolve_stem_s2d(self, stem_s2d: "bool | None") -> bool:
+        """The JAX package's ``stem_s2d`` rule (``api.py:411-446``), with the
+        H100's bf16 finding (``S2D_BF16_DEFAULT``)."""
+        if stem_s2d is not None:
+            return bool(stem_s2d)
+        from .models.darknet import _stem_pattern
+
+        env = os.environ.get("PYTORCH_YOLO_STEM_S2D")
+        pattern = _stem_pattern(self.spec)
+        if self.quant is not None and not {0, 1} <= self._quant_skip:
+            pattern = None  # a quantized stem has no fp kernels to pack
+        if env == "0":
+            return False
+        if env == "1":
+            return pattern is not None
+        bf16_ok = S2D_BF16_DEFAULT or self.dtype != torch.bfloat16
+        if self.quant is not None:
+            return pattern == "conv_conv" and bf16_ok
+        return pattern == "conv_conv" and self.dtype == torch.bfloat16 and bf16_ok
+
     @classmethod
     def load(
         cls,
@@ -284,20 +334,33 @@ class Detector:
         device: "str | torch.device" = "cuda",
         dtype: torch.dtype = torch.float32,
         precision: str = "highest",
-        **quant_kw,
+        synthetic: str = "he",
+        **kw,
     ) -> "Detector":
         """``cfg`` is a ``.cfg`` path or a model name under ``cfg/``
         ("yolov3", "yolov3-tiny", ...).  With ``weights=None`` the model gets
-        synthetic He-init weights, the same numbers as the JAX package's
-        default ``synthetic="he"``.  ``quant_kw`` are the constructor's
-        ``quant*`` arguments."""
+        synthetic weights, the same numbers as the JAX package's:
+        ``synthetic="he"`` is plain He init (deep models saturate their head
+        sigmoids), ``"live"`` adds the LSUV variance equalizer
+        (``weights.equalize_raw_params``, run on ``device``), which puts the
+        head logits in the sigmoid's responsive range.  ``kw`` are the
+        constructor's other arguments (``score_mode``, ``stem_s2d``,
+        ``quant*``)."""
         path = cfg if cfg.endswith(".cfg") else os.path.join(CFG_DIR, f"{cfg}.cfg")
         with open(path, "r", encoding="utf-8") as f:
             cfg_text = f.read()
         spec = build_spec(parse_cfg_text(cfg_text))
-        raw = read_weights_file(spec, weights) if weights is not None else random_raw_params(spec)
+        if weights is not None:
+            raw = read_weights_file(spec, weights)
+        else:
+            if synthetic not in ("he", "live"):
+                raise ValueError(f"unknown synthetic regime {synthetic!r} (expected 'he' or "
+                                 "'live')")
+            raw = random_raw_params(spec)
+            if synthetic == "live":
+                raw = equalize_raw_params(spec, raw, device=device)
         return cls(spec, fold_batchnorm(spec, raw), class_names=load_classes(names),
-                   device=device, dtype=dtype, precision=precision, **quant_kw)
+                   device=device, dtype=dtype, precision=precision, **kw)
 
     def act_scales(self) -> "dict[int, float | list[float] | dict]":
         """The static int8 activation scales of the served convs: a float, a
@@ -316,8 +379,8 @@ class Detector:
 
     def quant_state(self) -> dict:
         """JSON-ready static-int8 serving state, the JAX package's format: the
-        scales, the resolved skip set, and when present the calibration size
-        and the bias deltas.  Reload with
+        scales, the resolved skip set, and when present the recipe, the
+        calibration size and the bias deltas.  Reload with
         ``load(cfg, quant="w8a8", quant_act_scales=state["scales"],
         quant_skip_layers=frozenset(state["skip"]),
         quant_bias_delta=state.get("bias_delta"))``; a state written by either
@@ -325,6 +388,8 @@ class Detector:
         state = {"version": 1,
                  "scales": {int(i): s for i, s in self.act_scales().items()},
                  "skip": sorted(int(i) for i in self._quant_skip)}
+        if self._quant_recipe is not None:
+            state["recipe"] = self._quant_recipe
         if self._quant_calib_size is not None:
             state["calib_size"] = list(self._quant_calib_size)
         if self._bias_deltas:
@@ -342,7 +407,8 @@ class Detector:
 
         def pipeline(imgs: torch.Tensor) -> NMSResult:
             x = letterbox_batch(imgs, size=key.size, bgr=key.bgr)
-            rows = decode_score_all(model(x, _native_heads=True), spec)  # bf16 heads as they are
+            rows = decode_score_all(model(x, _native_heads=True), spec,  # bf16 heads as they are
+                                    score_mode=key.score_mode)
             res = batched_nms_fused(rows, conf_thresh=key.conf, iou_thresh=key.iou,
                                     max_det=key.max_det)
             return res._replace(boxes=unletterbox_boxes(res.boxes, geo))
@@ -405,7 +471,7 @@ class Detector:
         imgs = self._to_device(images)
         key = _PipelineKey(batch=imgs.shape[0], orig_h=imgs.shape[1], orig_w=imgs.shape[2],
                            size=self._resolve_size(size), conf=conf, iou=iou,
-                           max_det=max_det, bgr=bgr)
+                           max_det=max_det, bgr=bgr, score_mode=self.score_mode)
         return self._pipeline(key)(imgs)
 
     @staticmethod

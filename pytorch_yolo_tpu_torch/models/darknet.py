@@ -11,6 +11,14 @@ kernels.
 Convolutions stay ``F.conv2d`` (the JAX package left them to XLA too).
 BatchNorm arrives folded into the conv (``weights.fold_batchnorm``).
 
+``stem_s2d=True`` runs the space-to-depth stem: the first two layers
+(3x3/s1 conv + 3x3/s2 conv, or 3x3/s1 conv + 2x2/s2 maxpool) become one
+3x3 conv over the 2x2-block input and a 2x2 stride-1 conv (or a max over
+the four phase channel groups).  The kernels are packed once, here at
+construction, into OIHW ``nn.Conv2d`` weights (the JAX package packs them
+at trace time); the reparameterization is exact up to the order of the
+sums.
+
 ``quant="w8a8"`` runs every conv whose params carry int8 weights (``"wq"``,
 from ``ops.quant.quantize_params``) through ``ops.quant.quantized_conv``:
 the hand-written int8 kernels K3/K4 on the card, with int8-resident chains
@@ -124,6 +132,75 @@ def _upsample(x: torch.Tensor, stride: int) -> torch.Tensor:
     return y.reshape(n, h * stride, w * stride, c).permute(0, 3, 1, 2)
 
 
+def _stem_pattern(spec: ModelSpec) -> "str | None":
+    """Which space-to-depth reparameterization the model's stem admits:
+    ``"conv_conv"`` (3x3/s1 conv + 3x3/s2 conv, Darknet-53), ``"conv_pool"``
+    (3x3/s1 conv + 2x2/s2 maxpool, the tiny/v2 family), or None (not
+    transformable, or layer 0's output is routed to).  A copy of the JAX
+    package's rule."""
+    layers = spec.layers
+    if len(layers) < 2 or 0 in _needed_outputs(spec):
+        return None
+    l0, l1 = layers[0], layers[1]
+    if not (isinstance(l0, ConvSpec) and l0.size == 3 and l0.stride == 1
+            and l0.padding == 1 and l0.activation == "leaky"):
+        return None
+    if (isinstance(l1, ConvSpec) and l1.size == 3 and l1.stride == 2
+            and l1.padding == 1 and l1.activation == "leaky"):
+        return "conv_conv"
+    if isinstance(l1, MaxPoolSpec) and l1.size == 2 and l1.stride == 2:
+        return "conv_pool"
+    return None
+
+
+def stem_s2d_applicable(spec: ModelSpec) -> bool:
+    """True when ``Darknet(stem_s2d=True)`` can reparameterize the stem."""
+    return _stem_pattern(spec) is not None
+
+
+def _pack_s2d_conv0(w0: torch.Tensor, b0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """OIHW 3x3/s1 conv (O0, C0, 3, 3) -> the 3x3 conv over the space-to-
+    depth input, (4*O0, 4*C0, 3, 3), and its bias tiled 4 times.
+
+    Input channel (dy, dx, c) is input pixel (2i+dy, 2j+dx); output channel
+    (a, b, o) is output pixel (2i+a, 2j+b), whose tap (r, s) reads block
+    i + (a+r-1)//2, phase (a+r-1)%2.  Taps outside the kernel stay exact
+    zeros."""
+    o0, c0 = w0.shape[0], w0.shape[1]
+    pw0 = torch.zeros((4 * o0, 4 * c0, 3, 3), dtype=w0.dtype)
+    for a in range(2):
+        for b in range(2):
+            for r in range(3):
+                for s in range(3):
+                    di, dy = (a + r - 1) // 2 + 1, (a + r - 1) % 2
+                    dj, dx = (b + s - 1) // 2 + 1, (b + s - 1) % 2
+                    ci = (dy * 2 + dx) * c0
+                    oi = (a * 2 + b) * o0
+                    pw0[oi:oi + o0, ci:ci + c0, di, dj] = w0[:, :, r, s]
+    return pw0, b0.repeat(4)
+
+
+def _pack_s2d_conv1(w1: torch.Tensor) -> torch.Tensor:
+    """OIHW 3x3/s2 conv (O1, C1, 3, 3) -> the 2x2 stride-1 conv over the
+    phase channels of the packed conv0's output, (O1, 4*C1, 2, 2)."""
+    o1, c1 = w1.shape[0], w1.shape[1]
+    pw1 = torch.zeros((o1, 4 * c1, 2, 2), dtype=w1.dtype)
+    for r in range(3):
+        for s in range(3):
+            di, a = (r - 1) // 2 + 1, (r - 1) % 2
+            dj, b = (s - 1) // 2 + 1, (s - 1) % 2
+            ci = (a * 2 + b) * c1
+            pw1[:, ci:ci + c1, di, dj] = w1[:, :, r, s]
+    return pw1
+
+
+def _space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """NHWC (N, H, W, C) -> (N, H/2, W/2, 4*C), channel order (dy, dx, c)."""
+    n, h, w, c = x.shape
+    y = x.reshape(n, h // 2, 2, w // 2, 2, c)
+    return y.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
+
+
 @contextlib.contextmanager
 def _conv_precision(precision: str):
     """Allow cuDNN TF32 for fp32 convs only when ``precision`` is not
@@ -156,11 +233,13 @@ class _QuantConv(nn.Module):
 
 class Darknet(nn.Module):
     """Darknet network from a :class:`ModelSpec` and folded OIHW params
-    (quantized params from ``ops.quant.quantize_params`` with ``quant``)."""
+    (quantized params from ``ops.quant.quantize_params`` with ``quant``;
+    ``stem_s2d`` runs the space-to-depth stem, whose two convs must keep
+    fp kernels)."""
 
     def __init__(self, spec: ModelSpec, params: "Mapping[int, Mapping[str, Any]]",
                  dtype: torch.dtype = torch.float32, precision: str = "highest",
-                 quant: "str | None" = None) -> None:
+                 quant: "str | None" = None, stem_s2d: bool = False) -> None:
         super().__init__()
         from ..ops.quant import concat_split_groups, int8_resident_chains
 
@@ -201,9 +280,45 @@ class Darknet(nn.Module):
                 conv.bias.copy_(b)
             conv.requires_grad_(False)
             self.convs[str(layer.index)] = conv
+        self.stem_s2d = bool(stem_s2d)
+        self._pattern = _stem_pattern(spec) if stem_s2d else None
+        if stem_s2d:
+            if self._pattern is None:
+                raise ValueError("model's first two layers are not a transformable stem pattern "
+                                 "(see stem_s2d_applicable / _stem_pattern)")
+            stem = [0, 1] if self._pattern == "conv_conv" else [0]
+            if any("wq" in params[i] for i in stem):
+                raise ValueError("stem_s2d requires fp stem kernels, but the stem convs are "
+                                 "int8-quantized — keep layers 0/1 in the quant skip set "
+                                 "(default PYTORCH_YOLO_INT8_EARLY_STRIDE=8 does)")
+            c0 = self.convs.pop("0")
+            pw0, pb0 = _pack_s2d_conv0(c0.weight, c0.bias)
+            self.stem0 = self._packed_conv(pw0, pb0, padding=1)
+            if self._pattern == "conv_conv":
+                c1 = self.convs.pop("1")
+                self.stem1 = self._packed_conv(_pack_s2d_conv1(c1.weight), c1.bias, padding=0)
         self.convs.to(dtype=dtype, memory_format=torch.channels_last)
         self._chains = int8_resident_chains(spec, params) if quant == "w8a8" else {}
         self._split_groups = concat_split_groups(spec)
+
+    def _packed_conv(self, w: torch.Tensor, b: torch.Tensor, padding: int) -> nn.Conv2d:
+        conv = nn.Conv2d(w.shape[1], w.shape[0], w.shape[2], padding=padding, bias=True)
+        with torch.no_grad():
+            conv.weight.copy_(w)
+            conv.bias.copy_(b)
+        conv.requires_grad_(False)
+        return conv.to(dtype=self.dtype, memory_format=torch.channels_last)
+
+    def _s2d_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The packed stem on an NHWC batch: layer 1's output as an NCHW
+        (``channels_last``) view, as the natural stem gives it."""
+        y = _space_to_depth(x).permute(0, 3, 1, 2).to(self.dtype)
+        y = apply_activation(self.stem0(y), "leaky")
+        if self._pattern == "conv_conv":  # the 3x3/s2 conv: pad (1, 0) on each axis
+            return apply_activation(self.stem1(F.pad(y, (1, 0, 1, 0))), "leaky")
+        o = y.shape[1] // 4  # 2x2/s2 maxpool: the max over the four phase groups
+        return torch.maximum(torch.maximum(y[:, :o], y[:, o:2 * o]),
+                             torch.maximum(y[:, 2 * o:3 * o], y[:, 3 * o:]))
 
     def _quantized(self, x: torch.Tensor, layer: ConvSpec) -> torch.Tensor:
         """One W8A8 conv on the NCHW (channels_last) view."""
@@ -220,23 +335,44 @@ class Darknet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 collect_conv_in_stats: "Callable[[int, torch.Tensor], Any] | None" = None,
+                collect_conv_out_stats: "Callable[[int, torch.Tensor], Any] | None" = None,
                 _native_heads: bool = False):
-        """(N, H, W, 3) float in [0, 1] -> raw (N, Gy, Gx, A*(5+C)) fp32 heads.
+        """(N, H, W, 3) float in [0, 1] -> raw (N, Gy, Gx, A*(5+C)) fp32
+        heads (float64 for a float64 model).
 
         ``collect_conv_in_stats=f`` also returns ``{conv index: f(index,
         conv input as an NHWC view)}`` for every conv where ``f`` returns
-        something other than None (the calibration hook).
+        something other than None (the calibration hook);
+        ``collect_conv_out_stats=f`` does the same on each conv's output,
+        after its activation (the variance equalizer's hook).  One hook at a
+        time, and none with ``stem_s2d``: the packed stem runs no conv 0 or
+        1 to show it (the JAX forward skips them silently; the port
+        raises).
         ``_native_heads=True`` (the serving pipeline's) returns bf16 and fp32
         heads as they are, the NHWC view of the head conv's ``channels_last``
         output with no copy, when they share one dtype (K1 reads one dtype a
         launch); mixed heads (an int8 head conv gives fp32 beside a skipped
         bf16 one) and other dtypes still become fp32."""
-        x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view; each fp conv casts
+        hooked = collect_conv_in_stats is not None or collect_conv_out_stats is not None
+        if collect_conv_in_stats is not None and collect_conv_out_stats is not None:
+            raise ValueError("one stats hook at a time: collect_conv_in_stats and "
+                             "collect_conv_out_stats share the stats return")
+        if hooked and self.stem_s2d:
+            raise ValueError("a stats hook with stem_s2d would leave convs 0-1 unseen: the "
+                             "packed stem runs neither; build the model with stem_s2d=False")
         cache: dict[int, torch.Tensor] = {}
         heads: list[torch.Tensor] = []
         stats: dict[int, Any] = {}
+        layers = self.spec.layers
         with torch.no_grad(), _conv_precision(self.precision):
-            for layer in self.spec.layers:
+            if self.stem_s2d:
+                x = self._s2d_stem(x)
+                if 1 in self._needed:
+                    cache[1] = x
+                layers = layers[2:]
+            else:
+                x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view; each fp conv casts
+            for layer in layers:
                 if isinstance(layer, ConvSpec):
                     if collect_conv_in_stats is not None:
                         s = collect_conv_in_stats(layer.index, x.permute(0, 2, 3, 1))
@@ -247,6 +383,10 @@ class Darknet(nn.Module):
                     else:
                         conv = self.convs[str(layer.index)]
                         x = apply_activation(conv(x.to(self.dtype)), layer.activation)
+                    if collect_conv_out_stats is not None:
+                        s = collect_conv_out_stats(layer.index, x.permute(0, 2, 3, 1))
+                        if s is not None:
+                            stats[layer.index] = s
                 elif isinstance(layer, MaxPoolSpec):
                     x = _maxpool(x, layer)
                 elif isinstance(layer, UpsampleSpec):
@@ -265,13 +405,13 @@ class Darknet(nn.Module):
                 elif isinstance(layer, (YoloSpec, RegionSpec)):
                     h = x.permute(0, 2, 3, 1)
                     if not (_native_heads and h.dtype in (torch.bfloat16, torch.float32)):
-                        h = h.to(torch.float32)
+                        h = h.to(torch.promote_types(h.dtype, torch.float32))
                     heads.append(h.contiguous())
                 if layer.index in self._needed:
                     cache[layer.index] = x
         if len({h.dtype for h in heads}) > 1:
             heads = [h.to(torch.float32) for h in heads]
-        if collect_conv_in_stats is not None:
+        if hooked:
             return tuple(heads), stats
         return tuple(heads)
 

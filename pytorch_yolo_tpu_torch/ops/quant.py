@@ -18,6 +18,12 @@ of the JAX package's.  The numbers are the same scheme:
   int8-resident chain) in the kernels of ``ops/kernels.py``: K3
   (``int8_gemm``) for 1x1 stride-1 convs, K4 (``int8_conv``) for the rest.
 
+Calibration (:func:`collect_act_scales`: max or exact-percentile ranging,
+split-concat and smoothed grids) and the recipe's two calibration-time
+passes (:func:`bias_correct_params`, :func:`rank_quant_noise`) run the
+fp32 "highest" forward on the card unless the caller asks for the CPU; the
+last two run each quantized conv's int8 twin through K3/K4 there.
+
 The input quantizer stays plain torch (``clamp(round(x / sx), -127, 127)``
 in fp32), as the JAX package leaves it to XLA outside any kernel.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
@@ -25,6 +31,8 @@ in fp32), as the JAX package leaves it to XLA outside any kernel.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 from typing import Container, Mapping
 
@@ -36,6 +44,7 @@ from ..config import (ConvSpec, MaxPoolSpec, ModelSpec, ReorgSpec, RouteSpec,
 from . import kernels
 
 _QEPS = 1e-12  # guards all-zero tensors (sx would otherwise be 0)
+_PCT_OCTAVES = 20  # percentile floor: max * 2^-20, the bottom of the JAX estimator's range
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +222,29 @@ def apply_bias_deltas(qparams: dict, deltas: "Mapping[int, np.ndarray]") -> dict
 # ---------------------------------------------------------------------------
 
 
+def _calib_device(device: "str | torch.device", what: str) -> torch.device:
+    """The calibration device; raises where it is CUDA and CUDA is absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what} on {device}, but torch.cuda.is_available() is False: pass "
+                           "device='cpu' to calibrate on the CPU")
+    return device
+
+
+def order_statistic(a: torch.Tensor, percentile: float, dim: "int | None" = None) -> torch.Tensor:
+    """The exact ``percentile``-th order statistic of ``a`` (all of it, or
+    along ``dim``): the k-th smallest value, ``k = ceil(n * q / 100)``
+    with ``n * q / 100`` in Python floats, as the JAX estimator counts it.
+    ``torch.kthvalue``, not ``torch.quantile``: the latter refuses tensors
+    of more than 2^24 elements (yolov3's conv 1 input at 416 with 4 frames
+    is 2.2e7)."""
+    if dim is None:
+        a, dim = a.reshape(-1), 0
+    n = a.shape[dim]
+    k = max(1, int(math.ceil(n * (percentile / 100.0))))
+    return torch.kthvalue(a, k, dim=dim).values
+
+
 def collect_act_scales(spec: ModelSpec, params: Mapping[int, Mapping[str, np.ndarray]],
                        x: "np.ndarray | torch.Tensor", margin: float = 1.0,
                        percentile: "float | None" = None,
@@ -226,18 +258,19 @@ def collect_act_scales(spec: ModelSpec, params: Mapping[int, Mapping[str, np.nda
     ``v_c = s_c * sx`` with ``s_c = a_c^alpha / w_c^(1 - alpha)`` for every
     conv.  ``params`` are the fp32 OIHW params; the forward runs at fp32 /
     "highest" on ``device``, the card unless the caller asks for the CPU
-    (it raises where CUDA is absent).  Percentile calibration is not ported
-    yet."""
+    (it raises where CUDA is absent).
+
+    ``percentile=q`` ranges each conv on the q-th percentile of ``|x|``
+    over all calibration values instead of the max (and, for the per-channel
+    statistics, each channel's over N, H and W): the exact order statistic
+    (:func:`order_statistic`), floored at ``max * 2**-20``.  The JAX package
+    bisects for it (a TPU compile workaround) and lands within a factor
+    2^(20/2^16) above it."""
     from ..models.darknet import Darknet
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"collect_act_scales on {device}, but torch.cuda.is_available() "
-                           "is False: pass device='cpu' to calibrate on the CPU")
-
-    if percentile is not None:
-        raise NotImplementedError("percentile calibration is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    device = _calib_device(device, "collect_act_scales")
+    if percentile is not None and not 0.0 < percentile <= 100.0:
+        raise ValueError(f"percentile must be in (0, 100], got {percentile}")
     if smooth_alpha is not None and concat_groups:
         raise ValueError("smooth_alpha and concat_groups are mutually exclusive "
                          "(per-channel smoothing subsumes per-group split scales)")
@@ -248,8 +281,17 @@ def collect_act_scales(spec: ModelSpec, params: Mapping[int, Mapping[str, np.nda
 
     def stat(i, t):  # t is the conv input, NHWC
         a = t.abs()
-        whole = a.amax(dim=(1, 2, 3))
-        return (whole, a.amax(dim=(0, 1, 2))) if per_channel else whole
+        if percentile is None:
+            whole = a.amax(dim=(1, 2, 3))
+            return (whole, a.amax(dim=(0, 1, 2))) if per_channel else whole
+        floor = 2.0 ** -_PCT_OCTAVES
+        whole = torch.maximum(order_statistic(a, percentile),
+                              a.amax().clamp_min(_QEPS) * floor)
+        if not per_channel:
+            return whole
+        ac = a.reshape(-1, a.shape[-1]).t()  # (C, N*H*W)
+        return whole, torch.maximum(order_statistic(ac, percentile, dim=1),
+                                    ac.amax(dim=1).clamp_min(_QEPS) * floor)
 
     fwd = Darknet(spec, params, dtype=torch.float32, precision="highest").to(device)
     x = torch.as_tensor(np.asarray(x, np.float32)).to(device)
@@ -279,6 +321,88 @@ def collect_act_scales(spec: ModelSpec, params: Mapping[int, Mapping[str, np.nda
         else:
             scales[idx] = float(np.max(whole)) * margin / 127.0 + _QEPS
     return scales
+
+
+def _twin_pass(spec: ModelSpec, fp_params, qparams, x, device, linear: bool, reduce) -> dict:
+    """One fp32 "highest" forward of ``x`` on ``device`` whose input hook
+    runs, for every conv quantized in ``qparams``, the fp conv and its
+    quantized twin on the same fp32 input (upstream noise cancels) and
+    returns ``reduce(y_fp, y_q)``; ``linear`` runs both twins without their
+    activation.  The quantized twin is ``quantized_conv`` without
+    ``out_scale``: a K3 or K4 launch with fp32 output on the card."""
+    from ..models.darknet import Darknet, apply_activation
+
+    groups = concat_split_groups(spec)
+    layers = {l.index: (dataclasses.replace(l, activation="linear") if linear else l)
+              for l in spec.layers
+              if isinstance(l, ConvSpec) and "wq" in qparams.get(l.index, ())}
+    qdev = {i: {k: torch.as_tensor(v).to(device) for k, v in qparams[i].items()}
+            for i in layers}
+    fwd = Darknet(spec, fp_params, dtype=torch.float32, precision="highest").to(device)
+
+    def hook(idx, t):
+        layer = layers.get(idx)
+        if layer is None:
+            return None
+        conv = fwd.convs[str(idx)]
+        y_fp = apply_activation(conv(t.permute(0, 3, 1, 2)), layer.activation).permute(0, 2, 3, 1)
+        q = qdev[idx]
+        y_q = quantized_conv(t, q["wq"], q["ws"], q["b"], layer, sx=q.get("sa"), sxg=q.get("sag"),
+                             splits=groups.get(idx) if "sag" in q else None)
+        return reduce(y_fp, y_q)
+
+    _, stats = fwd(torch.as_tensor(np.asarray(x, np.float32)).to(device),
+                   collect_conv_in_stats=hook)
+    return stats
+
+
+def rank_quant_noise(spec: ModelSpec, fp_params: Mapping[int, Mapping[str, np.ndarray]],
+                     qparams: dict, x, device: "str | torch.device" = "cuda"
+                     ) -> "list[tuple[int, float]]":
+    """Rank the quantized convs by their isolated int8 noise, worst first:
+    ``[(conv index, relative L2 error), ...]``.  Each quantized conv (with
+    its activation) is compared with the fp32 conv on the same fp32 input
+    from a clean fp forward of ``x`` (one or a few letterboxed canvases), so
+    only that conv's own error counts; ``||y_q - y_fp|| / ||y_fp||`` (a zero
+    denominator counts as 1), ties broken by the lower index.  Feeds
+    ``Detector(quant_skip_noisy=K)``.  Runs on ``device``, the card unless
+    the caller asks for the CPU."""
+    device = _calib_device(device, "rank_quant_noise")
+
+    def reduce(y_fp, y_q):
+        d = y_q - y_fp
+        return torch.stack([(d * d).sum(), (y_fp * y_fp).sum()])
+
+    stats = _twin_pass(spec, fp_params, qparams, x, device, linear=False, reduce=reduce)
+    ranked = []
+    for idx, v in stats.items():
+        err_sq, ref_sq = v.cpu().tolist()
+        ranked.append((idx, math.sqrt(err_sq) / (math.sqrt(ref_sq) or 1.0)))
+    ranked.sort(key=lambda t: (-t[1], t[0]))
+    return ranked
+
+
+def bias_correct_params(spec: ModelSpec, fp_params: Mapping[int, Mapping[str, np.ndarray]],
+                        qparams: dict, x, device: "str | torch.device" = "cuda"
+                        ) -> "tuple[dict, dict[int, np.ndarray]]":
+    """Per-output-channel bias correction (DFQ-style): for every quantized
+    conv, the mean over N, H and W of ``y_fp - y_q``, both twins run
+    ``linear`` (the bias shifts the pre-activation) on the same fp32 input
+    of a clean fp forward of ``x``, is added to its bias in fp32.  Returns
+    ``(corrected qparams, {conv index: delta})``; the deltas persist as
+    ``quant_state()["bias_delta"]``.  Runs on ``device``, the card unless the
+    caller asks for the CPU."""
+    device = _calib_device(device, "bias_correct_params")
+    stats = _twin_pass(spec, fp_params, qparams, x, device, linear=True,
+                       reduce=lambda y_fp, y_q: (y_fp - y_q).mean(dim=(0, 1, 2)))
+    out = dict(qparams)
+    deltas: dict[int, np.ndarray] = {}
+    for idx, dv in stats.items():
+        d = dv.cpu().numpy().astype(np.float32)
+        deltas[idx] = d
+        q = qparams[idx]
+        out[idx] = {**q, "b": torch.as_tensor(q["b"]) + torch.from_numpy(d)}
+    return out, deltas
 
 
 # ---------------------------------------------------------------------------

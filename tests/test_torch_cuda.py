@@ -439,3 +439,115 @@ def test_cuda_int8_detector_mixed_head_dtypes(cuda):
     assert tk.LAUNCHES["decode_score"] == before["decode_score"] + 1
     assert tk.LAUNCHES["int8_gemm"] > before["int8_gemm"]
     assert len(dets) == 2 and all(np.isfinite(d.boxes).all() for d in dets)
+
+
+# ---------------------------------------------------------------------------
+# The calibration recipe, the s2d stem and live weights on the card
+# ---------------------------------------------------------------------------
+
+
+def _tiny_params(seed=3):
+    from pytorch_yolo_tpu_torch.weights import fold_batchnorm, random_raw_params
+
+    spec = pt.Detector.load("yolov3-tiny", device="cpu").spec
+    return spec, fold_batchnorm(spec, random_raw_params(spec, seed=seed))
+
+
+@pytest.mark.cuda
+def test_cuda_percentile_scales_equal_cpu(cuda):
+    """Percentile ranging takes the exact order statistic on both devices:
+    conv 0 (its input is the canvas itself) equal, the rest within the two
+    fp32 forwards' difference (rtol 1e-5; smoothed grids 1e-4)."""
+    from pytorch_yolo_tpu_torch.ops.quant import collect_act_scales
+
+    spec, params = _tiny_params()
+    x = np.random.default_rng(7).uniform(0, 1, (2, 256, 256, 3)).astype(np.float32)
+    for kw, rtol in (({}, 1e-5), ({"smooth_alpha": 0.5}, 1e-4)):
+        cpu = collect_act_scales(spec, params, x, percentile=99.9, device="cpu", **kw)
+        gpu = collect_act_scales(spec, params, x, percentile=99.9, device=cuda, **kw)
+        assert gpu.keys() == cpu.keys()
+        np.testing.assert_array_equal(np.asarray(gpu[0]), np.asarray(cpu[0]))
+        for i in cpu:
+            np.testing.assert_allclose(np.asarray(gpu[i]), np.asarray(cpu[i]), rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_bias_deltas_match_cpu(cuda):
+    """Bias correction on the card runs each quantized twin through K3/K4
+    with fp32 output; the deltas match the CPU's within 1e-2 of each
+    conv's largest |delta| (an ulp in a conv's fp32 input can flip one
+    int8 rounding), and the noise ranks' top 4 agree."""
+    from pytorch_yolo_tpu_torch.ops import quant as tq
+
+    spec, params = _tiny_params()
+    x = np.random.default_rng(4).uniform(0, 1, (1, 256, 256, 3)).astype(np.float32)
+    scales = tq.collect_act_scales(spec, params, x, percentile=99.9, smooth_alpha=0.5,
+                                   device="cpu")
+    qp = tq.quantize_params(spec, params, tq.resolve_skip_layers(spec, "heads"), scales)
+    before = dict(tk.LAUNCHES)
+    _, gpu = tq.bias_correct_params(spec, params, qp, x, device=cuda)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["int8_gemm"] > before["int8_gemm"]
+    assert tk.LAUNCHES["int8_conv"] + tk.LAUNCHES["int8_conv_mma"] > (
+        before["int8_conv"] + before["int8_conv_mma"])
+    _, cpu = tq.bias_correct_params(spec, params, qp, x, device="cpu")
+    assert gpu.keys() == cpu.keys() and gpu
+    for i, d in cpu.items():
+        assert np.abs(gpu[i] - d).max() <= 1e-2 * np.abs(d).max(), i
+    rg = tq.rank_quant_noise(spec, params, qp, x, device=cuda)
+    rc = tq.rank_quant_noise(spec, params, qp, x, device="cpu")
+    assert [i for i, _ in rg[:4]] == [i for i, _ in rc[:4]]
+
+
+@pytest.mark.cuda
+def test_cuda_s2d_forward_matches_natural(cuda):
+    """yolov3 with the s2d stem on the card: at fp32 the natural stem's
+    detections as a set (agreement 1.0, boxes within 1e-2 px: near-equal
+    ranks may trade places); in bf16, against the fp32 reference, an
+    agreement within 0.05 of the natural bf16 stem's, neither degenerate."""
+    from pytorch_yolo_tpu_torch.weights import equalize_raw_params, fold_batchnorm, random_raw_params
+
+    spec = pt.Detector.load("yolov3", device="cpu").spec
+    params = fold_batchnorm(spec, equalize_raw_params(spec, random_raw_params(spec), device=cuda))
+    frames = np.random.default_rng(0).integers(0, 256, size=(2, 480, 640, 3), dtype=np.uint8)
+    ref = pt.Detector(spec, params, device=cuda).detect_batch(frames, size=416)
+    fp = pt.Detector(spec, params, device=cuda, stem_s2d=True).detect_batch(frames, size=416)
+    stats = detection_drift(ref, fp)
+    assert stats.ref_dets > 0 and stats.set_agreement == 1.0, stats.row()
+    assert stats.box_p99_px <= 1e-2, stats.row()
+    agree = {}
+    for s2d in (False, True):
+        det = pt.Detector(spec, params, device=cuda, dtype=torch.bfloat16, precision="default",
+                          stem_s2d=s2d)
+        assert det.model.stem_s2d == s2d
+        stats = detection_drift(ref, det.detect_batch(frames, size=416))
+        assert not stats.degenerate, stats.row()
+        agree[s2d] = stats.set_agreement
+    assert agree[True] >= agree[False] - 0.05, agree
+
+
+@pytest.mark.cuda
+def test_cuda_live_detector(cuda):
+    """``synthetic="live"`` on the card: the equalizer runs there and
+    reaches the CPU's kernels (rtol 1e-4, same sweeps); the card's live
+    detector agrees with the CPU serving the same weights (1.0) and its
+    scores are not saturated."""
+    from pytorch_yolo_tpu_torch.weights import equalize_raw_params, fold_batchnorm, random_raw_params
+
+    spec = pt.Detector.load("yolov3-tiny", device="cpu").spec
+    ig, ic = {}, {}
+    rg = equalize_raw_params(spec, random_raw_params(spec), device=cuda, info=ig)
+    rc = equalize_raw_params(spec, random_raw_params(spec), device="cpu", info=ic)
+    assert ig["sweeps"] == ic["sweeps"] and ig["converged"]
+    for i in rc:
+        np.testing.assert_allclose(rg[i]["w"], rc[i]["w"], rtol=1e-4)
+    frames = np.random.default_rng(0).integers(0, 256, size=(2, 480, 640, 3), dtype=np.uint8)
+    det = pt.Detector.load("yolov3-tiny", device=cuda, synthetic="live")
+    params = fold_batchnorm(spec, rg)
+    for i, conv in det.model.convs.items():
+        np.testing.assert_allclose(conv.weight.cpu().numpy(), params[int(i)]["w"], rtol=1e-6)
+    ours = det.detect_batch(frames, size=416)
+    ref = pt.Detector(spec, params, device="cpu").detect_batch(frames, size=416)
+    stats = detection_drift(ref, ours)
+    assert stats.ref_dets > 0 and stats.set_agreement == 1.0, stats.row()
+    assert stats.ref_sat_frac == 0.0, stats.row()

@@ -130,3 +130,131 @@ def test_native_heads_of_mixed_dtypes_are_fp32():
     for h, r in zip(native, ref):
         assert h.is_contiguous()
         np.testing.assert_array_equal(h.numpy(), r.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The output-stats hook and the space-to-depth stem
+# ---------------------------------------------------------------------------
+
+
+def _pair(name, seed=3):
+    text = CFGS[name]()
+    jspec = jcfg.build_spec(jcfg.parse_cfg_text(text))
+    tspec = tcfg.build_spec(tcfg.parse_cfg_text(text))
+    return jspec, tspec, jw.fold_batchnorm(jspec, jw.random_raw_params(jspec, seed=seed))
+
+
+@pytest.mark.parametrize("name,size", [("yolov3-tiny", 128), ("mini-csp", 64)])
+def test_out_stats_hook_matches_jax(name, size):
+    """``collect_conv_out_stats`` sees each conv's post-activation output:
+    the population stds (the equalizer's statistic) within rtol 1e-4."""
+    jspec, tspec, params = _pair(name)
+    x = np.random.default_rng(4).uniform(0, 1, (2, size, size, 3)).astype(np.float32)
+    _, ref = jax.jit(jdn.build_forward(jspec, collect_conv_out_stats=lambda i, t: jnp.std(t)))(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x))
+    heads, ours = tdn.Darknet(tspec, params_from_jax(params))(
+        torch.from_numpy(x), collect_conv_out_stats=lambda i, t: t.std(correction=0))
+    assert len(heads) == len(tspec.yolo_layers) and ours.keys() == ref.keys()
+    np.testing.assert_allclose([float(ours[i]) for i in ref], [float(ref[i]) for i in ref],
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["yolov3", "yolov3-tiny"])
+def test_s2d_packing_matches_jax(name):
+    """The packed stem kernels equal JAX's bit for bit after HWIO -> OIHW."""
+    jspec, _, params = _pair(name)
+    w0, b0 = params[0]["w"], params[0]["b"]
+    jw0, jb0 = jdn._pack_s2d_conv0(jnp.asarray(w0), jnp.asarray(b0))
+    tw0, tb0 = tdn._pack_s2d_conv0(torch.from_numpy(np.ascontiguousarray(w0.transpose(3, 2, 0, 1))),
+                                   torch.from_numpy(b0))
+    np.testing.assert_array_equal(tw0.numpy(), np.asarray(jw0).transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(tb0.numpy(), np.asarray(jb0))
+    if tdn._stem_pattern(tcfg.build_spec(tcfg.parse_cfg_text(CFGS[name]()))) == "conv_conv":
+        w1 = params[1]["w"]
+        np.testing.assert_array_equal(
+            tdn._pack_s2d_conv1(torch.from_numpy(np.ascontiguousarray(w1.transpose(3, 2, 0, 1))))
+            .numpy(), np.asarray(jdn._pack_s2d_conv1(jnp.asarray(w1))).transpose(3, 2, 0, 1))
+    x = np.random.default_rng(0).normal(size=(2, 8, 6, 3)).astype(np.float32)
+    np.testing.assert_array_equal(tdn._space_to_depth(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jdn._space_to_depth(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("name,n_heads", [("yolov3", 3), ("yolov3-tiny", 2), ("yolov2", 1)])
+def test_s2d_stem_exact_f64(name, n_heads):
+    """The reparameterization is exact: in float64 the s2d heads equal the
+    natural stem's within 1e-8 (``tests/test_stem_s2d.py``'s bound), both
+    stem patterns."""
+    _, tspec, params = _pair(name, seed=0)
+    tp = params_from_jax(params)
+    x = torch.from_numpy(np.random.default_rng(0).random((1, 128, 128, 3)))
+    base = tdn.Darknet(tspec, tp, dtype=torch.float64)(x)
+    s2d = tdn.Darknet(tspec, tp, dtype=torch.float64, stem_s2d=True)(x)
+    assert len(base) == len(s2d) == n_heads
+    for hb, hs in zip(base, s2d):
+        assert hs.dtype == torch.float64
+        np.testing.assert_allclose(hs.numpy(), hb.numpy(), rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("name", ["yolov3", "yolov3-tiny"])
+def test_s2d_stem_boundary_fp32(name):
+    """Layer 1's output, the transform's boundary, against the natural
+    stem's at fp32 within rtol 1e-4, atol 1e-5 (``tests/test_stem_s2d.py``'s
+    bound): the packed conv sums the same products in another order."""
+    _, tspec, params = _pair(name, seed=0)
+    tp = params_from_jax(params)
+    x = torch.from_numpy(np.random.default_rng(0).random((1, 128, 128, 3), dtype=np.float32))
+    s2d = tdn.Darknet(tspec, tp, stem_s2d=True)
+    with torch.no_grad():
+        ours = s2d._s2d_stem(x).permute(0, 2, 3, 1)
+    if name == "yolov3":
+        _, out = tdn.Darknet(tspec, tp)(x, collect_conv_out_stats=lambda i, t: t.clone()
+                                        if i == 1 else None)
+        np.testing.assert_allclose(ours.numpy(), out[1].numpy(), rtol=1e-4, atol=1e-5)
+    else:
+        _, out = tdn.Darknet(tspec, tp)(x, collect_conv_out_stats=lambda i, t: t.clone()
+                                        if i == 0 else None)
+        pooled = tdn._maxpool(out[0].permute(0, 3, 1, 2), tspec.layers[1]).permute(0, 2, 3, 1)
+        np.testing.assert_allclose(ours.numpy(), pooled.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_s2d_heads_match_jax_s2d():
+    """fp32 yolov3-tiny with the s2d stem against the JAX s2d forward."""
+    jspec, tspec, params = _pair("yolov3-tiny")
+    x = np.random.default_rng(3).uniform(0, 1, size=(2, 160, 160, 3)).astype(np.float32)
+    ref = jax.jit(jdn.build_forward(jspec, stem_s2d=True))(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x))
+    ours = tdn.Darknet(tspec, params_from_jax(params), stem_s2d=True)(torch.from_numpy(x))
+    for o, r in zip(ours, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4)
+
+
+def test_s2d_and_hooks_refusals():
+    """An inapplicable stem and an int8 stem are refused as in JAX; one
+    stats hook at a time; and a stats hook with ``stem_s2d`` raises where
+    the JAX forward silently skips convs 0-1 (``darknet.py:434``)."""
+    from pytorch_yolo_tpu_torch.ops import quant as tq
+
+    routed = tcfg.build_spec(tcfg.parse_cfg_text(
+        "[net]\nwidth=64\nheight=64\nchannels=3\n"
+        "[convolutional]\nbatch_normalize=1\nfilters=8\nsize=1\nstride=1\npad=1\nactivation=leaky\n"
+        "[maxpool]\nsize=2\nstride=2\n"))
+    assert not tdn.stem_s2d_applicable(routed)
+    with pytest.raises(ValueError, match="stem pattern"):
+        tdn.Darknet(routed, {0: {"w": np.zeros((8, 3, 1, 1), np.float32),
+                                 "b": np.zeros(8, np.float32)}}, stem_s2d=True)
+    jspec, tspec, params = _pair("yolov3-tiny")
+    tp = params_from_jax(params)
+    assert tdn._stem_pattern(tspec) == "conv_pool"
+    with pytest.raises(ValueError, match="fp stem kernels"):
+        tdn.Darknet(tspec, tq.quantize_params(tspec, tp), quant="w8a8", stem_s2d=True)
+    x = torch.zeros((1, 64, 64, 3))
+    hook = lambda i, t: t.std()  # noqa: E731
+    with pytest.raises(ValueError, match="one stats hook"):
+        tdn.Darknet(tspec, tp)(x, collect_conv_in_stats=hook, collect_conv_out_stats=hook)
+    for kw in ({"collect_conv_in_stats": hook}, {"collect_conv_out_stats": hook}):
+        with pytest.raises(ValueError, match="stem_s2d"):
+            tdn.Darknet(tspec, tp, stem_s2d=True)(x, **kw)
+    # the JAX forward returns stats without convs 0 and 1: the divergence
+    _, jstats = jdn.build_forward(jspec, stem_s2d=True, collect_conv_out_stats=hook)(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x.numpy()))
+    assert 0 not in jstats and 2 in jstats
