@@ -36,12 +36,6 @@ from .utils.names import load_classes
 from .weights import (Params, equalize_raw_params, fold_batchnorm, random_raw_params,
                       read_weights_file)
 
-# The H100 A/B of the space-to-depth stem (chip_smoke.py phase 12, bf16
-# yolov3@416 batch 128, H100 80GB HBM3 at 700 W): 53.09 ms/batch with s2d
-# against 46.07 with the natural stem, 13.2 % slower, so the bf16 default
-# (which the JAX package turns on from a TPU measurement) is off here.
-S2D_BF16_DEFAULT = False
-
 CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cfg")
 
 
@@ -120,12 +114,12 @@ class Detector:
 
     ``score_mode`` ranks candidates by objectness (``"obj"``) or by
     ``"obj*cls"``.  ``stem_s2d`` runs the space-to-depth stem (an exact
-    reparameterization of the first two layers); None picks it as the JAX
-    package does — for a Darknet-53 (conv_conv) stem in bf16 serving and in
-    int8 whose stem convs stay fp, never at fp32 — except in bf16 (int8's
-    bf16 glue included): the H100 A/B measured s2d 13.2 % slower there
-    (``S2D_BF16_DEFAULT``), so it stays off.  ``PYTORCH_YOLO_STEM_S2D`` = 0
-    or 1 forces it off or on."""
+    reparameterization of the first two layers).  The default is off, where the JAX package turns it on for bf16 and int8
+    serving of a Darknet-53 stem: on an H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 12,
+    bf16 yolov3@416 batch 128) the s2d stem gave 13.3 % less throughput
+    (53.279 against 46.214 ms/batch, +15.3 % batch time).
+    ``PYTORCH_YOLO_STEM_S2D=1`` turns it on where the stem is conv_conv or
+    conv_pool and its convs stay fp; ``=0`` keeps it off."""
 
     def __init__(
         self,
@@ -306,24 +300,17 @@ class Detector:
         return params
 
     def _resolve_stem_s2d(self, stem_s2d: "bool | None") -> bool:
-        """The JAX package's ``stem_s2d`` rule (``api.py:411-446``), with the
-        H100's bf16 finding (``S2D_BF16_DEFAULT``)."""
+        """An explicit ``stem_s2d``, else ``PYTORCH_YOLO_STEM_S2D=1`` where
+        the stem can be packed, else off (the H100 A/B in the docstring)."""
         if stem_s2d is not None:
             return bool(stem_s2d)
+        if os.environ.get("PYTORCH_YOLO_STEM_S2D") != "1":
+            return False
         from .models.darknet import _stem_pattern
 
-        env = os.environ.get("PYTORCH_YOLO_STEM_S2D")
-        pattern = _stem_pattern(self.spec)
-        if self.quant is not None and not {0, 1} <= self._quant_skip:
-            pattern = None  # a quantized stem has no fp kernels to pack
-        if env == "0":
-            return False
-        if env == "1":
-            return pattern is not None
-        bf16_ok = S2D_BF16_DEFAULT or self.dtype != torch.bfloat16
-        if self.quant is not None:
-            return pattern == "conv_conv" and bf16_ok
-        return pattern == "conv_conv" and self.dtype == torch.bfloat16 and bf16_ok
+        # a quantized stem has no fp kernels to pack
+        return (_stem_pattern(self.spec) is not None
+                and (self.quant is None or {0, 1} <= self._quant_skip))
 
     @classmethod
     def load(

@@ -50,13 +50,21 @@ Tolerances, each with its reason:
     weight over N*H*W — most at the 8x8 layers;
   * noise ranks on the same: relative L2 errors within rtol 1e-3 (measured
     1e-4, the same flips) and the same top-4 order;
-  * the "auto" detector that calibrates itself: set agreement >= 0.95, not
-    the 0.99 of max calibration.  Its scales differ from JAX's by up to
-    2.1e-4 relative (the bisection's band), twenty times the max
-    calibration's 1e-5, and on these frames JAX against itself with its own
-    scales moved 1e-4 inside that band reads 0.957 (the port: 0.968; int8
-    against fp32: 0.971).  On JAX's ``quant_state()`` the port is held at
-    >= 0.995.
+  * the "auto" detector that calibrates itself, on live-weight yolov3-tiny:
+    the port's scales differ from JAX's by up to 2.1e-4 relative (the
+    bisection's band), and each side's bias deltas correct the error of its
+    own grids.  The test holds the port to JAX as far as JAX is from itself
+    with its scales moved at random inside that band (divided by U(1,
+    1.000212)), a reading it takes on the spot: heads within 1.25x of that
+    reading's relative L2 (measured 1.03x; the fp32 detector reads 8.6x and
+    the port without its bias deltas 1.57x, and the test asserts that both
+    fall outside), deltas within 1.5x of its per-conv spread (measured
+    0.79x; zero deltas read 3x), and post-NMS set agreement within 0.03 of
+    its agreement (JAX against itself reads 0.938-0.955 over six draws, the
+    port 0.937).  Set agreement alone cannot hold it at the 0.99 of max
+    calibration: the fp32 detector agrees with JAX's int8 one at 0.955 on
+    these frames.  ``tools/auto_band_cpu.py`` prints these readings.  On
+    JAX's ``quant_state()`` the port is held at >= 0.995.
 """
 
 import json
@@ -704,22 +712,43 @@ def test_recipe_passes_default_to_the_card(fn, monkeypatch):
 TINY = os.path.join(ROOT, "cfg", "yolov3-tiny.cfg")
 
 
+AUTO = dict(quant="w8a8", quant_calib=CALIB, quant_calib_size=256, synthetic="live")
+HEAD_X = np.random.default_rng(0).uniform(0, 1, (2, 256, 256, 3)).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def jax_auto():
-    """The JAX package's default int8 calibration: a bare quant_calib."""
-    return pj.Detector.load(TINY, quant="w8a8", quant_calib=CALIB, quant_calib_size=256,
-                            use_pallas=True)
+    """The JAX package's default int8 calibration (a bare quant_calib) of the
+    live-weight yolov3-tiny."""
+    return pj.Detector.load(TINY, use_pallas=True, **AUTO)
 
 
-def test_auto_detector_matches_jax(jax_auto):
+def _heads(det):
+    if isinstance(det, pj.Detector):
+        return [np.asarray(h) for h in det._forward(det.params, jnp.asarray(HEAD_X))]
+    with torch.no_grad():
+        return [h.numpy() for h in det.model(torch.from_numpy(HEAD_X))]
+
+
+def _rel_l2(heads, ref):
+    return float(np.sqrt(sum(((h - r) ** 2).sum() for h, r in zip(heads, ref)))
+                 / np.sqrt(sum((r ** 2).sum() for r in ref)))
+
+
+def _delta_spread(deltas, ref):
+    """The largest per-conv max |delta - ref|, relative to the conv's max |ref|."""
+    return max(float(np.abs(np.subtract(deltas[i], d)).max() / np.abs(d).max())
+               for i, d in ref.items())
+
+
+def test_auto_detector_matches_jax(jax_auto, monkeypatch):
     """A bare ``quant_calib`` resolves to the recipe in the port too, and
     its state matches JAX's: skip set, recipe stamp, scales within the
-    percentile band, a bias delta for every quantized conv.  The deltas'
-    values are held in ``test_bias_correct_matches_jax`` on shared scales:
-    here each side corrects the error of its own grids, and a grid moved
-    by 1e-4 moves a conv's mean rounding error by up to a quarter of it."""
-    ours = pt.Detector.load(TINY, device="cpu", quant="w8a8", quant_calib=CALIB,
-                            quant_calib_size=256)
+    percentile band, a bias delta for every quantized conv.  Its heads,
+    deltas and detections are as near JAX's as JAX's own are when its
+    scales move inside that band (the bounds and their readings are in the
+    module docstring)."""
+    ours = pt.Detector.load(TINY, device="cpu", **AUTO)
     sr, so = _json(jax_auto.quant_state()), _json(ours.quant_state())
     assert so["recipe"] == sr["recipe"] == "auto" and so["skip"] == sr["skip"]
     assert so["scales"].keys() == sr["scales"].keys()
@@ -728,9 +757,27 @@ def test_auto_detector_matches_jax(jax_auto):
                 {i: v["per_channel"] for i, v in so["scales"].items()})
     assert 1 - 1e-5 <= r.min() and r.max() <= 1.00022, (r.min(), r.max())
     assert so["bias_delta"].keys() == sr["bias_delta"].keys()
-    assert all(len(so["bias_delta"][i]) == len(d) for i, d in sr["bias_delta"].items())
-    _agree(jax_auto.detect_batch(FRAMES, size=256), ours.detect_batch(FRAMES, size=256),
-           bound=0.95)
+
+    rng = np.random.default_rng(1)
+    collect = jq.collect_act_scales
+    monkeypatch.setattr(jq, "collect_act_scales", lambda *a, **k: {
+        i: (np.asarray(v, np.float32) / rng.uniform(1, 1.000212, np.shape(v))).astype(np.float32)
+        for i, v in collect(*a, **k).items()})
+    moved = pj.Detector.load(TINY, use_pallas=True, **AUTO)
+    monkeypatch.setattr(jq, "collect_act_scales", collect)
+
+    ref = _heads(jax_auto)
+    band = _rel_l2(_heads(moved), ref)
+    assert 0 < band and _rel_l2(_heads(ours), ref) <= 1.25 * band
+    plain = pt.Detector.load(TINY, device="cpu", synthetic="live")
+    undelta = _revive(pt.Detector, dict(so, bias_delta=None), device="cpu", synthetic="live")
+    assert _rel_l2(_heads(plain), ref) > 4 * band
+    assert _rel_l2(_heads(undelta), ref) > 1.25 * band
+    spread = _delta_spread(_json(moved.quant_state())["bias_delta"], sr["bias_delta"])
+    assert _delta_spread(so["bias_delta"], sr["bias_delta"]) <= 1.5 * spread < 1.0
+    expected = jax_auto.detect_batch(FRAMES, size=256)
+    floor = detection_drift(expected, moved.detect_batch(FRAMES, size=256)).set_agreement
+    _agree(expected, ours.detect_batch(FRAMES, size=256), bound=floor - 0.03)
 
 
 def test_port_auto_state_loads_in_jax(jax_auto):
@@ -745,7 +792,8 @@ def test_port_auto_state_loads_in_jax(jax_auto):
     back = _json(jdet.quant_state())
     for key in ("scales", "skip", "bias_delta"):
         assert back[key] == state[key], key
-    revived = _json(_revive(pt.Detector, _json(jax_auto.quant_state()), device="cpu").quant_state())
+    revived = _json(_revive(pt.Detector, _json(jax_auto.quant_state()), device="cpu",
+                            synthetic="live").quant_state())
     assert revived["bias_delta"] == _json(jax_auto.quant_state())["bias_delta"]
 
 
