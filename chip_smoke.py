@@ -22,7 +22,9 @@ Phases, one line each (a failure in any phase exits non-zero):
      480x640 uint8 frames already on the device, conf 0.6, iou 0.45,
      max_det 300 — median ms/batch and img/s over 20 timed iterations after
      3 warm-up ones (CUDA events), with the launch counts of that run (one
-     K1 and one K2 a step); then, at those shapes, K1 on the step's bf16
+     K1 and one K2 a step, one K5 a conv: every conv of the bf16 path runs
+     K5, 23 of them with their [shortcut] in the epilogue); then, at those
+     shapes, K1 on the step's bf16
      heads against the cast of those heads to fp32 plus K1 on that, in
      turns (cast, bf16, bf16, cast), and K1 on fp32 heads; K2 on the step's
      candidates, on crowded boxes at 128 x 300 and on a 1024-long chain at
@@ -70,12 +72,42 @@ Phases, one line each (a failure in any phase exits non-zero):
      calibration launches and the K1/K2 serving launches checked).  Fails
      on a degenerate row, or if "auto" does not beat "none" on int8sb;
      then yolov3-tiny@416 live, "auto" calibrated on the card, against the
-     CPU serving the card's ``quant_state()`` (>= 0.995);
+     CPU serving the card's ``quant_state()`` (>= 0.995).  The bf16 rows
+     print beside 0.898 / 0.901 (s2d / natural stem, the card before K5)
+     and 0.912 (the JAX package's CPU row);
  12. A/B at batch 128 on the live weights, phase 6's method: bf16 with the
      s2d stem off, on, on, off, and the two stems' layers timed alone;
      int8sb "none", "auto", "auto", "none"; and K2 eager and device ms on
      the live step's candidates, with its bound and the fixpoint's rounds,
-     beside phase 6's.
+     beside phase 6's;
+ 13. K5 (bf16 implicit-GEMM conv) against its plain version (an fp32 conv
+     of the same bf16 operands, TF32 off, + fp32 bias, activation, one
+     rounding) on the real activations of every distinct conv shape of
+     yolov3@416 at batch 8 (the bf16 live forward's conv inputs), each
+     activation and a fused shortcut: >= 99.9 % of outputs bit-equal and
+     the rest within one bf16 step or the order error of an fp32 sum
+     (2^-20 of sum |x w| + |b|); then K5 at batch 128 at 3x3 s1 52²
+     128->256, 1x1 52² 256->128 and the RGB stem, eager and device time,
+     beside its plain version, the library path it replaced (cuDNN bf16
+     ``F.conv2d`` with its bf16 bias + leaky) and its bound (bf16 at
+     989 TFLOP/s or bytes at 3.35 TB/s);
+ 14. K2 past K = 1024 (the bitmask in global memory) against its plain
+     version: crowded boxes at K = 1025, 2048 and 10,647 (class-wise and
+     not), a 1025-long chain, and the live bf16 detector at
+     max_det = 10,647 (every candidate of yolov3@416), the launch counted;
+     its time at 10,647 beside its bound, and K <= 1024 re-timed at
+     128 x 300;
+ 15. the prepared path: yolov3-tiny live fp32 ``detect_many`` on mixed
+     source sizes, f32 and u8 transfer, card against CPU (set agreement
+     1.0); yolov3@416 live bf16 ``detect_many`` over 32 mixed images in
+     chunks of 8 (K1/K2/K5 counted) and ``serve.make_server`` on
+     127.0.0.1 answering 8 concurrent POSTs of PNGs, equal to
+     ``detect_many`` on the same images (set agreement 1.0); then, each
+     over 3 windows of several seconds in turns (median and spread):
+     ``detect_many`` img/s over 384 images, ``detect_stream`` ms per
+     frame at batch 1 over 480 frames (bf16, bf16 with the host letterbox
+     and u8, int8sb), and the server's req/s and median latency with 16
+     clients POSTing 384 PNGs.
 
 The line before the second-to-last is the kernels' JSON report (``ms``
 eager time, as every kernel's figure since the port began; ``device_ms``
@@ -84,7 +116,7 @@ second-to-last is the card as nvidia-smi names it; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
 Synthetic He-init weights (seed 0) in phases 3-9, live (equalized) ones
-in 10-12; frames from numpy seed 0.
+in 10-15; frames from numpy seed 0.
 """
 
 from __future__ import annotations
@@ -102,9 +134,13 @@ import torch
 BATCH = 128
 SIZE = 416
 CONF, IOU, MAX_DET = 0.6, 0.45, 300
+K2_LARGE = (1025, 2048, 10647)  # phase 14: K past the shared-memory 1024; 10,647 = D at 416
+# phase 15: each rate is timed over WINDOWS windows of several seconds, in turns
+WINDOWS, MANY_WINDOW, STREAM_WINDOW, SERVE_WINDOW, SERVE_CLIENTS = 3, 384, 480, 384, 16
 TOL = 1e-5  # K1: expf and summation order; box columns relative to the row's corners
 # H100 SXM published dense peaks (NVIDIA data sheet, 700 W): the bounds' rates.
 PEAK_INT8_OPS = 1.979e15
+PEAK_BF16_OPS = 989e12
 PEAK_FP32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -319,6 +355,434 @@ def chain_boxes(n: int, k: int, device):
             torch.zeros((n, k), device=device))
 
 
+def nms_bound(valid_mask, cls=None) -> tuple[float, str]:
+    """K2 reads boxes, valid (and class ids) and writes the mask once.  The
+    relation needs ~15 fp32 ops for each pair j < i of valid candidates that
+    can suppress one another: every pair without class ids, else only the
+    same-class pairs, and one compare for each other pair (the kernel skips
+    their IoU).  The pairs are counted on this call's data."""
+    n, k = valid_mask.shape
+    v = valid_mask.sum(1).double()
+    pairs = v * (v - 1) / 2
+    if cls is None:
+        ops = 15 * float(pairs.sum())
+    else:
+        ids = cls.round().long().clamp_min(0)
+        counts = torch.zeros((n, int(ids.max()) + 1), dtype=torch.float64, device=ids.device)
+        counts.scatter_add_(1, ids, valid_mask.double())
+        same = (counts * (counts - 1) / 2).sum(1)
+        ops = float((15 * same + (pairs - same)).sum())
+    return bound(ops, n * k * (16 + 1 + 1 + (4 if cls is not None else 0)), PEAK_FP32_OPS)
+
+
+def spread(runs: list) -> dict:
+    """The median of repeated readings and their spread, (max - min) / median."""
+    med = statistics.median(runs)
+    return dict(median=med, spread=(max(runs) - min(runs)) / med,
+                runs=[round(r, 3) for r in runs])
+
+
+def bf16_steps(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in the order of the reals: neighbouring bf16
+    values differ by one."""
+    v = t.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+    return torch.where(v < 0, -(v & 0x7FFF), v)
+
+
+def k5_agreement(ours, ref, x, w, b, stride, pad, shortcut=None) -> tuple[float, int, float]:
+    """(share of bit-equal outputs, largest distance in bf16 steps outside
+    the order error of an fp32 sum, largest absolute error) of K5 against
+    its plain version.  The order error: 2^-20 of sum |x w| + |b| (16 fp32
+    ulps of the terms' scale; where the bias cancels the sum the output is
+    far below that scale), plus one bf16 step of the conv output where a
+    shortcut is added after it."""
+    F = torch.nn.functional
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        terms = F.conv2d(x.float().abs().permute(0, 3, 1, 2), w.float().abs().permute(0, 3, 1, 2),
+                         stride=stride, padding=pad).permute(0, 2, 3, 1) + b.abs()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    floor = terms * 2.0 ** -20 + (terms * 2.0 ** -7 if shortcut is not None else 0.0)
+    gap = (ours.float() - ref.float()).abs()
+    d = (bf16_steps(ours) - bf16_steps(ref)).abs()
+    equal = float((d == 0).double().mean())
+    steps = int(torch.where(gap <= floor, torch.zeros_like(d), d).max())
+    return equal, steps, float(gap.max())
+
+
+def png_bytes(img_bgr: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 BGR image as PNG bytes (RGB, no row filter), with
+    the standard library: what a client sends the server."""
+    import struct
+    import zlib
+
+    h, w, _ = img_bgr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(img_bgr[..., ::-1]).reshape(h, w * 3)], 1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def phase13_k5(kernels, v3, live, frames, dev, card) -> dict:
+    """K5 against its plain version on every distinct conv of yolov3@416 at
+    batch 8 (real activations), each activation and a fused shortcut; then
+    its times at three shapes at batch 128."""
+    from pytorch_yolo_tpu_torch import Detector
+    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+
+    det = Detector(v3, live, device=dev, dtype=torch.bfloat16, precision="default")
+    keys: dict = {}
+
+    def hook(i, t):
+        c = det.model.convs[str(i)]
+        key = (tuple(t.shape), tuple(c.weight.shape), c.stride, c.padding, c.activation)
+        if key in keys:
+            return None
+        keys[key] = i
+        return t.to(torch.bfloat16).contiguous()
+
+    with torch.no_grad():
+        _, inputs = det.model(letterbox_batch(frames[:8], SIZE), collect_conv_in_stats=hook)
+    worst = {"equal": 1.0, "steps": 0, "abs": 0.0}
+    cases = []
+    for key, i in keys.items():
+        c = det.model.convs[str(i)]
+        acts = [c.activation]
+        if key[0] == (8, SIZE // 8, SIZE // 8, 128) and key[1] == (256, 3, 3, 128):
+            acts = ["leaky", "mish", "relu", "logistic", "linear"]
+        for act in acts:
+            cases.append((f"conv {i} {key[0]} * {key[1]} s{c.stride} {act}", inputs[i], c, act,
+                          None))
+    fused = min(det.model._fused)
+    c = det.model.convs[str(fused)]
+    x = inputs.get(fused)
+    if x is None:  # the first conv of its shape is another layer: take that layer's input
+        k = next(k for k, j in keys.items() if k[1] == tuple(c.weight.shape)
+                 and k[2:4] == (c.stride, c.padding))
+        x = inputs[keys[k]]
+    sc_shape = (x.shape[0], (x.shape[1] + 2 * c.padding - c.weight.shape[1]) // c.stride + 1,
+                (x.shape[2] + 2 * c.padding - c.weight.shape[2]) // c.stride + 1, c.weight.shape[0])
+    sc = torch.randn(sc_shape, device=dev).to(torch.bfloat16)
+    cases.append((f"conv {fused} + shortcut", x, c, c.activation, sc))
+    for name, x, c, act, sc in cases:
+        before = kernels.LAUNCHES["conv_bf16"]
+        ours = kernels.conv_bf16(x, c.weight, c.bias, c.stride, c.padding, act, sc)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["conv_bf16"] != before + 1:
+            fail(f"K5 {name}: expected one launch, counts {kernels.LAUNCHES}")
+        ref = kernels.conv_bf16_ref(x, c.weight, c.bias, c.stride, c.padding, act, sc)
+        equal, steps, err = k5_agreement(ours, ref, x, c.weight, c.bias, c.stride, c.padding, sc)
+        worst = {"equal": min(worst["equal"], equal), "steps": max(worst["steps"], steps),
+                 "abs": max(worst["abs"], err)}
+        if ours.shape != ref.shape or equal < 0.999 or steps > 1:
+            fail(f"K5 {name}: {equal:.5%} bit-equal, {steps} bf16 steps beyond the sum's order "
+                 f"error (gate >= 99.9 %, <= 1)")
+        say(f"phase 13 K5 {name}: ok, {equal:.4%} bit-equal, <= {steps} bf16 step beyond the "
+            f"order error, max abs err {err:.3g}")
+    say(f"phase 13 K5: {len(cases)} cases (every distinct conv of yolov3@{SIZE} batch 8), worst "
+        f"{worst['equal']:.4%} bit-equal, {worst['steps']} step")
+
+    timed = {}
+    g = SIZE // 8  # 52 at 416
+    by_shape = {f"3x3 s1 {g}² 128->256": ((g, g, 128), (256, 3, 3, 128)),
+                f"1x1 {g}² 256->128": ((g, g, 256), (128, 1, 1, 256)),
+                f"stem {SIZE}² 3->32": ((SIZE, SIZE, 3), (32, 3, 3, 3))}
+    F = torch.nn.functional
+    for name, (xs, ws) in by_shape.items():
+        i = next(j for k, j in keys.items() if k[0][1:] == xs and k[1] == ws)
+        c = det.model.convs[str(i)]
+        x = inputs[i].repeat(BATCH // 8, 1, 1, 1)
+        k5 = lambda: kernels.conv_bf16(x, c.weight, c.bias, c.stride, c.padding, c.activation)  # noqa: E731
+        ours = k5()
+        ref = kernels.conv_bf16_ref(x, c.weight, c.bias, c.stride, c.padding, c.activation)
+        equal, steps, _ = k5_agreement(ours, ref, x, c.weight, c.bias, c.stride, c.padding)
+        if equal < 0.999 or steps > 1:
+            fail(f"K5 {name} batch {BATCH}: {equal:.5%} bit-equal, {steps} steps")
+        del ours, ref
+        xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view, as the path before K5 ran it
+        wc = c.weight.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        bc = c.bias.to(torch.bfloat16)
+        lib = lambda: F.leaky_relu(F.conv2d(xc, wc, bc, stride=c.stride, padding=c.padding),  # noqa: E731
+                                   0.1, inplace=True)
+        ms, lib_ms = in_turns(lib, k5)
+        dev_ms = graph_ms(k5)
+        plain_ms = time_ms(lambda: kernels.conv_bf16_ref(x, c.weight, c.bias, c.stride,
+                                                         c.padding, c.activation), 3, 1)
+        ops, nbytes = kernels.conv_bf16_work(tuple(x.shape), tuple(c.weight.shape), c.stride,
+                                             c.padding)
+        bms, by = bound(ops, nbytes, PEAK_BF16_OPS)
+        timed[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bms, bound_by=by, equal=equal,
+                           plan=list(kernels.conv_bf16_plan(x.shape[-1], c.weight.shape[0],
+                                                            c.weight.shape[1], c.weight.shape[2],
+                                                            c.stride, c.padding)))
+        say(f"phase 13 K5 {name} batch {BATCH} (layer {i}, leaky): {ms:.4f} ms eager, "
+            f"{dev_ms:.4f} ms device ({bms / dev_ms:.1%} of its {bms:.4f} ms bound, {by}: "
+            f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; {ops / dev_ms / 1e9:.1f} TFLOP/s); "
+            f"cuDNN bf16 conv + bf16 bias + leaky {lib_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+            f"{equal:.4%} bit-equal to the plain version; on {card}")
+        del x, xc
+    say(f"phase 13 timings: {json.dumps(timed, ensure_ascii=False)}")
+    del det, inputs
+    return dict(timed=timed, worst=worst, cases=len(cases))
+
+
+def phase14_k2_large(kernels, v3, live, frames, dev, rng, card) -> dict:
+    """K2's large-K mode against its plain version, the live detector at
+    max_det = D, and its time."""
+    from pytorch_yolo_tpu_torch import Detector
+    from pytorch_yolo_tpu_torch.config import head_strides
+    from pytorch_yolo_tpu_torch.ops.nms import fixpoint_rounds, iou_matrix
+    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+
+    for k in K2_LARGE:
+        n = 8 if k < 4096 else 2
+        boxes, valid, cls = crowded_boxes(rng, n, k, dev)
+        for class_wise in (True, False):
+            c = cls if class_wise else None
+            ours = kernels.nms_keep(boxes, valid, IOU, c)
+            ref = kernels.nms_keep_ref(boxes, valid, IOU, c)
+            diff = int((ours != ref).sum())
+            if diff:
+                fail(f"K2 crowded K={k} class_wise={class_wise}: {diff} keep entries differ")
+            say(f"phase 14 K2 crowded K={k} batch {n} class_wise={class_wise}: ok, keep mask "
+                f"equal to the plain version's ({int(ours.sum())} kept of {int(valid.sum())})")
+        del boxes, valid, cls, ours, ref
+    chain = chain_boxes(4, 1025, dev)
+    if not torch.equal(kernels.nms_keep(*chain[:2], IOU),
+                       (torch.arange(1025, device=dev) % 2 == 0).expand(4, 1025)):
+        fail("K2 on a 1025-long chain does not keep every other box")
+    say("phase 14 K2 1025-long chain batch 4: ok, every other box kept")
+
+    d = sum(SIZE // s * (SIZE // s) * len(h.anchors) for h, s in
+            zip(v3.yolo_layers, head_strides(v3)))
+    det = Detector(v3, live, device=dev, dtype=torch.bfloat16, precision="default")
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    res = det.raw_result(frames[:8], size=SIZE, conf=0.3, iou=IOU, max_det=d)
+    torch.cuda.synchronize()
+    launched = dict(kernels.LAUNCHES)
+    if tuple(res.valid.shape) != (8, d) or launched["nms_keep"] != 1 or not bool(res.valid.any()):
+        fail(f"max_det={d}: result {tuple(res.valid.shape)}, {int(res.valid.sum())} kept, "
+             f"launches {launched}")
+    with torch.no_grad():
+        heads = det.model(letterbox_batch(frames[:8], SIZE), _native_heads=True)
+    rows = kernels.decode_score_all(heads, det.spec)
+    masked = torch.where(rows[..., 4] > 0.3, rows[..., 7], torch.full_like(rows[..., 7], -1.0))
+    top, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    sel = torch.gather(rows, 1, idx[..., None].expand(8, d, 8))
+    boxes, cls = sel[..., :4].contiguous(), sel[..., 6].contiguous()
+    valid = (top > 0).contiguous()
+    keep = kernels.nms_keep(boxes, valid, IOU, cls)
+    if not torch.equal(keep, kernels.nms_keep_ref(boxes, valid, IOU, cls)):
+        fail(f"K2 on the live step's {d} candidates disagrees with its plain version")
+    if not torch.equal(keep, res.valid):
+        fail("the max_det=D detector's keep mask differs from K2 on its candidates")
+    over = iou_matrix(boxes[:2]) > IOU
+    over &= (cls[:2, :, None] - cls[:2, None, :]).abs() < 0.5
+    rounds = fixpoint_rounds(over, valid[:2])
+    del over
+    k2 = lambda: kernels.nms_keep(boxes, valid, IOU, cls)  # noqa: E731
+    ms, dev_ms = time_ms(k2, 10, 2), graph_ms(k2, 5)
+    plain_ms = time_ms(lambda: kernels.nms_keep_ref(boxes, valid, IOU, cls), 2, 1)
+    bms, by = nms_bound(valid, cls)
+    crowd = crowded_boxes(rng, BATCH, MAX_DET, dev)
+    small = lambda: kernels.nms_keep(crowd[0], crowd[1], IOU, crowd[2])  # noqa: E731
+    small_dev_ms = graph_ms(small)
+    say(f"phase 14 yolov3@{SIZE} live bf16 max_det={d} (every candidate) batch 8: one K2 launch, "
+        f"{int(valid.sum())} valid, {int(keep.sum())} kept, fixpoint rounds {rounds} (2 images), "
+        f"equal to the plain version; K2 {ms:.4f} ms eager, {dev_ms:.4f} ms device "
+        f"({bms / dev_ms:.2%} of its {bms:.5f} ms bound, {by}); plain {plain_ms:.4f} ms; "
+        f"scratch {kernels.nms_scratch_words(8, d) * 4 / 1e6:.1f} MB; K <= 1024 re-timed: "
+        f"{BATCH}x{MAX_DET} crowded {small_dev_ms:.4f} ms device; on {card}")
+    del det, heads, rows, sel, boxes, cls, valid, keep, crowd
+    return dict(k=d, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                rounds=rounds, crowded_300_device_ms=small_dev_ms)
+
+
+def phase15_prepared(kernels, v3, live, tiny_spec, tiny_live, calib_live, dev, card) -> dict:
+    """The prepared path: detect_many card vs CPU, its throughput, detect_stream
+    at batch 1, and the HTTP server on the card."""
+    import threading
+    import urllib.request
+
+    from pytorch_yolo_tpu_torch import Detection, Detector
+    from pytorch_yolo_tpu_torch.serve import make_server
+    from pytorch_yolo_tpu_torch.utils.drift import detection_drift
+
+    mix = np.random.default_rng(7)
+    shapes = ((480, 640), (300, 500), (640, 480), (123, 777), (720, 1280))
+    imgs = [mix.integers(0, 256, shapes[i % 5] + (3,), dtype=np.uint8) for i in range(32)]
+    out = {}
+    gpu_tiny = Detector(tiny_spec, tiny_live, device=dev)
+    cpu_tiny = Detector(tiny_spec, tiny_live, device="cpu")
+    for transfer in ("f32", "u8"):
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        gpu = gpu_tiny.detect_many(imgs[:5], size=SIZE, conf=0.5, batch=2, transfer=transfer)
+        launched = dict(kernels.LAUNCHES)
+        if not (launched["decode_score"] == 3 and launched["nms_keep"] == 3):
+            fail(f"tiny detect_many ({transfer}): expected 3 K1 and 3 K2 launches: {launched}")
+        st = detection_drift(cpu_tiny.detect_many(imgs[:5], size=SIZE, conf=0.5, batch=2,
+                                                  transfer=transfer), gpu)
+        if not (st.ref_dets > 0 and st.set_agreement == 1.0):
+            fail(f"yolov3-tiny detect_many {transfer} card vs CPU: {st.row()}")
+        say(f"phase 15 yolov3-tiny@{SIZE} live fp32 detect_many, 5 mixed sizes in chunks of 2, "
+            f"{transfer}: card vs CPU {st.row()}; launches {launched}")
+    del gpu_tiny, cpu_tiny
+
+    det = Detector(v3, live, device=dev, dtype=torch.bfloat16, precision="default")
+    for transfer in ("f32", "u8"):
+        det.detect_many(imgs[:8], size=SIZE, conf=CONF, batch=8, transfer=transfer)  # warm
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        many = det.detect_many(imgs, size=SIZE, conf=CONF, batch=8, transfer=transfer)
+        launched = dict(kernels.LAUNCHES)
+        if not (launched["decode_score"] == 4 and launched["nms_keep"] == 4
+                and launched["conv_bf16"] == 4 * len(det.model.convs)):
+            fail(f"bf16 detect_many ({transfer}): expected 4 K1, 4 K2 and "
+                 f"{4 * len(det.model.convs)} K5 launches: {launched}")
+        if len(many) != 32 or not all(np.isfinite(d.boxes).all() for d in many):
+            fail(f"bf16 detect_many ({transfer}) gave {len(many)} results or non-finite boxes")
+        say(f"phase 15 yolov3@{SIZE} live bf16 detect_many, 32 mixed images in chunks of 8, "
+            f"{transfer}: {sum(len(d) for d in many)} dets; launches {launched}")
+
+    # Rates over windows of several seconds, WINDOWS times in turns: the
+    # median and the spread (max - min over the median) of each.
+    window = imgs * (MANY_WINDOW // len(imgs))
+    rates: dict = {"detect_many_f32_img_s": [], "detect_many_u8_img_s": []}
+    for _ in range(WINDOWS):
+        for transfer in ("f32", "u8"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det.detect_many(window, size=SIZE, conf=CONF, batch=8, transfer=transfer)
+            rates[f"detect_many_{transfer}_img_s"].append(len(window) / (time.perf_counter() - t0))
+
+    frames1 = [mix.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(24)]
+    stream = frames1 * (STREAM_WINDOW // len(frames1))
+    int8sb = Detector(v3, live, device=dev, dtype=torch.bfloat16, precision="default",
+                      quant="w8a8", quant_calib=calib_live, quant_calib_size=SIZE,
+                      quant_recipe="none")
+    modes = {"stream_bf16_ms": (det, {}),
+             "stream_bf16_host_u8_ms": (det, dict(host_preproc=True, transfer="u8")),
+             "stream_int8sb_ms": (int8sb, {})}
+    for d, kw in modes.values():
+        list(d.detect_stream(frames1[:4], size=SIZE, conf=CONF, **kw))  # warm
+    for name in modes:
+        rates[name] = []
+    for _ in range(WINDOWS):
+        for name, (d, kw) in modes.items():
+            t0 = time.perf_counter()
+            n = sum(1 for _ in d.detect_stream(stream, size=SIZE, conf=CONF, **kw))
+            rates[name].append((time.perf_counter() - t0) / n * 1e3)
+    del int8sb
+    out.update({k: spread(v) for k, v in rates.items()})
+    for transfer in ("f32", "u8"):
+        r = out[f"detect_many_{transfer}_img_s"]
+        say(f"phase 15 yolov3@{SIZE} live bf16 detect_many, {len(window)} mixed images in "
+            f"chunks of 8, {transfer}, {WINDOWS} windows: median {r['median']:.1f} img/s, "
+            f"spread {r['spread']:.1%} ({r['runs']}; host letterbox included); on {card}")
+    bf, i8 = out["stream_bf16_ms"], out["stream_int8sb_ms"]
+    say(f"phase 15 yolov3@{SIZE} live detect_stream at batch 1, depth 2, {len(stream)} 480x640 "
+        f"frames, {WINDOWS} windows in turns: bf16 median {bf['median']:.3f} ms/frame, spread "
+        f"{bf['spread']:.1%} ({bf['runs']}); host letterbox + u8 "
+        f"{out['stream_bf16_host_u8_ms']['median']:.3f} ({out['stream_bf16_host_u8_ms']['runs']}); "
+        f"int8sb {i8['median']:.3f}, spread {i8['spread']:.1%} ({i8['runs']}); int8sb is "
+        f"{'slower' if min(i8['runs']) > max(bf['runs']) else 'not slower beyond the spread'} "
+        f"at batch 1; on {card}")
+
+    srv = make_server(det, host="127.0.0.1", port=0, size=SIZE, conf=CONF, batch_max=8,
+                      batch_timeout_ms=20.0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    try:
+        host, port = srv.server_address[:2]
+        posts = imgs[:8]
+        answers: list = [None] * len(posts)
+
+        def post(i):
+            req = urllib.request.Request(f"http://{host}:{port}/detect", data=png_bytes(posts[i]),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                answers[i] = json.loads(r.read())
+
+        for i in range(2):  # warm the buckets
+            post(i)
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(posts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        launched = dict(kernels.LAUNCHES)
+        if any(a is None for a in answers) or not (launched["decode_score"]
+                                                   and launched["conv_bf16"]):
+            fail(f"the server did not answer every POST through the kernels: {launched}")
+        served = [Detection(boxes=np.asarray(a["boxes"], np.float32).reshape(-1, 4),
+                            obj=np.asarray(a["obj"], np.float32),
+                            cls_score=np.asarray(a["cls_score"], np.float32),
+                            cls_id=np.asarray(a["cls_id"], np.int32)) for a in answers]
+        ref = det.detect_many(posts, size=SIZE, conf=CONF, transfer="u8")
+        st = detection_drift(ref, served)
+        if not (st.ref_dets > 0 and st.set_agreement == 1.0):
+            fail(f"the server's answers differ from detect_many on the same images: {st.row()}")
+        say(f"phase 15 make_server on 127.0.0.1, yolov3@{SIZE} live bf16: {len(posts)} "
+            f"concurrent PNG POSTs answered, K1 {launched['decode_score']} / K5 "
+            f"{launched['conv_bf16']} launches; equal to detect_many u8: {st.row()}")
+        bodies = [png_bytes(im) for im in imgs]
+
+        def serve_window() -> tuple[float, list]:
+            """SERVE_CLIENTS clients POST SERVE_WINDOW PNGs between them:
+            (seconds, each request's seconds)."""
+            todo, took, lock = iter(range(SERVE_WINDOW)), [], threading.Lock()
+
+            def client():
+                while True:
+                    with lock:
+                        i = next(todo, None)
+                    if i is None:
+                        return
+                    req = urllib.request.Request(f"http://{host}:{port}/detect",
+                                                 data=bodies[i % len(bodies)], method="POST")
+                    t = time.perf_counter()
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        r.read()
+                    with lock:
+                        took.append(time.perf_counter() - t)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return time.perf_counter() - t0, took
+
+        req_s, lat = [], []
+        for _ in range(WINDOWS):
+            dt, took = serve_window()
+            if len(took) != SERVE_WINDOW:
+                fail(f"the server answered {len(took)} of {SERVE_WINDOW} POSTs")
+            req_s.append(SERVE_WINDOW / dt)
+            lat.append(float(np.median(took)) * 1e3)
+        out["server_req_s"], out["server_latency_ms"] = spread(req_s), spread(lat)
+        r, m = out["server_req_s"], out["server_latency_ms"]
+        say(f"phase 15 make_server, {SERVE_CLIENTS} clients POSTing {SERVE_WINDOW} PNGs, "
+            f"{WINDOWS} windows: median {r['median']:.1f} req/s, spread {r['spread']:.1%} "
+            f"({r['runs']}); median latency {m['median']:.1f} ms ({m['runs']}); server stages "
+            f"({srv.stats.report().replace(chr(10), ';')}); on {card}")
+    finally:
+        srv.batcher.close()
+        srv.shutdown()
+        srv.server_close()
+    del det
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -463,6 +927,9 @@ def main() -> None:
     if not (launches["decode_score"] == steps and launches["nms_keep"] == steps):
         fail(f"the bf16 main path: expected one K1 and one K2 launch in each of {steps} steps: "
              f"{launches}")
+    if launches["conv_bf16"] != len(det.model.convs) * steps:
+        fail(f"the bf16 main path: expected one K5 launch for each of {len(det.model.convs)} "
+             f"convs in each of {steps} steps: {launches}")
     check_result(res, "bf16")
     bf16_dets = det._trim(res, BATCH)
     ms = statistics.median(times)
@@ -548,18 +1015,9 @@ def main() -> None:
     k1_32_bound, _ = bound(k1_ops, sum(h.numel() * 4 for h in heads) + out_bytes, PEAK_FP32_OPS)
     cast_bound, _ = bound(0, sum(h.numel() * 6 for h in heads), PEAK_FP32_OPS)
 
-    def k2_bound_of(valid_mask, class_ids: bool) -> tuple[float, str]:
-        """K2 reads boxes, valid (and class ids) and writes the mask once; the
-        relation needs ~15 fp32 ops for each pair j < i of valid candidates
-        (the suppression reuses it)."""
-        v = valid_mask.sum(1).double()
-        n, k = valid_mask.shape
-        return bound(15 * float((v * (v - 1) / 2).sum()),
-                     n * k * (16 + 1 + 1 + (4 if class_ids else 0)), PEAK_FP32_OPS)
-
-    k2_bound, k2_by = k2_bound_of(valid, True)
-    k2_crowd_bound, _ = k2_bound_of(crowd[1], True)
-    k2_chain_bound, _ = k2_bound_of(chain[1], False)
+    k2_bound, k2_by = nms_bound(valid, cls_f)
+    k2_crowd_bound, _ = nms_bound(crowd[1], crowd[2])
+    k2_chain_bound, _ = nms_bound(chain[1])
     say(f"phase 6 K1 decode_score_all, 3 bf16 heads, batch {BATCH}, one launch: {k1_ms:.4f} ms "
         f"eager, {k1_dev_ms:.4f} ms device ({k1_bound / k1_dev_ms:.1%} of its {k1_bound:.4f} ms "
         f"bound, {k1_by}); the same heads cast to fp32 + K1: {k1_cast_ms:.4f} ms eager, "
@@ -698,6 +1156,9 @@ def main() -> None:
     if n_int8 != len(det.model.qconvs) * (len(times9) + 3):  # 3 warm-up steps
         fail(f"int8sb launched {n_int8} int8 convs in {len(times9) + 3} steps of "
              f"{len(det.model.qconvs)}")
+    if launches9["conv_bf16"] != len(det.model.convs) * (len(times9) + 3):
+        fail(f"int8sb: expected one K5 launch for each of its {len(det.model.convs)} bf16 glue "
+             f"convs a step: {launches9}")
     check_result(res9, "int8sb")
     drift9 = detection_drift(bf16_dets, det._trim(res9, BATCH))
     ms9 = statistics.median(times9)
@@ -829,9 +1290,12 @@ def main() -> None:
         rows11[name] = dict(agree=st.set_agreement, box_p99=st.box_p99_px, score_p99=st.score_p99,
                             load_s=load_s, stem_s2d=det.stem_s2d, recipe=det.quant_state().get(
                                 "recipe") if det.quant else None)
+        before_k5 = {"bf16 s2d": "0.898", "bf16 natural stem": "0.901"}.get(name)
         say(f"phase 11 drift yolov3@{SIZE} live, {name} (stem_s2d={det.stem_s2d}) vs fp32 "
             f"highest: {st.row()}; load+calibrate {load_s:.2f} s; calibration launches "
-            f"{ {k: v for k, v in calib_launches.items() if v} }")
+            f"{ {k: v for k, v in calib_launches.items() if v} }"
+            + (f"; set agreement before K5 {before_k5} (the card, cuDNN convs), JAX's CPU row 0.912"
+               if before_k5 else ""))
         del det
     if ref_stats.ref_sat_frac > 0.5 or ref_stats.ref_score_spread < 0.02:
         fail(f"the live fp32 reference is degenerate: {ref_stats.row()}")
@@ -890,21 +1354,21 @@ def main() -> None:
     stem_on = Detector(v3, live, device=dev, stem_s2d=True, **bf16).model
     xs = letterbox_batch(frames, SIZE)
     nat0, nat1 = det12.model.convs["0"], det12.model.convs["1"]
-    from pytorch_yolo_tpu_torch.models.darknet import _space_to_depth, apply_activation
+    from pytorch_yolo_tpu_torch.models.darknet import _space_to_depth
 
-    with torch.no_grad():
+    with torch.no_grad():  # the convs are K5 modules: conv, bias and leaky in one launch
         xn = xs.permute(0, 3, 1, 2).to(torch.bfloat16)
-        y0n = apply_activation(nat0(xn), "leaky")
+        y0n = nat0(xn)
         ys = _space_to_depth(xs).permute(0, 3, 1, 2).to(torch.bfloat16)
-        y0s = apply_activation(stem_on.stem0(ys), "leaky")
+        y0s = stem_on.stem0(ys)
         y0p = torch.nn.functional.pad(y0s, (1, 0, 1, 0))
         parts = {
-            "natural conv0+leaky": lambda: apply_activation(nat0(xn), "leaky"),
-            "natural conv1+leaky": lambda: apply_activation(nat1(y0n), "leaky"),
+            "natural conv0+leaky": lambda: nat0(xn),
+            "natural conv1+leaky": lambda: nat1(y0n),
             "s2d permute+cast": lambda: _space_to_depth(xs).permute(0, 3, 1, 2).to(torch.bfloat16),
-            "s2d conv0+leaky": lambda: apply_activation(stem_on.stem0(ys), "leaky"),
+            "s2d conv0+leaky": lambda: stem_on.stem0(ys),
             "s2d pad": lambda: torch.nn.functional.pad(y0s, (1, 0, 1, 0)),
-            "s2d conv1+leaky": lambda: apply_activation(stem_on.stem1(y0p), "leaky")}
+            "s2d conv1+leaky": lambda: stem_on.stem1(y0p)}
         stem_ms = {k: time_ms(f, 10, 2) for k, f in parts.items()}
     layouts = {k: bool(t.is_contiguous(memory_format=torch.channels_last))
                for k, t in (("natural conv0 out", y0n), ("s2d input", ys), ("s2d conv0 out", y0s),
@@ -929,7 +1393,7 @@ def main() -> None:
     suppressed = int((lvalid & ~lkeep).sum())
     k2l = lambda: kernels.nms_keep(lboxes, lvalid, IOU, lcls)  # noqa: E731
     k2l_ms, k2l_dev_ms = time_ms(k2l), graph_ms(k2l)
-    k2l_bound, k2l_by = k2_bound_of(lvalid, True)
+    k2l_bound, k2l_by = nms_bound(lvalid, lcls)
     say(f"phase 12 K2 nms_keep {BATCH}x{MAX_DET} on the live step's candidates "
         f"({int(lvalid.sum())} valid, {suppressed} suppressed, fixpoint rounds {live_rounds}): "
         f"{k2l_ms:.4f} ms eager, {k2l_dev_ms:.4f} ms device ({k2l_bound / k2l_dev_ms:.1%} of "
@@ -937,6 +1401,15 @@ def main() -> None:
         f"(fixpoint rounds {rounds})")
     say(f"phase 12 timings: {json.dumps(ab)}")
     del det12, heads, rows
+    torch.cuda.empty_cache()
+
+    # 13-15. K5 at every conv shape, K2 past K = 1024, the prepared path
+    k5 = phase13_k5(kernels, v3, live, frames, dev, card)
+    torch.cuda.empty_cache()
+    k2_large = phase14_k2_large(kernels, v3, live, frames, dev, rng, card)
+    torch.cuda.empty_cache()
+    prepared = phase15_prepared(kernels, v3, live, tiny_spec, tiny_live, calib_live, dev, card)
+    k5_main = next(iter(k5["timed"].values()))  # 3x3 s1 52² 128->256
 
     report = {"kernels": [
         {"name": "decode_score", "route": "cuda",
@@ -952,7 +1425,11 @@ def main() -> None:
          "replaces": "pytorch_yolo_tpu/ops/pallas_kernels.py:312",
          "launches": launches["nms_keep"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None, "device_ms": k2_dev_ms, "crowded_device_ms": k2_crowd_dev_ms},
+         "library_ms": None, "device_ms": k2_dev_ms, "crowded_device_ms": k2_crowd_dev_ms,
+         # the large-K mode: the live step's every candidate, batch 8
+         "large_k": k2_large["k"], "large_k_ms": k2_large["ms"],
+         "large_k_device_ms": k2_large["device_ms"], "large_k_plain_ms": k2_large["plain_ms"],
+         "large_k_bound_ms": k2_large["bound_ms"]},
         {"name": "int8_gemm", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/gemm_i8.cu",
          "replaces": "tools/int8_kernel_probe.py:181",
@@ -967,7 +1444,17 @@ def main() -> None:
          "ms": c9["ms"], "plain_ms": c9["plain_ms"], "bound_ms": c9["bound_ms"],
          "bound_by": c9["bound_by"], "library_ms": c9["cudnn_ms"],
          "device_ms": c9["device_ms"], "v1_ms": c9["old_ms"]},
+        {"name": "conv_bf16", "route": "cuda",
+         "source": "pytorch_yolo_tpu_torch/csrc/conv_bf16.cu",
+         "replaces": "pytorch_yolo_tpu/models/darknet.py:82",
+         "launches": launches["conv_bf16"], "max_abs_err": k5["worst"]["abs"],
+         "ms": k5_main["ms"], "plain_ms": k5_main["plain_ms"], "bound_ms": k5_main["bound_ms"],
+         "bound_by": k5_main["bound_by"], "library_ms": k5_main["library_ms"],
+         "device_ms": k5_main["device_ms"],
+         "shapes": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms", "bound_ms")}
+                    for k, v in k5["timed"].items()}},
     ]}
+    say(f"phase 15 timings: {json.dumps(prepared)}")
     say(json.dumps(report))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,17 @@
 """Public detection API: load cfg/weights -> detect -> boxes+scores+classes.
 
-Counterpart of ``pytorch_yolo_tpu/api.py`` on its main path.  One pipeline
-per (batch, source shape, size, thresholds) key runs on the detector's
-device: letterbox -> Darknet forward -> fused decode+score (K1) -> top-K ->
+Counterpart of ``pytorch_yolo_tpu/api.py``.  One pipeline per (batch,
+source shape, size, thresholds) key runs on the detector's device:
+letterbox -> Darknet forward -> fused decode+score (K1) -> top-K ->
 class-wise NMS keep mask (K2) -> un-letterbox.  The only host<->device
 traffic is the uint8 images in and one fixed-shape result out.
+
+The prepared pipeline (one a batch size, whatever the source shapes) takes
+host-letterboxed canvases, f32 or uint8, with one geometry row an image:
+``detect_prepared``, and on it ``detect_many`` (chunks of mixed sizes,
+the host letterbox of chunk t+1 overlapping the device work of chunk t)
+and ``detect_stream(host_preproc=True)``.  On the card the canvases go
+through pinned staging buffers with ``non_blocking`` copies.
 
 ``quant="w8a8"`` serves the conv stack in int8 (the int8 kernels K3/K4,
 ``ops/quant.py``) with dynamic or calibrated static activation scales
@@ -18,6 +25,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import os
 import warnings
 from typing import NamedTuple, Sequence
@@ -30,14 +38,13 @@ from .models.darknet import Darknet
 from .ops import quant as q
 from .ops.kernels import decode_score_all
 from .ops.nms import NMSResult, batched_nms_fused
-from .ops.postprocess import unletterbox_boxes
+from .ops.postprocess import unletterbox_boxes, unletterbox_boxes_dynamic
 from .ops.preprocess import letterbox_batch, letterbox_geometry, letterbox_host
 from .utils.names import load_classes
 from .weights import (Params, equalize_raw_params, fold_batchnorm, random_raw_params,
                       read_weights_file)
 
-CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cfg")
-
+log = logging.getLogger(__name__)
 
 class Detection(NamedTuple):
     """Per-image detection result in original-image pixel coordinates.
@@ -52,6 +59,14 @@ class Detection(NamedTuple):
 
     def __len__(self) -> int:
         return int(self.boxes.shape[0])
+
+
+def _transfer_dtype(transfer: str) -> str:
+    """Host-path copy mode: "f32" normalized floats, "u8" rounded bytes."""
+    try:
+        return {"f32": "float32", "u8": "uint8"}[transfer]
+    except KeyError:
+        raise ValueError(f"transfer must be 'f32' or 'u8', got {transfer!r}") from None
 
 
 def _normalize_channels(images):
@@ -71,7 +86,7 @@ def _normalize_channels(images):
 @dataclasses.dataclass(frozen=True)
 class _PipelineKey:
     batch: int
-    orig_h: int
+    orig_h: int  # 0 for prepared-input pipelines (host letterbox)
     orig_w: int
     size: "int | tuple[int, int]"
     conf: float
@@ -79,6 +94,9 @@ class _PipelineKey:
     max_det: int
     bgr: bool
     score_mode: str = "obj"
+    prepared: bool = False
+
+_IDENTITY_GEO = (1.0, 0.0, 0.0, 1.0, 1.0)  # the geometry row of a padding frame
 
 
 def _revive_scale(v):
@@ -113,11 +131,16 @@ class Detector:
     Calibration runs on the detector's device.
 
     ``score_mode`` ranks candidates by objectness (``"obj"``) or by
-    ``"obj*cls"``.  ``stem_s2d`` runs the space-to-depth stem (an exact
+    ``"obj*cls"``.  ``interp`` is the letterbox resize, "linear" or
+    "cubic" (Keys, as ``jax.image.resize``).  ``cfg_text`` (set by
+    ``load``) makes the detector checkpointable; ``keep_fp32_params=False``
+    drops the host fp32 copy of the params, after which a bf16 detector
+    cannot ``save_checkpoint``.  ``stem_s2d`` runs the space-to-depth stem (an exact
     reparameterization of the first two layers).  The default is off, where the JAX package turns it on for bf16 and int8
     serving of a Darknet-53 stem: on an H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 12,
-    bf16 yolov3@416 batch 128) the s2d stem gave 13.3 % less throughput
-    (53.279 against 46.214 ms/batch, +15.3 % batch time).
+    bf16 yolov3@416 batch 128, every conv on K5, in turns off/on/on/off) the s2d stem
+    was 3.50 % slower (46.556 / 46.529 against 44.951 / 44.880 ms/batch), beyond the
+    0.2-0.8 % that runs of one code differ by.
     ``PYTORCH_YOLO_STEM_S2D=1`` turns it on where the stem is conv_conv or
     conv_pool and its convs stay fp; ``=0`` keeps it off."""
 
@@ -145,6 +168,9 @@ class Detector:
         quant_recipe: "str | None" = None,
         quant_act_scales: "dict | None" = None,
         quant_bias_delta: "dict | None" = None,
+        cfg_text: "str | None" = None,
+        interp: str = "linear",
+        keep_fp32_params: bool = True,
     ) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -154,7 +180,12 @@ class Detector:
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         if score_mode not in ("obj", "obj*cls"):
             raise ValueError(f"unknown score_mode {score_mode!r} ('obj' or 'obj*cls')")
+        if interp not in ("linear", "cubic"):
+            raise ValueError(f"interp must be 'linear' or 'cubic', got {interp!r}")
         self.spec = spec
+        self.cfg_text = cfg_text
+        self.interp = interp
+        self.weights_source: "str | None" = None  # set by load(); None = synthetic
         self.class_names = tuple(class_names) if class_names else load_classes()
         self.dtype = dtype
         self.precision = precision
@@ -165,6 +196,13 @@ class Detector:
                 quant_split_concat, quant_smooth, quant_bias_correct, quant_recipe,
                 quant_act_scales, quant_bias_delta))
         self.quant = quant
+        # Checkpoints are fp32 canonical: keep the fp32 host params (the
+        # caller's arrays, not a copy) where they arrived fp32 and unquantized.
+        self._fp32_params = None
+        if keep_fp32_params and quant is None:
+            host = {k: {kk: np.asarray(vv) for kk, vv in v.items()} for k, v in params.items()}
+            if all(a.dtype == np.float32 for p in host.values() for a in p.values()):
+                self._fp32_params = host
         self._quant_skip: frozenset[int] = frozenset()
         self._bias_deltas: "dict[int, np.ndarray]" = {}
         self._quant_calib_size: "tuple[int, int] | None" = None
@@ -182,6 +220,9 @@ class Detector:
         self._pipelines: "collections.OrderedDict[_PipelineKey, object]" = (
             collections.OrderedDict())
         self.max_cached_pipelines = 32  # LRU bound for long-running servers
+        # pinned host buffers of the prepared path, by (shape, dtype): a ring
+        # of slots, each with the event of its last copy
+        self._staging: "collections.OrderedDict[tuple, list]" = collections.OrderedDict()
 
     @staticmethod
     def _check_quant_args(params, quant, quant_calib, quant_calib_percentile, quant_skip_noisy,
@@ -324,18 +365,26 @@ class Detector:
         synthetic: str = "he",
         **kw,
     ) -> "Detector":
-        """``cfg`` is a ``.cfg`` path or a model name under ``cfg/``
-        ("yolov3", "yolov3-tiny", ...).  With ``weights=None`` the model gets
+        """``cfg`` is a ``.cfg`` path or a zoo model name ("yolov3",
+        "yolov3-tiny", ...: ``models.zoo.available_models()``).  With
+        ``weights=None`` the model gets
         synthetic weights, the same numbers as the JAX package's:
         ``synthetic="he"`` is plain He init (deep models saturate their head
         sigmoids), ``"live"`` adds the LSUV variance equalizer
         (``weights.equalize_raw_params``, run on ``device``), which puts the
         head logits in the sigmoid's responsive range.  ``kw`` are the
         constructor's other arguments (``score_mode``, ``stem_s2d``,
-        ``quant*``)."""
-        path = cfg if cfg.endswith(".cfg") else os.path.join(CFG_DIR, f"{cfg}.cfg")
-        with open(path, "r", encoding="utf-8") as f:
-            cfg_text = f.read()
+        ``interp``, ``keep_fp32_params``, ``quant*``)."""
+        if cfg.endswith(".cfg"):
+            with open(cfg, "r", encoding="utf-8") as f:
+                cfg_text = f.read()
+        else:
+            from .models.zoo import _GENERATORS
+
+            if cfg not in _GENERATORS:
+                raise ValueError(f"unknown model {cfg!r}: a .cfg path or one of "
+                                 f"{sorted(_GENERATORS)}")
+            cfg_text = _GENERATORS[cfg]()
         spec = build_spec(parse_cfg_text(cfg_text))
         if weights is not None:
             raw = read_weights_file(spec, weights)
@@ -346,8 +395,42 @@ class Detector:
             raw = random_raw_params(spec)
             if synthetic == "live":
                 raw = equalize_raw_params(spec, raw, device=device)
-        return cls(spec, fold_batchnorm(spec, raw), class_names=load_classes(names),
-                   device=device, dtype=dtype, precision=precision, **kw)
+        det = cls(spec, fold_batchnorm(spec, raw), class_names=load_classes(names),
+                  device=device, dtype=dtype, precision=precision, cfg_text=cfg_text, **kw)
+        det.weights_source = weights  # None = synthetic random (provenance)
+        return det
+
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the folded fp32 params + cfg text (+ class names) to the
+        directory ``path``, in the JAX package's layout: either package
+        loads it (``utils/checkpoint.py``)."""
+        from .utils.checkpoint import save_checkpoint
+
+        if self.cfg_text is None:
+            raise ValueError("detector has no cfg text to checkpoint")
+        if self.quant is not None:
+            raise ValueError(
+                "cannot checkpoint an int8-quantized detector; checkpoints are "
+                "fp32 canonical — load without quant, checkpoint, then requantize")
+        params = self._fp32_params
+        if params is None:
+            if self.dtype != torch.float32 or self.stem_s2d:
+                raise ValueError("cannot checkpoint non-fp32 params: this detector was built "
+                                 "with keep_fp32_params=False (or from non-fp32 params); "
+                                 "checkpoints are fp32 canonical")
+            params = {int(i): {"w": c.weight.detach().cpu().numpy(),
+                               "b": c.bias.detach().cpu().numpy()}
+                      for i, c in self.model.convs.items()}
+        save_checkpoint(path, self.cfg_text, params, self.class_names)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, **kw) -> "Detector":
+        """A detector from a checkpoint directory written by either package;
+        ``kw`` are the constructor's other arguments."""
+        from .utils.checkpoint import load_checkpoint
+
+        spec, cfg_text, params, names = load_checkpoint(path)
+        return cls(spec, params, class_names=names, cfg_text=cfg_text, **kw)
 
     def act_scales(self) -> "dict[int, float | list[float] | dict]":
         """The static int8 activation scales of the served convs: a float, a
@@ -389,15 +472,35 @@ class Detector:
     # ------------------------------------------------------------------
 
     def _build_pipeline(self, key: _PipelineKey):
-        model, spec = self.model, self.spec
+        if key.batch == 1 and self.quant == "w8a8":
+            log.warning(
+                "building a batch-1 pipeline on an int8 (w8a8) detector: at batch 1 int8sb "
+                "measured slower than bf16 on an H100 80GB HBM3 at 700 W (yolov3@416, "
+                "detect_stream, the median of 3 windows of 480 frames: 9.268 ms a frame, "
+                "8.654-9.901, against 5.748, 5.220-6.372; chip_smoke.py phase 15); serve "
+                "batch 1 with bf16 instead")
+        model, spec, interp = self.model, self.spec, self.interp
+
+        def postprocess(x: torch.Tensor) -> NMSResult:
+            rows = decode_score_all(model(x, _native_heads=True), spec,  # bf16 heads as they are
+                                    score_mode=key.score_mode)
+            return batched_nms_fused(rows, conf_thresh=key.conf, iou_thresh=key.iou,
+                                     max_det=key.max_det)
+
+        if key.prepared:
+            # host-letterboxed canvases with one geometry row an image: one
+            # pipeline serves every source resolution
+            def prepared(x: torch.Tensor, geos: torch.Tensor) -> NMSResult:
+                if x.dtype == torch.uint8:  # uint8 transfer: / 255 on the device
+                    x = x.to(torch.float32).mul_(1.0 / 255.0)  # as letterbox_batch divides
+                res = postprocess(x)
+                return res._replace(boxes=unletterbox_boxes_dynamic(res.boxes, geos))
+
+            return prepared
         geo = letterbox_geometry(key.orig_h, key.orig_w, key.size)
 
         def pipeline(imgs: torch.Tensor) -> NMSResult:
-            x = letterbox_batch(imgs, size=key.size, bgr=key.bgr)
-            rows = decode_score_all(model(x, _native_heads=True), spec,  # bf16 heads as they are
-                                    score_mode=key.score_mode)
-            res = batched_nms_fused(rows, conf_thresh=key.conf, iou_thresh=key.iou,
-                                    max_det=key.max_det)
+            res = postprocess(letterbox_batch(imgs, size=key.size, bgr=key.bgr, method=interp))
             return res._replace(boxes=unletterbox_boxes(res.boxes, geo))
 
         return pipeline
@@ -460,6 +563,141 @@ class Detector:
                            size=self._resolve_size(size), conf=conf, iou=iou,
                            max_det=max_det, bgr=bgr, score_mode=self.score_mode)
         return self._pipeline(key)(imgs)
+
+    def _stage(self, arr) -> torch.Tensor:
+        """A host array (or tensor) on the detector's device.  On the card it
+        is copied into a pinned staging buffer and sent with a
+        ``non_blocking`` copy, so the host goes on (letterboxing the next
+        chunk) while it travels; each (shape, dtype) has a ring of three
+        buffers, and a buffer is reused only after its last copy is done."""
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda" or t.device.type != "cpu":
+            return t.to(self.device)
+        key = (tuple(t.shape), t.dtype)
+        ring = self._staging.get(key)
+        if ring is None:
+            ring = [0] + [[torch.empty(key[0], dtype=t.dtype, pin_memory=True), None]
+                          for _ in range(3)]
+            self._staging[key] = ring
+            while len(self._staging) > 8:
+                self._staging.popitem(last=False)
+        else:
+            self._staging.move_to_end(key)
+        ring[0] = ring[0] % 3 + 1
+        slot = ring[ring[0]]
+        if slot[1] is not None:
+            slot[1].synchronize()  # its last copy has left the buffer
+        slot[0].copy_(t)
+        out = slot[0].to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return out
+
+    def detect_prepared(self, x, geos, size: "int | tuple[int, int]", conf: float = 0.5,
+                        iou: float = 0.4, max_det: int = 300) -> NMSResult:
+        """Run the shape-agnostic pipeline on host-letterboxed inputs.
+
+        ``x``: (N, Sh, Sw, 3) from :func:`letterbox_host` — float32 in [0, 1],
+        or uint8 0..255 (``out_dtype="uint8"``; divided on the device, a
+        quarter of the bytes to copy); ``geos``: (N, 5) float32 [scale,
+        pad_x, pad_y, orig_w, orig_h].  One pipeline a batch size serves
+        every source resolution.  Returns the device-resident result (no
+        host trim)."""
+        key = _PipelineKey(batch=x.shape[0], orig_h=0, orig_w=0, size=size, conf=conf, iou=iou,
+                           max_det=max_det, bgr=False, score_mode=self.score_mode,
+                           prepared=True)
+        fn = self._pipeline(key)
+        return fn(self._stage(x), self._stage(np.asarray(geos, np.float32)))
+
+    def detect_many(self, images: Sequence, size: "int | tuple[int, int] | None" = None,
+                    conf: float = 0.5, iou: float = 0.4, max_det: int = 300, bgr: bool = True,
+                    batch: int = 8, transfer: str = "f32") -> list[Detection]:
+        """Detect over a list of differently-sized images with true batching.
+
+        Each image is letterboxed on the host and the canvases are stacked
+        into chunks of ``batch`` for the prepared pipeline (the last chunk
+        padded, so every chunk reuses one pipeline).  Chunks are double
+        buffered: the host letterbox of chunk t+1 runs while the device
+        works on chunk t.  ``transfer="u8"`` ships rounded uint8 canvases
+        (a quarter of the bytes; <= 0.5/255 rounding a pixel)."""
+        rsize = self._resolve_size(size)
+        out_dtype = _transfer_dtype(transfer)
+        out: list[Detection] = []
+        pending: "tuple[NMSResult, int] | None" = None
+
+        def prepare(chunk):
+            lbs, geos = [], []
+            for im in chunk:
+                lb, g = letterbox_host(_normalize_channels(im), rsize, bgr=bgr,
+                                       method=self.interp, out_dtype=out_dtype)
+                lbs.append(lb)
+                geos.append([g.scale, g.pad_x, g.pad_y, g.orig_w, g.orig_h])
+            x = np.stack(lbs)
+            ge = np.asarray(geos, dtype=np.float32)
+            n = len(chunk)
+            if n < batch:  # pad so every chunk reuses one pipeline
+                x = np.concatenate([x, np.zeros((batch - n,) + x.shape[1:], x.dtype)])
+                ge = np.concatenate([ge, np.tile([_IDENTITY_GEO], (batch - n, 1))
+                                     .astype(np.float32)])
+            return x, ge, n
+
+        for start in range(0, len(images), batch):
+            x, ge, n = prepare(images[start:start + batch])
+            res = self.detect_prepared(x, ge, rsize, conf=conf, iou=iou, max_det=max_det)
+            if pending is not None:
+                out.extend(self._trim(*pending))
+            pending = (res, n)
+        if pending is not None:
+            out.extend(self._trim(*pending))
+        return out
+
+    def detect_stream(self, images, size: "int | tuple[int, int] | None" = None,
+                      conf: float = 0.5, iou: float = 0.4, max_det: int = 300, bgr: bool = True,
+                      depth: int = 2, host_preproc: bool = False, transfer: str = "f32"):
+        """Pipelined detection over an iterable of (H, W, 3) uint8 images.
+
+        Keeps ``depth`` batches of one in flight on the device, so the host
+        work of item t+1 (decode, letterbox, bookkeeping) overlaps the
+        device work of item t; yields :class:`Detection` in input order.
+        ``host_preproc=True`` letterboxes on the host and feeds the prepared
+        pipeline (heterogeneous source sizes share it)."""
+        inflight: collections.deque = collections.deque()
+        rsize = self._resolve_size(size)
+        out_dtype = _transfer_dtype(transfer)
+
+        def dispatch(img) -> None:
+            if host_preproc:
+                lb, geo = letterbox_host(_normalize_channels(img), rsize, bgr=bgr,
+                                         method=self.interp, out_dtype=out_dtype)
+                geos = np.asarray([[geo.scale, geo.pad_x, geo.pad_y, geo.orig_w, geo.orig_h]],
+                                  dtype=np.float32)
+                inflight.append(self.detect_prepared(lb[None], geos, rsize, conf=conf, iou=iou,
+                                                     max_det=max_det))
+            else:
+                inflight.append(self.raw_result(img[None], size=size, conf=conf, iou=iou,
+                                                max_det=max_det, bgr=bgr))
+
+        it = iter(images)
+        for img in it:
+            dispatch(img)
+            if len(inflight) >= depth:
+                break
+        for img in it:
+            res = inflight.popleft()
+            dispatch(img)
+            yield self._trim(res, 1)[0]
+        while inflight:
+            yield self._trim(inflight.popleft(), 1)[0]
+
+    def warmup(self, shapes: Sequence[tuple[int, int]], sizes: Sequence[int] = (416,),
+               batch: int = 1, **kw) -> None:
+        """Build and run once the pipelines of the given (H0, W0) x size
+        buckets (on the card: the kernel library and every launch's
+        first-call set-up)."""
+        for h, w in shapes:
+            dummy = np.zeros((batch, h, w, 3), dtype=np.uint8)
+            for s in sizes:
+                self.detect_batch(dummy, size=s, **kw)
 
     @staticmethod
     def _trim(res: NMSResult, n: int) -> list[Detection]:

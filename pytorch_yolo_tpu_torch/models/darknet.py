@@ -8,8 +8,14 @@ float batch in [0, 1] and every head comes back as a contiguous fp32
 NHWC <-> NCHW switches at both ends are free and cuDNN runs its NHWC
 kernels.
 
-Convolutions stay ``F.conv2d`` (the JAX package left them to XLA too).
-BatchNorm arrives folded into the conv (``weights.fold_batchnorm``).
+BatchNorm arrives folded into the conv (``weights.fold_batchnorm``).  At
+fp32 and fp64 the convs are ``F.conv2d`` (cuDNN on the card, TF32 off at
+"highest"); at bf16 every fp conv is the hand-written K5
+(``ops.kernels.conv_bf16``), which computes what the JAX ``_conv`` does: an
+fp32 sum of the bf16 operands, + the fp32 bias, the activation in fp32, one
+rounding to bf16.  A bf16 conv whose output only a following [shortcut]
+reads takes that shortcut into its epilogue (the bf16 add after the
+rounding, as JAX adds the two bf16 maps).
 
 ``stem_s2d=True`` runs the space-to-depth stem: the first two layers
 (3x3/s1 conv + 3x3/s2 conv, or 3x3/s1 conv + 2x2/s2 maxpool) become one
@@ -32,7 +38,8 @@ Precision: ``dtype=torch.float32`` with ``precision="highest"`` is the
 parity mode — cuDNN's TF32 is switched off for the duration of the forward
 only (it is on by default for fp32 convs, the same trap the JAX package
 documents for XLA's default precision).  ``dtype=torch.bfloat16`` is the
-serving mode: weights and activations in bf16, heads cast to fp32 — except
+serving mode: weights and activations in bf16, biases in fp32, heads cast
+to fp32 — except
 in the serving pipeline, which asks for the heads in the forward's dtype
 (``_native_heads=True``) and hands the bf16 views straight to K1, which
 widens them in registers (bf16 -> fp32 is exact, so the rows are the same).
@@ -60,6 +67,7 @@ from ..config import (
     YoloSpec,
     head_strides,
 )
+from ..ops.kernels import conv_bf16
 
 
 def apply_activation(y: torch.Tensor, activation: str) -> torch.Tensor:
@@ -75,6 +83,28 @@ def apply_activation(y: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "logistic":
         return torch.sigmoid(y)
     return y  # linear
+
+
+def _fused_shortcuts(spec: ModelSpec) -> frozenset[int]:
+    """Conv indices i whose output is read by the [shortcut] at i + 1 and by
+    nothing else, so that conv can add the shortcut's other operand in its
+    epilogue (``from_layer`` must not be i itself)."""
+    readers: dict[int, int] = {}
+    for layer in spec.layers:
+        srcs: tuple = ()
+        if isinstance(layer, RouteSpec):
+            srcs = tuple(layer.layers)
+        elif isinstance(layer, ShortcutSpec):
+            srcs = (layer.from_layer, layer.index - 1)
+        for j in srcs:
+            readers[j] = readers.get(j, 0) + 1
+    fused = set()
+    for layer in spec.layers:
+        i = layer.index - 1
+        if (isinstance(layer, ShortcutSpec) and i >= 0 and isinstance(spec.layers[i], ConvSpec)
+                and layer.from_layer != i and readers.get(i) == 1):
+            fused.add(i)
+    return frozenset(fused)
 
 
 def _needed_outputs(spec: ModelSpec) -> frozenset[int]:
@@ -214,6 +244,27 @@ def _conv_precision(precision: str):
         cudnn.allow_tf32 = prev
 
 
+class _Bf16Conv(nn.Module):
+    """One fp conv of a bf16 model, run by K5: ``weight`` (O, KH, KW, C)
+    bf16, ``bias`` (O,) fp32 (added to the fp32 sum, as the JAX package
+    keeps it), its stride, padding and activation."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor, stride: int, padding: int,
+                 activation: str) -> None:
+        super().__init__()
+        self.register_buffer("weight", w.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous())
+        self.register_buffer("bias", b.to(torch.float32).clone())
+        self.stride, self.padding, self.activation = stride, padding, activation
+
+    def forward(self, x: torch.Tensor, shortcut: "torch.Tensor | None" = None) -> torch.Tensor:
+        """NCHW (``channels_last``) view in -> the activated bf16 output as
+        one (plus ``shortcut``, an NCHW view of the same shape)."""
+        y = conv_bf16(x.permute(0, 2, 3, 1).to(torch.bfloat16), self.weight, self.bias,
+                      self.stride, self.padding, self.activation,
+                      None if shortcut is None else shortcut.permute(0, 2, 3, 1))
+        return y.permute(0, 3, 1, 2)
+
+
 class _QuantConv(nn.Module):
     """The int8 tensors of one W8A8 conv as buffers: ``wq`` (O, kh, kw, I)
     int8, ``ws`` and ``b`` (O,) fp32, and the static ``sa`` or ``sag`` when
@@ -269,17 +320,13 @@ class Darknet(nn.Module):
                 w = wq * torch.as_tensor(p["ws"])[:, None, None, None]
             else:
                 w = torch.as_tensor(np.asarray(p["w"], np.float32))
-            conv = nn.Conv2d(layer.in_channels, layer.filters, layer.size,
-                             stride=layer.stride, padding=layer.padding, bias=True)
             b = torch.as_tensor(np.asarray(p["b"], np.float32))
-            if tuple(w.shape) != tuple(conv.weight.shape):
+            want = (layer.filters, layer.in_channels, layer.size, layer.size)
+            if tuple(w.shape) != want:
                 raise ValueError(f"layer {layer.index}: weight shape {tuple(w.shape)}, "
-                                 f"expected OIHW {tuple(conv.weight.shape)}")
-            with torch.no_grad():
-                conv.weight.copy_(w)
-                conv.bias.copy_(b)
-            conv.requires_grad_(False)
-            self.convs[str(layer.index)] = conv
+                                 f"expected OIHW {want}")
+            self.convs[str(layer.index)] = self._fp_conv(w, b, layer.stride, layer.padding,
+                                                         layer.activation)
         self.stem_s2d = bool(stem_s2d)
         self._pattern = _stem_pattern(spec) if stem_s2d else None
         if stem_s2d:
@@ -291,31 +338,49 @@ class Darknet(nn.Module):
                 raise ValueError("stem_s2d requires fp stem kernels, but the stem convs are "
                                  "int8-quantized — keep layers 0/1 in the quant skip set "
                                  "(default PYTORCH_YOLO_INT8_EARLY_STRIDE=8 does)")
-            c0 = self.convs.pop("0")
-            pw0, pb0 = _pack_s2d_conv0(c0.weight, c0.bias)
-            self.stem0 = self._packed_conv(pw0, pb0, padding=1)
+            def fp32(i, key):
+                return torch.as_tensor(np.asarray(params[i][key], np.float32))
+
+            del self.convs["0"]
+            self.stem0 = self._fp_conv(*_pack_s2d_conv0(fp32(0, "w"), fp32(0, "b")), 1, 1,
+                                       "leaky")
             if self._pattern == "conv_conv":
-                c1 = self.convs.pop("1")
-                self.stem1 = self._packed_conv(_pack_s2d_conv1(c1.weight), c1.bias, padding=0)
-        self.convs.to(dtype=dtype, memory_format=torch.channels_last)
+                del self.convs["1"]
+                self.stem1 = self._fp_conv(_pack_s2d_conv1(fp32(1, "w")), fp32(1, "b"), 1, 0,
+                                           "leaky")
         self._chains = int8_resident_chains(spec, params) if quant == "w8a8" else {}
         self._split_groups = concat_split_groups(spec)
+        self._fused = _fused_shortcuts(spec) if dtype == torch.bfloat16 else frozenset()
 
-    def _packed_conv(self, w: torch.Tensor, b: torch.Tensor, padding: int) -> nn.Conv2d:
-        conv = nn.Conv2d(w.shape[1], w.shape[0], w.shape[2], padding=padding, bias=True)
+    def _fp_conv(self, w: torch.Tensor, b: torch.Tensor, stride: int, padding: int,
+                 activation: str) -> nn.Module:
+        """An fp conv from OIHW fp32 ``w`` and ``b``: K5's :class:`_Bf16Conv`
+        for a bf16 model, else an ``nn.Conv2d`` in the model's dtype."""
+        if self.dtype == torch.bfloat16:
+            return _Bf16Conv(w, b, stride, padding, activation)
+        conv = nn.Conv2d(w.shape[1], w.shape[0], w.shape[2], stride=stride, padding=padding,
+                         bias=True)
         with torch.no_grad():
             conv.weight.copy_(w)
             conv.bias.copy_(b)
         conv.requires_grad_(False)
+        conv.activation = activation
         return conv.to(dtype=self.dtype, memory_format=torch.channels_last)
+
+    def _run_conv(self, conv: nn.Module, x: torch.Tensor,
+                  shortcut: "torch.Tensor | None" = None) -> torch.Tensor:
+        """One fp conv with its activation on an NCHW (``channels_last``)
+        view; ``shortcut`` only for a bf16 (K5) conv."""
+        if isinstance(conv, _Bf16Conv):
+            return conv(x, shortcut)
+        return apply_activation(conv(x.to(self.dtype)), conv.activation)
 
     def _s2d_stem(self, x: torch.Tensor) -> torch.Tensor:
         """The packed stem on an NHWC batch: layer 1's output as an NCHW
         (``channels_last``) view, as the natural stem gives it."""
-        y = _space_to_depth(x).permute(0, 3, 1, 2).to(self.dtype)
-        y = apply_activation(self.stem0(y), "leaky")
+        y = self._run_conv(self.stem0, _space_to_depth(x).permute(0, 3, 1, 2))
         if self._pattern == "conv_conv":  # the 3x3/s2 conv: pad (1, 0) on each axis
-            return apply_activation(self.stem1(F.pad(y, (1, 0, 1, 0))), "leaky")
+            return self._run_conv(self.stem1, F.pad(y, (1, 0, 1, 0)))
         o = y.shape[1] // 4  # 2x2/s2 maxpool: the max over the four phase groups
         return torch.maximum(torch.maximum(y[:, :o], y[:, o:2 * o]),
                              torch.maximum(y[:, 2 * o:3 * o], y[:, 3 * o:]))
@@ -372,17 +437,23 @@ class Darknet(nn.Module):
                 layers = layers[2:]
             else:
                 x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view; each fp conv casts
+            fused = False  # the last conv took the [shortcut] after it
             for layer in layers:
                 if isinstance(layer, ConvSpec):
+                    fused = False
                     if collect_conv_in_stats is not None:
                         s = collect_conv_in_stats(layer.index, x.permute(0, 2, 3, 1))
                         if s is not None:
                             stats[layer.index] = s
                     if str(layer.index) in self.qconvs:
                         x = self._quantized(x, layer)
+                    elif layer.index in self._fused and not hooked:
+                        # the [shortcut] at index + 1 in K5's epilogue
+                        x = self._run_conv(self.convs[str(layer.index)], x,
+                                           cache[self.spec.layers[layer.index + 1].from_layer])
+                        fused = True
                     else:
-                        conv = self.convs[str(layer.index)]
-                        x = apply_activation(conv(x.to(self.dtype)), layer.activation)
+                        x = self._run_conv(self.convs[str(layer.index)], x)
                     if collect_conv_out_stats is not None:
                         s = collect_conv_out_stats(layer.index, x.permute(0, 2, 3, 1))
                         if s is not None:
@@ -401,7 +472,8 @@ class Darknet(nn.Module):
                                 for t in srcs]
                     x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
                 elif isinstance(layer, ShortcutSpec):
-                    x = cache[layer.index - 1] + cache[layer.from_layer]
+                    if not fused:
+                        x = cache[layer.index - 1] + cache[layer.from_layer]
                 elif isinstance(layer, (YoloSpec, RegionSpec)):
                     h = x.permute(0, 2, 3, 1)
                     if not (_native_heads and h.dtype in (torch.bfloat16, torch.float32)):

@@ -7,7 +7,8 @@
   decode_score_head``); :func:`decode_plan` is its launch table.
 * **K2** :func:`nms_keep` (``csrc/nms_keep.cu``): batched greedy-NMS keep
   mask, the overlap bitmask built by the whole block and scanned by one
-  warp (``pallas_kernels.py: nms_keep_pallas``).
+  warp (``pallas_kernels.py: nms_keep_pallas``); above K = 1024 the
+  bitmask is built in a global-memory scratch and scanned by one block.
 * **K3** :func:`int8_gemm` (``csrc/gemm_i8.cu``): s8 x s8 -> s32 GEMM with
   the probe's fixed-point requant (``tools/int8_kernel_probe.py:
   gemm_i8_pallas``) or the int8 serving epilogue; every quantized 1x1
@@ -15,6 +16,11 @@
 * **K4** :func:`int8_conv` (``csrc/int8_conv.cu``): int8 implicit-GEMM conv
   with the serving epilogue (``pytorch_yolo_tpu/ops/quant.py:
   quantized_conv``); every other quantized conv.
+* **K5** :func:`conv_bf16` (``csrc/conv_bf16.cu``): bf16 implicit-GEMM conv
+  with fp32 accumulators and the JAX epilogue (fp32 bias, activation, one
+  rounding to bf16, optional shortcut add) on the wgmma core
+  (``pytorch_yolo_tpu/models/darknet.py: _conv``); every fp conv of a bf16
+  detector.
 
 K3 and K4 run on the Hopper core ``csrc/int8_wgmma.cuh`` (wgmma, TMA, a
 warp-specialised ring, persistent blocks) whenever C and the group offsets
@@ -53,7 +59,8 @@ from .decode import head_decode_args
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f) for f in
-                ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu"))
+                ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu",
+                  "conv_bf16.cu"))
 HEADERS = tuple(os.path.join(CSRC, f) for f in ("int8_igemm.cuh", "int8_wgmma.cuh"))
 BUILD_DIR = os.path.join(CSRC, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libyolo_kernels.so")
@@ -62,12 +69,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"decode_score": 0, "nms_keep": 0, "int8_gemm": 0, "int8_gemm_mma": 0,
-            "int8_conv": 0, "int8_conv_mma": 0}
+            "int8_conv": 0, "int8_conv_mma": 0, "conv_bf16": 0}
 
 MAX_ANCHORS = 8         # csrc/decode_score.cu: kMaxAnchors
 MAX_HEADS = 8           # csrc/decode_score.cu: kMaxHeads, heads in one K1 launch
 DECODE_TILE_ROWS = 128  # csrc/decode_score.cu: kTileRows, rows a K1 tile
-MAX_NMS_K = 1024        # csrc/nms_keep.cu: kMaxK, one bitmask word a lane
+MAX_NMS_K_SHARED = 1024  # csrc/nms_keep.cu: kMaxK, the bitmask in shared memory up to here
 _SMEM_LIMIT = 227 * 1024
 _CLS_ACT = {"sigmoid": 0, "softmax": 1, "linear": 2}
 _SCORE_MODE = {"obj": 0, "obj*cls": 1}
@@ -143,8 +150,9 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.yolo_decode_score.argtypes = [ctypes.POINTER(_DecodeArgs), i, i, p]
-            lib.yolo_nms_keep.argtypes = [p, p, p, p, i, i, ctypes.c_float, i, p]
-            for fn in (lib.yolo_decode_score, lib.yolo_nms_keep):
+            lib.yolo_nms_keep.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i, p]
+            lib.yolo_conv_bf16.argtypes = [ctypes.POINTER(_ConvBf16Args), i, i, i, p]
+            for fn in (lib.yolo_decode_score, lib.yolo_nms_keep, lib.yolo_conv_bf16):
                 fn.restype = i
             for fn in (lib.yolo_int8_gemm, lib.yolo_int8_conv, lib.yolo_int8_gemm_mma,
                        lib.yolo_int8_conv_mma):
@@ -453,10 +461,22 @@ def nms_keep_ref(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     return fixpoint_keep(over, valid)
 
 
+def nms_scratch_words(n: int, k: int) -> int:
+    """u32 words of K2's global-memory bitmask for an (N, K) launch: 0 up
+    to K = 1024 (shared memory holds it), else N * words * 32 * words with
+    words = ceil(K / 32), K²/8 bytes an image."""
+    if k <= MAX_NMS_K_SHARED:
+        return 0
+    words = -(-k // 32)
+    return n * words * 32 * words
+
+
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
              cls_id: "torch.Tensor | None" = None) -> torch.Tensor:
     """K2: (N, K, 4) score-sorted corner boxes, (N, K) bool valid, optional
-    (N, K) fp32 class ids (class-wise suppression) -> (N, K) bool keep mask."""
+    (N, K) fp32 class ids (class-wise suppression) -> (N, K) bool keep mask.
+    Any K >= 1: above 1024 the launch allocates its bitmask scratch
+    (:func:`nms_scratch_words`)."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (N, K, 4), got {tuple(boxes.shape)}")
     n, k, _ = boxes.shape
@@ -469,15 +489,18 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
 
     if boxes.dtype != torch.float32 or (cls_id is not None and cls_id.dtype != torch.float32):
         raise ValueError("nms_keep: boxes and cls_id must be float32")
-    if not 1 <= k <= MAX_NMS_K:
-        raise ValueError(f"nms_keep: K={k}, the kernel takes 1..{MAX_NMS_K}")
+    if k < 1:
+        raise ValueError(f"nms_keep: K={k}, the kernel takes K >= 1")
     device, stream = _cuda_args("nms_keep", boxes, valid, cls_id)
     if boxes.data_ptr() % 16:
         raise ValueError("nms_keep: boxes must be 16-byte aligned")
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
+    words = nms_scratch_words(n, k)
+    scratch = torch.empty(words, dtype=torch.int32, device=boxes.device) if words else None
     rc = load_library().yolo_nms_keep(
         boxes.data_ptr(), valid.data_ptr(), None if cls_id is None else cls_id.data_ptr(),
-        keep.data_ptr(), n, k, float(iou_thresh), device, stream)
+        keep.data_ptr(), None if scratch is None else scratch.data_ptr(), n, k,
+        float(iou_thresh), device, stream)
     _raise_on(rc, "nms_keep")
     LAUNCHES["nms_keep"] += 1
     return keep
@@ -747,3 +770,117 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int, _mma: b
         raise ValueError(f"int8_conv: empty output for {tuple(xq.shape)} with a {kh}x{kw} "
                          f"kernel, stride {stride}, pad {pad}")
     return _igemm("int8_conv", xq, wq, stride, pad, (n, ho, wo, o), _mma=_mma, **epi)
+
+
+# ---------------------------------------------------------------------------
+# K5: bf16 implicit-GEMM conv with the JAX epilogue
+# ---------------------------------------------------------------------------
+
+
+class _ConvBf16Args(ctypes.Structure):
+    """csrc/conv_bf16.cu: ConvBf16Args, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "w", "bias", "shortcut", "out")]
+                + [(n, ctypes.c_int) for n in
+                   ("batch", "H", "W", "C", "Ho", "Wo", "O", "KH", "KW", "stride", "pad", "M",
+                    "act")])
+
+
+def conv_bf16_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pad: int,
+                  act: str = "linear", shortcut: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Plain torch version of K5 (arguments: :func:`conv_bf16`): ``F.conv2d``
+    in fp32 (TF32 off) on the bf16 operands, + the fp32 bias, the
+    activation in fp32, one rounding to bf16; then ``shortcut`` added as a
+    bf16 add (fp32 sum of the two bf16 values, rounded once more).  The
+    order of ``pytorch_yolo_tpu/models/darknet.py: _conv`` and of the
+    JAX shortcut (``cache[i-1] + cache[from]``)."""
+    from ..models.darknet import apply_activation  # darknet imports this module
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float32),
+                     w.permute(0, 3, 1, 2).to(torch.float32), stride=stride, padding=pad)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    y = apply_activation(y + b.to(torch.float32)[:, None, None], act).to(torch.bfloat16)
+    y = y.permute(0, 2, 3, 1)
+    if shortcut is not None:
+        y = (y.to(torch.float32) + shortcut.to(torch.float32)).to(torch.bfloat16)
+    return y.contiguous()
+
+
+def conv_bf16_plan(channels: int, out_channels: int, kh: int, kw: int, stride: int,
+                   pad: int) -> tuple[str, int, int]:
+    """K5's launch for a conv, from its shapes alone: ``(A's route, BN,
+    padded C)``.  A comes by TMA for a 1x1 stride-1 unpadded conv
+    (``"tma"``), else by the 16-byte gather (``"gather"``); the block tile is
+    BN = 64 output columns up to 64 outputs, 128 up to 128, else 256 (two
+    n128 passes on one gathered A); C is
+    padded with zero channels to a multiple of 8 (one 16-byte copy is 8
+    channels), which only an RGB stem (C = 3 -> 8) needs."""
+    route = "tma" if kh == kw == 1 and stride == 1 and pad == 0 else "gather"
+    bn = 64 if out_channels <= 64 else 128 if out_channels <= 128 else 256
+    return route, bn, -(-channels // 8) * 8
+
+
+def conv_bf16_work(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: int, pad: int,
+                   shortcut: bool = False) -> tuple[int, int]:
+    """(bf16 flops, bytes) of one K5 call: ``2 * M * O * KH * KW * C``, and
+    the NHWC bf16 input, the bf16 weights, the fp32 bias, the bf16 output
+    (and shortcut) each counted once."""
+    n, h, w, c = x_shape
+    o, kh, kw, _ = w_shape
+    m = n * ((h + 2 * pad - kh) // stride + 1) * ((w + 2 * pad - kw) // stride + 1)
+    return (2 * m * o * kh * kw * c,
+            2 * n * h * w * c + 2 * o * kh * kw * c + 4 * o + 2 * m * o * (2 if shortcut else 1))
+
+
+def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pad: int,
+              act: str = "linear", shortcut: "torch.Tensor | None" = None) -> torch.Tensor:
+    """K5: NHWC bf16 ``x`` (N, H, W, C) conv (O, KH, KW, C) bf16 ``w``, zero
+    padding ``pad`` on each side, + (O,) fp32 bias ``b``, activation
+    ``act`` in fp32 -> NHWC bf16 (N, Ho, Wo, O), rounded once; ``shortcut``
+    (N, Ho, Wo, O) bf16 is then added as a bf16 add (a Darknet
+    [shortcut] whose first operand is this conv).  A CPU tensor takes
+    :func:`conv_bf16_ref`; a CUDA tensor launches the kernel or raises."""
+    if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[3]:
+        raise ValueError(f"conv_bf16: (N, H, W, C) and (O, KH, KW, C) expected, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    n, h, wd, c = x.shape
+    o, kh, kw, _ = w.shape
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (wd + 2 * pad - kw) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"conv_bf16: empty output for {tuple(x.shape)} with a {kh}x{kw} "
+                         f"kernel, stride {stride}, pad {pad}")
+    if tuple(b.shape) != (o,) or b.dtype != torch.float32:
+        raise ValueError(f"conv_bf16: b must be ({o},) float32")
+    if act not in _ACT:
+        raise ValueError(f"conv_bf16: unknown activation {act!r}")
+    if shortcut is not None and tuple(shortcut.shape) != (n, ho, wo, o):
+        raise ValueError(f"conv_bf16: shortcut must be ({n}, {ho}, {wo}, {o})")
+    if x.device.type == "cpu":
+        return conv_bf16_ref(x, w, b, stride, pad, act, shortcut)
+
+    for t, what in ((x, "x"), (w, "w"), (shortcut, "shortcut")):
+        if t is not None and t.dtype != torch.bfloat16:
+            raise ValueError(f"conv_bf16: {what} must be bfloat16, got {t.dtype}")
+    route, bn, cp = conv_bf16_plan(c, o, kh, kw, stride, pad)
+    if cp != c:  # zero channels: the gather copies 8 channels at a time
+        x, w = F.pad(x, (0, cp - c)), F.pad(w, (0, cp - c))
+    x, w = x.contiguous(), w.contiguous()
+    if shortcut is not None:
+        shortcut = shortcut.contiguous()
+    # a view with an offset may sit off the 16-byte grid the copies need
+    x, w, shortcut = (t.clone() if t is not None and t.data_ptr() % 16 else t
+                      for t in (x, w, shortcut))
+    device, stream = _cuda_args("conv_bf16", x, w, b, shortcut)
+    out = torch.empty((n, ho, wo, o), dtype=torch.bfloat16, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    args = _ConvBf16Args(ptr(x), ptr(w), ptr(b), ptr(shortcut), ptr(out), n, h, wd, cp, ho, wo,
+                         o, kh, kw, stride, pad, n * ho * wo, _ACT[act])
+    rc = load_library().yolo_conv_bf16(ctypes.byref(args), bn, int(route == "tma"), device,
+                                       stream)
+    _raise_on(rc, "conv_bf16")
+    LAUNCHES["conv_bf16"] += 1
+    return out

@@ -129,6 +129,87 @@ NMS_CASES = ([(seed, k, cw) for seed, k in ((0, 37), (1, 96), (2, 300)) for cw i
                 for cw in (False, True)])
 # the card only: the kernels' largest K (the plain fixpoint takes 1024 rounds on the chain)
 NMS_CARD_CASES = NMS_CASES + [(kind, 1024, cw) for kind in ("chain", 3) for cw in (False, True)]
+# the card only: K2's large-K mode (the bitmask in global memory)
+NMS_LARGE_CASES = [(seed, k, cw) for seed, k in ((4, 1025), (5, 2048), (6, 3001))
+                   for cw in (False, True)]
+
+
+# The bf16 yolov3-tiny's heads, card against CPU (relative L2): a limit set
+# between K5's reading, 0.00434 / 0.00354, and the replaced conv's, 0.00864
+# / 0.00739 (``tools/k5_accuracy.py`` on an H100 80GB HBM3, 700 W).
+K5_DETECTOR_L2 = 0.006
+
+# K5 cases: name -> (N, H, W, C, O, kernel size, stride, activation, bias,
+# shortcut).  Bias "normal" is N(0, 0.5); "cancel" is minus the mean of the
+# fp32 conv per channel, so the outputs centre on zero, where the bias
+# cancels the sum.
+CONV_BF16_CASES = {
+    "3x3 s1 26² 128->256 leaky": (1, 26, 26, 128, 256, 3, 1, "leaky", "normal", False),
+    **{f"3x3 s1 20² 64->64 {act}": (1, 20, 20, 64, 64, 3, 1, act, "normal", False)
+       for act in ("mish", "relu", "logistic", "linear")},
+    "stem 3x3 s1 64² 3->32 leaky": (1, 64, 64, 3, 32, 3, 1, "leaky", "normal", False),
+    "1x1 26² 128->64 leaky": (2, 26, 26, 128, 64, 1, 1, "leaky", "normal", False),
+    "3x3 s2 52²->26² 64->128 leaky": (1, 52, 52, 64, 128, 3, 2, "leaky", "normal", False),
+    "3x3 s1 20² 64->64 leaky cancelling bias": (1, 20, 20, 64, 64, 3, 1, "leaky", "cancel",
+                                                False),
+    "1x1 26² 64->128 leaky + shortcut": (1, 26, 26, 64, 128, 1, 1, "leaky", "normal", True),
+    "1x1 13² 256->255 linear head": (2, 13, 13, 256, 255, 1, 1, "linear", "normal", False),
+}
+
+
+def conv_bf16_input(name, device="cpu"):
+    """(x, w, b, stride, pad, activation, shortcut) of a K5 case: NHWC bf16
+    x ~ N(0, 1), (O, KH, KW, C) bf16 He-scaled weights, fp32 bias."""
+    n, h, w_, c, o, k, stride, act, bias, shortcut = CONV_BF16_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
+    x = bf(rng.normal(0, 1, (n, h, w_, c)))
+    w = bf(rng.normal(0, np.sqrt(2.0 / (k * k * c)), (o, k, k, c)))
+    pad = k // 2
+    if bias == "cancel":
+        y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2).float(), w.permute(0, 3, 1, 2).float(),
+                                       stride=stride, padding=pad)
+        b = -y.mean(dim=(0, 2, 3))
+    else:
+        b = torch.from_numpy(rng.normal(0, 0.5, o).astype(np.float32))
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w_ + 2 * pad - k) // stride + 1
+    sc = bf(rng.normal(0, 1, (n, ho, wo, o))) if shortcut else None
+    return (x.to(device), w.to(device), b.to(device), stride, pad, act,
+            None if sc is None else sc.to(device))
+
+
+def conv_bf16_floor(x, w, b, stride, pad, shortcut=None):
+    """Per output, the largest difference two fp32 sums of the same K5 terms
+    in different orders may show, however few bf16 steps apart they are:
+    2^-20 (16 fp32 ulps) of sum |x w| + |b|, the scale of the terms
+    (where the bias cancels the sum, the output is far smaller than that
+    and its order error is many of its own bf16 steps); with a shortcut,
+    plus one bf16 step of the conv output, which survives the add."""
+    f = lambda t: t.detach().double().cpu()  # noqa: E731
+    terms = torch.nn.functional.conv2d(f(x).abs().permute(0, 3, 1, 2),
+                                       f(w).abs().permute(0, 3, 1, 2), stride=stride,
+                                       padding=pad).permute(0, 2, 3, 1) + f(b).abs()
+    floor = terms * 2.0 ** -20
+    if shortcut is not None:
+        floor = floor + terms * 2.0 ** -7
+    return floor
+
+
+def bf16_agreement(a, b, floor=None):
+    """(share of equal outputs, largest distance in bf16 steps) of two
+    tensors of bf16 values (bf16, or fp32 holding bf16 values); outputs
+    whose difference is within ``floor`` (:func:`conv_bf16_floor`) do not
+    count toward the distance."""
+    def order(t):
+        v = t.detach().cpu().to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+
+    d = (order(a) - order(b)).abs()
+    equal = float((d == 0).double().mean())
+    if floor is not None:
+        gap = (a.detach().cpu().double() - b.detach().cpu().double()).abs()
+        d = torch.where(gap <= floor, torch.zeros_like(d), d)
+    return equal, int(d.max())
 
 
 # K3 (1x1 stride 1) and K4 cases: name -> (kernel size, stride, NHWC input
@@ -551,3 +632,95 @@ def test_cuda_live_detector(cuda):
     stats = detection_drift(ref, ours)
     assert stats.ref_dets > 0 and stats.set_agreement == 1.0, stats.row()
     assert stats.ref_sat_frac == 0.0, stats.row()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CONV_BF16_CASES))
+def test_cuda_conv_bf16_matches_plain(cuda, name):
+    """K5 against its plain version (an fp32 conv of the same bf16 operands,
+    TF32 off): the sums' orders differ, so >= 99.9 % of outputs bit-equal
+    and the rest within one bf16 step or within the order error of the
+    fp32 sum (:func:`conv_bf16_floor`)."""
+    x, w, b, stride, pad, act, sc = conv_bf16_input(name, cuda)
+    before = tk.LAUNCHES["conv_bf16"]
+    ours = tk.conv_bf16(x, w, b, stride, pad, act, sc)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["conv_bf16"] == before + 1
+    ref = tk.conv_bf16_ref(x, w, b, stride, pad, act, sc)
+    assert ours.dtype == torch.bfloat16 and ours.shape == ref.shape
+    equal, ulps = bf16_agreement(ours, ref, conv_bf16_floor(x, w, b, stride, pad, sc))
+    assert equal >= 0.999 and ulps <= 1, (equal, ulps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,k,class_wise", NMS_LARGE_CASES)
+def test_cuda_nms_keep_large_k(cuda, seed, k, class_wise):
+    """K2 past K = 1024: the bitmask in global memory; equal to the plain
+    version."""
+    boxes, valid, cls = (torch.from_numpy(a).to(cuda) for a in nms_input(seed, 4, k))
+    c = cls if class_wise else None
+    ours = tk.nms_keep(boxes, valid, 0.45, c)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(ours.cpu().numpy(),
+                                  tk.nms_keep_ref(boxes, valid, 0.45, c).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_max_det_2000(cuda):
+    """``max_det=2000`` (K2 in its large-K mode) on a yolov3-tiny detector
+    at fp32: the card agrees with the CPU."""
+    frames = np.random.default_rng(1).integers(0, 256, size=(2, 480, 640, 3), dtype=np.uint8)
+    kw = dict(size=416, conf=0.3, iou=0.45, max_det=2000)
+    ref = pt.Detector.load("yolov3-tiny", device="cpu", synthetic="live").detect_batch(frames, **kw)
+    ours = pt.Detector.load("yolov3-tiny", device=cuda, synthetic="live").detect_batch(frames, **kw)
+    stats = detection_drift(ref, ours)
+    assert stats.ref_dets > 0 and stats.set_agreement == 1.0, stats.row()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_detector_runs_k5(cuda):
+    """A bf16 detector runs every conv through K5 (one launch a conv) and no
+    cuDNN conv.  Its heads follow the CPU's bf16 forward (K5's plain
+    version, the same weights) within ``K5_DETECTOR_L2`` relative L2, a
+    limit set between two readings of ``tools/k5_accuracy.py`` on the card
+    (PERF.md): K5 against the CPU, whose fp32 sums take other orders, and
+    the bf16 conv that K5 replaced (cuDNN's bf16 sum, bias and activation
+    in bf16) against the CPU, which must fail it; the detections' boxes
+    within 1 px at p99."""
+    from tools.k5_accuracy import conv_bf16_cudnn, detector_frames, heads_rel_l2, tiny_detectors
+
+    frames = detector_frames()
+    det, cpu = tiny_detectors(cuda)
+    before = tk.LAUNCHES["conv_bf16"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ours = det.detect_batch(frames, size=416, conf=0.3)
+        torch.cuda.synchronize()
+    assert tk.LAUNCHES["conv_bf16"] == before + len(det.model.convs)
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if "cudnn" in n.lower() or "conv2d" in n.lower()
+                and "conv_bf16" not in n], names
+    k5 = heads_rel_l2(det, cpu, frames)
+    control = heads_rel_l2(det, cpu, frames, conv=conv_bf16_cudnn)
+    assert max(k5) <= K5_DETECTOR_L2 < min(control), (k5, control)
+    stats = detection_drift(cpu.detect_batch(frames, size=416, conf=0.3), ours)
+    assert stats.ref_dets > 0 and stats.box_p99_px <= 1.0, stats.row()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transfer", ["f32", "u8"])
+def test_cuda_prepared_path_matches_cpu(cuda, transfer):
+    """detect_many on mixed source sizes (the prepared pipeline, host
+    letterbox, pinned staging) and detect_stream: the card against the CPU
+    at fp32."""
+    rng = np.random.default_rng(3)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in ((480, 640), (300, 500), (640, 480), (416, 416), (123, 777))]
+    kw = dict(size=320, conf=0.3, batch=2, transfer=transfer)
+    ref = pt.Detector.load("yolov3-tiny", device="cpu", synthetic="live").detect_many(imgs, **kw)
+    det = pt.Detector.load("yolov3-tiny", device=cuda, synthetic="live")
+    ours = det.detect_many(imgs, **kw)
+    stats = detection_drift(ref, ours)
+    assert stats.ref_dets > 0 and stats.set_agreement == 1.0, stats.row()
+    streamed = list(det.detect_stream(imgs, size=320, conf=0.3, host_preproc=True,
+                                      transfer=transfer))
+    assert detection_drift(ours, streamed).set_agreement == 1.0

@@ -51,8 +51,12 @@ def test_letterbox_geometry_matches_jax(h0, w0, size):
 
 
 def test_letterbox_rejects_cubic():
+    """Cubic is ported now (``tests/test_torch_serving.py`` holds it to the
+    JAX resize); a method that is neither linear nor cubic is refused."""
+    img = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    assert tuple(tpre.letterbox_batch(img, 32, method="cubic").shape) == (1, 32, 32, 3)
     with pytest.raises(ValueError, match="linear"):
-        tpre.letterbox_batch(torch.zeros((1, 8, 8, 3), dtype=torch.uint8), 32, method="cubic")
+        tpre.letterbox_batch(img, 32, method="nearest")
 
 
 @pytest.mark.parametrize("h0,w0", [(480, 640), (100, 150)])

@@ -6,7 +6,8 @@
     python3 tools/profile_torch_step.py --kernels --root DIR  # K1, K2 of DIR's port
 
 Runs the configuration of ``chip_smoke.py`` phase 6 (``bf16``: yolov3@416,
-bf16, batch 128, 480x640 uint8 frames on the card) or phase 9 (``int8sb``:
+bf16, batch 128, 480x640 uint8 frames on the card, every conv on K5) or
+phase 9 (``int8sb``:
 the same with ``quant="w8a8"``, static scales from 4 frames), 3 warm-up
 steps, then ``--steps`` steps under ``torch.profiler``.  Prints the median
 step time (CUDA events, without the profiler), the device time per step
@@ -51,7 +52,10 @@ GROUPS = (("wgmma_kernel<false", "K3 int8 GEMM (wgmma)"),
           ("wgmma_kernel<true", "K4 int8 conv (wgmma)"),
           ("igemm_kernel<false", "K3 int8 GEMM (mma.sync)"),
           ("igemm_kernel<true", "K4 int8 conv (mma.sync)"),
+          ("conv_bf16_kernel<true", "K5 bf16 conv (gather)"),
+          ("conv_bf16_kernel<false", "K5 bf16 conv (TMA A)"),
           ("decode_score", "K1 decode+score"), ("nms_keep", "K2 NMS keep"),
+          ("nms_build", "K2 NMS keep"), ("nms_scan", "K2 NMS keep"),
           ("conv", "bf16 convs (cuDNN, cuBLAS)"), ("fprop", "bf16 convs (cuDNN, cuBLAS)"),
           ("gemm", "bf16 convs (cuDNN, cuBLAS)"), ("xmma", "bf16 convs (cuDNN, cuBLAS)"),
           ("nvjet", "bf16 convs (cuDNN, cuBLAS)"), ("flip", "letterbox"),
