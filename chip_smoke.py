@@ -86,11 +86,16 @@ Phases, one line each (a failure in any phase exits non-zero):
      yolov3@416 at batch 8 (the bf16 live forward's conv inputs), each
      activation and a fused shortcut: >= 99.9 % of outputs bit-equal and
      the rest within one bf16 step or the order error of an fp32 sum
-     (2^-20 of sum |x w| + |b|); then K5 at batch 128 at 3x3 s1 52²
-     128->256, 1x1 52² 256->128 and the RGB stem, eager and device time,
-     beside its plain version, the library path it replaced (cuDNN bf16
-     ``F.conv2d`` with its bf16 bias + leaky) and its bound (bf16 at
-     989 TFLOP/s or bytes at 3.35 TB/s);
+     (2^-20 of sum |x w| + |b|); then K5 at batch 128 at every distinct
+     yolov3@416 conv shape whose A does not come by a 2-D TMA box (11:
+     the im2col, gather and packed routes) and at the largest 1x1 (52²
+     256->128), eager and device time, beside its plain version, the
+     library path it replaced (cuDNN bf16 ``F.conv2d`` with its bf16 bias
+     + leaky, in turns), its bound (bf16 at 989 TFLOP/s or bytes at
+     3.35 TB/s) and its launches a step; beside them, from a model of the
+     shapes (``kernels.conv_bf16_traffic``, no counter), the tile loads'
+     bytes and their rate, and the device time over the modelled stages of
+     an SM;
  14. K2 past K = 1024 (the bitmask in global memory) against its plain
      version: crowded boxes at K = 1025, 2048 and 10,647 (class-wise and
      not), a 1025-long chain, and the live bf16 detector at
@@ -433,16 +438,20 @@ def png_bytes(img_bgr: np.ndarray) -> bytes:
 def phase13_k5(kernels, v3, live, frames, dev, card) -> dict:
     """K5 against its plain version on every distinct conv of yolov3@416 at
     batch 8 (real activations), each activation and a fused shortcut; then
-    its times at three shapes at batch 128."""
+    its times at batch 128 at every distinct shape off the 2-D TMA route
+    and at the largest 1x1."""
     from pytorch_yolo_tpu_torch import Detector
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
 
     det = Detector(v3, live, device=dev, dtype=torch.bfloat16, precision="default")
     keys: dict = {}
+    per_step: dict = {}  # (input HWC, weight shape, stride) -> convs of that shape in a step
 
     def hook(i, t):
         c = det.model.convs[str(i)]
         key = (tuple(t.shape), tuple(c.weight.shape), c.stride, c.padding, c.activation)
+        shape = (tuple(t.shape[1:]), tuple(c.weight.shape), c.stride)
+        per_step[shape] = per_step.get(shape, 0) + 1
         if key in keys:
             return None
         keys[key] = i
@@ -489,15 +498,23 @@ def phase13_k5(kernels, v3, live, frames, dev, card) -> dict:
     say(f"phase 13 K5: {len(cases)} cases (every distinct conv of yolov3@{SIZE} batch 8), worst "
         f"{worst['equal']:.4%} bit-equal, {worst['steps']} step")
 
+    # K5 at batch 128 at every distinct conv shape of yolov3@416 whose A does
+    # not come by a 2-D TMA box (im2col, gather and packed routes), and at
+    # its largest 1x1, each on that layer's real activations
     timed = {}
-    g = SIZE // 8  # 52 at 416
-    by_shape = {f"3x3 s1 {g}² 128->256": ((g, g, 128), (256, 3, 3, 128)),
-                f"1x1 {g}² 256->128": ((g, g, 256), (128, 1, 1, 256)),
-                f"stem {SIZE}² 3->32": ((SIZE, SIZE, 3), (32, 3, 3, 3))}
     F = torch.nn.functional
-    for name, (xs, ws) in by_shape.items():
-        i = next(j for k, j in keys.items() if k[0][1:] == xs and k[1] == ws)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [k for k in per_step
+              if kernels.conv_bf16_plan(k[0][2], k[1][0], k[1][1], k[1][2], k[2],
+                                        k[1][1] // 2)[0] != "tma"]
+    g = SIZE // 8  # 52 at 416
+    shapes.append(((g, g, 256), (128, 1, 1, 256), 1))
+    for xs, ws, stride in shapes:
+        i = next(j for k, j in keys.items() if k[0][1:] == xs and k[1] == ws and k[2] == stride)
         c = det.model.convs[str(i)]
+        name = (f"{ws[1]}x{ws[2]} s{stride} {xs[0]}²"
+                + (f"->{(xs[0] + 2 * c.padding - ws[1]) // stride + 1}²" if stride > 1 else "")
+                + f" {xs[2]}->{ws[0]}")
         x = inputs[i].repeat(BATCH // 8, 1, 1, 1)
         k5 = lambda: kernels.conv_bf16(x, c.weight, c.bias, c.stride, c.padding, c.activation)  # noqa: E731
         ours = k5()
@@ -518,15 +535,25 @@ def phase13_k5(kernels, v3, live, frames, dev, card) -> dict:
         ops, nbytes = kernels.conv_bf16_work(tuple(x.shape), tuple(c.weight.shape), c.stride,
                                              c.padding)
         bms, by = bound(ops, nbytes, PEAK_BF16_OPS)
+        plan = kernels.conv_bf16_plan(x.shape[-1], ws[0], ws[1], ws[2], c.stride, c.padding)
+        # modelled from the shapes, not read from a counter: the bytes the
+        # tiles' loads bring into shared memory, and the measured time over
+        # the modelled stages an SM
+        tiles, ksteps, loads = kernels.conv_bf16_traffic(tuple(x.shape), ws, c.stride,
+                                                         c.padding)
+        us_stage = dev_ms * 1e3 / (tiles * ksteps / sms)
         timed[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bms, bound_by=by, equal=equal,
-                           plan=list(kernels.conv_bf16_plan(x.shape[-1], c.weight.shape[0],
-                                                            c.weight.shape[1], c.weight.shape[2],
-                                                            c.stride, c.padding)))
-        say(f"phase 13 K5 {name} batch {BATCH} (layer {i}, leaky): {ms:.4f} ms eager, "
-            f"{dev_ms:.4f} ms device ({bms / dev_ms:.1%} of its {bms:.4f} ms bound, {by}: "
-            f"{ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; {ops / dev_ms / 1e9:.1f} TFLOP/s); "
-            f"cuDNN bf16 conv + bf16 bias + leaky {lib_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+                           bound_ms=bms, bound_by=by, equal=equal, plan=list(plan),
+                           launches_per_step=per_step[(xs, ws, stride)],
+                           model_tile_load_bytes=loads, model_us_per_stage_per_sm=us_stage)
+        say(f"phase 13 K5 {name} batch {BATCH} (layer {i}, {plan[0]}, BN {plan[1]}, "
+            f"{per_step[(xs, ws, stride)]} a step): {ms:.4f} ms eager, {dev_ms:.4f} ms device "
+            f"({bms / dev_ms:.1%} of its {bms:.4f} ms bound, {by}: {ops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB; {ops / dev_ms / 1e9:.1f} TFLOP/s); cuDNN bf16 conv + bf16 "
+            f"bias + leaky {lib_ms:.4f} ms in turns ({lib_ms / ms:.2f}x); plain {plain_ms:.4f} "
+            f"ms; model: {loads / 1e9:.3f} GB of tile loads ({loads / dev_ms / 1e9:.2f} TB/s "
+            f"at the measured time), {us_stage:.3f} us a stage a SM ({tiles} tiles x {ksteps} "
+            f"stages); "
             f"{equal:.4%} bit-equal to the plain version; on {card}")
         del x, xc
     say(f"phase 13 timings: {json.dumps(timed, ensure_ascii=False)}")
@@ -1409,7 +1436,7 @@ def main() -> None:
     k2_large = phase14_k2_large(kernels, v3, live, frames, dev, rng, card)
     torch.cuda.empty_cache()
     prepared = phase15_prepared(kernels, v3, live, tiny_spec, tiny_live, calib_live, dev, card)
-    k5_main = next(iter(k5["timed"].values()))  # 3x3 s1 52² 128->256
+    k5_main = k5["timed"][f"3x3 s1 {SIZE // 8}² 128->256"]
 
     report = {"kernels": [
         {"name": "decode_score", "route": "cuda",
@@ -1451,7 +1478,8 @@ def main() -> None:
          "ms": k5_main["ms"], "plain_ms": k5_main["plain_ms"], "bound_ms": k5_main["bound_ms"],
          "bound_by": k5_main["bound_by"], "library_ms": k5_main["library_ms"],
          "device_ms": k5_main["device_ms"],
-         "shapes": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms", "bound_ms")}
+         "shapes": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms", "bound_ms",
+                                             "plan", "launches_per_step")}
                     for k, v in k5["timed"].items()}},
     ]}
     say(f"phase 15 timings: {json.dumps(prepared)}")

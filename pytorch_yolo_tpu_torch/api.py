@@ -139,8 +139,9 @@ class Detector:
     reparameterization of the first two layers).  The default is off, where the JAX package turns it on for bf16 and int8
     serving of a Darknet-53 stem: on an H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 12,
     bf16 yolov3@416 batch 128, every conv on K5, in turns off/on/on/off) the s2d stem
-    was 3.50 % slower (46.556 / 46.529 against 44.951 / 44.880 ms/batch), beyond the
-    0.2-0.8 % that runs of one code differ by.
+    was 8.98 % slower (37.038 / 37.069 against 33.707 / 33.747 ms/batch, live weights),
+    beyond the 0.2-0.8 % that runs of one code differ by: K5's packed route takes the
+    plain stem's 3-channel conv, and the s2d stem's 12-channel conv takes the gather.
     ``PYTORCH_YOLO_STEM_S2D=1`` turns it on where the stem is conv_conv or
     conv_pool and its convs stay fp; ``=0`` keeps it off."""
 

@@ -777,13 +777,23 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int, _mma: b
 # ---------------------------------------------------------------------------
 
 
+CONV_BF16_ROUTES = {"gather": 0, "tma": 1, "im2col": 2, "packed": 3,  # conv_bf16.cu: cb::Route
+                    "im2col32": 4}
+CONV_BF16_STAGE_K = 64  # csrc/conv_bf16.cu: kStageK, bf16 of K a stage
+CONV_BF16_TILE_M = 128  # int8_wgmma.cuh: kBM, output pixels a block tile
+CONV_BF16_PACKED_K = 32  # csrc/conv_bf16.cu: kPackedK, K of the packed route's one stage
+CONV_BF16_PACKED_ROWS = 256  # csrc/conv_bf16.cu: kPackedRows, output pixels a packed tile
+CONV_BF16_MAX_STAGES = 512  # csrc/conv_bf16.cu: kMaxStages, entries of the im2col stage table
+
+
 class _ConvBf16Args(ctypes.Structure):
     """csrc/conv_bf16.cu: ConvBf16Args, field for field."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "w", "bias", "shortcut", "out")]
                 + [(n, ctypes.c_int) for n in
                    ("batch", "H", "W", "C", "Ho", "Wo", "O", "KH", "KW", "stride", "pad", "M",
-                    "act")])
+                    "act", "lo_w", "lo_h", "hi_w", "hi_h", "stages")]
+                + [("stage_tab", ctypes.c_uint32 * CONV_BF16_MAX_STAGES)])
 
 
 def conv_bf16_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pad: int,
@@ -813,15 +823,103 @@ def conv_bf16_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int
 def conv_bf16_plan(channels: int, out_channels: int, kh: int, kw: int, stride: int,
                    pad: int) -> tuple[str, int, int]:
     """K5's launch for a conv, from its shapes alone: ``(A's route, BN,
-    padded C)``.  A comes by TMA for a 1x1 stride-1 unpadded conv
-    (``"tma"``), else by the 16-byte gather (``"gather"``); the block tile is
-    BN = 64 output columns up to 64 outputs, 128 up to 128, else 256 (two
-    n128 passes on one gathered A); C is
-    padded with zero channels to a multiple of 8 (one 16-byte copy is 8
-    channels), which only an RGB stem (C = 3 -> 8) needs."""
-    route = "tma" if kh == kw == 1 and stride == 1 and pad == 0 else "gather"
-    bn = 64 if out_channels <= 64 else 128 if out_channels <= 128 else 256
-    return route, bn, -(-channels // 8) * 8
+    padded C)``.  A comes by a 2-D TMA box for a 1x1 stride-1 unpadded conv
+    (``"tma"``); for a 3x3 conv of 3 channels with at most 32 outputs, the
+    RGB stem, it is built from x's 3-channel pixels (``"packed"``: 27 values
+    and 5 zeros a row, one 32-wide K stage, a 32-column tile, C as it is);
+    by a TMA im2col box for every other conv with C % 32 == 0 and at most
+    ``CONV_BF16_MAX_STAGES`` stages of K (``"im2col"``: a stage is 64
+    channels of one tap; ``"im2col32"`` where C % 64 == 32: the 32
+    channels of one tap in 64-byte rows); else by the 16-byte gather
+    (``"gather"``).  Off the packed route C is padded with zero channels to
+    a multiple of 8 (one copy is 8 channels) and the block tile is BN = 64
+    output columns up to 64 outputs, else 128."""
+    bn, cp = 64 if out_channels <= 64 else 128, -(-channels // 8) * 8
+    if kh == kw == 1 and stride == 1 and pad == 0:
+        return "tma", bn, cp
+    if kh == kw == 3 and channels == 3 and out_channels <= 32:
+        return "packed", 32, channels
+    for route in ("im2col", "im2col32"):
+        stage_k = _stage_k(route)
+        if channels % stage_k == 0 and kh * kw * channels // stage_k <= CONV_BF16_MAX_STAGES:
+            return route, bn, cp
+    return "gather", bn, cp
+
+
+def _stage_k(route: str) -> int:
+    """bf16 of K a stage of K5's ``route``: 32 on ``"im2col32"`` and
+    ``"packed"``, else 64 (one 128-byte row)."""
+    return CONV_BF16_STAGE_K // 2 if route in ("im2col32", "packed") else CONV_BF16_STAGE_K
+
+
+class Im2colPlan(NamedTuple):
+    """The TMA im2col map of K5's ``"im2col"`` route (``csrc/conv_bf16.cu:
+    encode_im2col``): the pixel box's corners, (W, H) offsets from x's
+    first and last pixel, and the traversal's (W, H) strides.  The box spans
+    pixels ``lower .. size - 1 + upper`` of each spatial dimension: the
+    top-left input pixel of every output's window."""
+    lower: tuple[int, int]
+    upper: tuple[int, int]
+    strides: tuple[int, int]
+
+
+def conv_bf16_im2col(kh: int, kw: int, stride: int, pad: int) -> Im2colPlan:
+    """K5's im2col map for a conv with Darknet's padding ``pad`` on each
+    side: the lower corner is ``-pad``, the upper ``pad - (k - 1)``, so the
+    box walked at ``stride`` meets each output pixel once, in NHWC order."""
+    return Im2colPlan((-pad, -pad), (pad - (kw - 1), pad - (kh - 1)), (stride, stride))
+
+
+def conv_bf16_stages(route: str, channels: int, kh: int, kw: int) -> list[tuple[int, int, int]]:
+    """The stages of K of an im2col ``route``, in order: ``(first channel, W
+    offset, H offset)`` of each box, the tap (r, q) and a slice of
+    ``_stage_k(route)`` channels, K's flat (tap, channel) order.  The
+    wrapper passes them to the kernel (``ConvBf16Args.stage_tab``)."""
+    return [(c0, q, r) for r in range(kh) for q in range(kw)
+            for c0 in range(0, channels, _stage_k(route))]
+
+
+def _conv_bf16_args(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: int, pad: int,
+                    act: str, route: str, ptrs: tuple = (None,) * 5) -> _ConvBf16Args:
+    """K5's C arguments for NHWC ``x_shape`` (C already padded to the plan's)
+    and (O, KH, KW, C) ``w_shape`` on ``route``: the shapes, and on the
+    im2col routes the box corners of :func:`conv_bf16_im2col` and the stage
+    table of :func:`conv_bf16_stages`.  ``ptrs``: x, w, bias, shortcut, out."""
+    n, h, w, c = x_shape
+    o, kh, kw, _ = w_shape
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+    args = _ConvBf16Args(*ptrs, n, h, w, c, ho, wo, o, kh, kw, stride, pad, n * ho * wo, _ACT[act])
+    if route in ("im2col", "im2col32"):
+        box = conv_bf16_im2col(kh, kw, stride, pad)
+        args.lo_w, args.lo_h = box.lower
+        args.hi_w, args.hi_h = box.upper
+        stages = conv_bf16_stages(route, c, kh, kw)
+        args.stages = len(stages)
+        args.stage_tab[:len(stages)] = [c0 | q << 16 | r << 24 for c0, q, r in stages]
+    return args
+
+
+def conv_bf16_traffic(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: int,
+                      pad: int) -> tuple[int, int, int]:
+    """(block tiles, stages of K a tile, tile-load bytes) of one K5 launch,
+    modelled from the shapes (no counter is read): the tiles of a cluster's
+    pairs of M-tiles (``csrc/conv_bf16.cu``: an odd M-tile count runs one
+    tile past M), and the bytes their loads bring into shared memory, each
+    stage a 128-row A box and half of the BN-row B box, which the TMA unit
+    multicasts to both CTAs; rows of 128 bytes (64 on ``"im2col32"``).  The
+    packed route: 256-pixel tiles of one stage, its A rows (64 bytes) built
+    from x."""
+    n, h, w, c = x_shape
+    o, kh, kw, _ = w_shape
+    route, bn, cp = conv_bf16_plan(c, o, kh, kw, stride, pad)
+    m = n * ((h + 2 * pad - kh) // stride + 1) * ((w + 2 * pad - kw) // stride + 1)
+    if route == "packed":
+        tiles = -(-m // CONV_BF16_PACKED_ROWS)
+        return tiles, 1, tiles * CONV_BF16_PACKED_ROWS * 2 * CONV_BF16_PACKED_K
+    stage_k = _stage_k(route)
+    tiles = -(-m // (2 * CONV_BF16_TILE_M)) * 2 * -(-o // bn)
+    ksteps = -(-kh * kw * cp // stage_k)
+    return tiles, ksteps, tiles * ksteps * 2 * stage_k * (CONV_BF16_TILE_M + bn // 2)
 
 
 def conv_bf16_work(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: int, pad: int,
@@ -876,10 +974,9 @@ def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pa
                       for t in (x, w, shortcut))
     device, stream = _cuda_args("conv_bf16", x, w, b, shortcut)
     out = torch.empty((n, ho, wo, o), dtype=torch.bfloat16, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    args = _ConvBf16Args(ptr(x), ptr(w), ptr(b), ptr(shortcut), ptr(out), n, h, wd, cp, ho, wo,
-                         o, kh, kw, stride, pad, n * ho * wo, _ACT[act])
-    rc = load_library().yolo_conv_bf16(ctypes.byref(args), bn, int(route == "tma"), device,
+    ptrs = tuple(None if t is None else t.data_ptr() for t in (x, w, b, shortcut, out))
+    args = _conv_bf16_args(tuple(x.shape), tuple(w.shape), stride, pad, act, route, ptrs)
+    rc = load_library().yolo_conv_bf16(ctypes.byref(args), bn, CONV_BF16_ROUTES[route], device,
                                        stream)
     _raise_on(rc, "conv_bf16")
     LAUNCHES["conv_bf16"] += 1

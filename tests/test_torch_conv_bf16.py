@@ -90,15 +90,110 @@ def test_conv_bf16_checks_its_arguments():
 
 
 @pytest.mark.parametrize("shape,want", [
-    ((3, 32, 3, 3, 1, 1), ("gather", 64, 8)),      # the RGB stem: 3 -> 8 zero-padded channels
-    ((12, 128, 3, 3, 1, 1), ("gather", 128, 16)),  # the s2d stem's packed conv
-    ((512, 1024, 3, 3, 1, 1), ("gather", 256, 512)),
+    ((3, 32, 3, 3, 1, 1), ("packed", 32, 3)),      # the RGB stem: K = 27 in one 32-wide stage
+    ((12, 128, 3, 3, 1, 1), ("gather", 128, 16)),  # the s2d stem's packed conv: K = 108
+    ((3, 64, 3, 3, 1, 1), ("gather", 64, 8)),      # 64 outputs: C padded to 8
+    ((512, 1024, 3, 3, 1, 1), ("im2col", 128, 512)),  # C % 64 == 0: A by TMA im2col
     ((256, 128, 1, 1, 1, 0), ("tma", 128, 256)),   # 1x1 stride 1: A by TMA
-    ((128, 256, 3, 3, 2, 1), ("gather", 256, 128)),
-    ((1024, 255, 1, 1, 1, 0), ("tma", 256, 1024)),  # a yolov3 head
+    ((128, 256, 3, 3, 2, 1), ("im2col", 128, 128)),  # stride 2 too
+    ((1024, 255, 1, 1, 1, 0), ("tma", 128, 1024)),  # a yolov3 head
+    ((32, 64, 3, 3, 1, 1), ("im2col32", 64, 32)),  # C = 32: one tap a 64-byte stage
+    ((32, 64, 3, 3, 2, 1), ("im2col32", 64, 32)),
+    ((24, 32, 3, 3, 1, 1), ("gather", 64, 24)),    # C % 32 != 0: the 16-byte gather
+    ((64, 128, 3, 3, 2, 1), ("im2col", 128, 64)),
+    ((64, 128, 3, 3, 1, 1), ("im2col", 128, 64)),
+    ((96, 128, 3, 3, 1, 1), ("im2col32", 128, 96)),  # C % 64 == 32
+    ((4096, 256, 3, 3, 1, 1), ("gather", 128, 4096)),  # 576 stages: more than the table holds
 ])
 def test_conv_bf16_plan(shape, want):
     assert tk.conv_bf16_plan(*shape) == want
+
+
+def _tma_im2col_box(x, args, start, stage, width, rows=tk.CONV_BF16_TILE_M):
+    """numpy model of one ``cp.async.bulk.tensor.4d...im2col`` box as the
+    PTX ISA defines the im2col mode, over NHWC ``x``: ``rows`` pixels of
+    ``width`` channels from ``c0``, walked from the start pixel (n, h, w) in
+    W, then H, then N order at the conv's stride (the map's element
+    strides) inside the box ``lower .. size - 1 + upper`` of the kernel's
+    arguments; each read at (w + off_w, h + off_h), zero where that falls
+    outside x."""
+    nb, hh, ww, c = x.shape
+    n, h, w = start
+    c0, off_w, off_h = stage
+    box = np.zeros((rows, width), x.dtype)
+    for r in range(rows):
+        ih, iw = h + off_h, w + off_w
+        if n < nb and 0 <= ih < hh and 0 <= iw < ww:
+            box[r] = x[n, ih, iw, c0:c0 + width]
+        w += args.stride
+        if w > ww - 1 + args.hi_w:
+            w, h = args.lo_w, h + args.stride
+            if h > hh - 1 + args.hi_h:
+                h, n = args.lo_h, n + 1
+    return box
+
+
+def _tile_start(args, m0):
+    """The first pixel ``(n, h, w)`` of the box of the block tile whose first
+    output row is ``m0``: output pixel m0's window's top-left corner, the
+    lower corner plus (oh, ow) times the stride (the kernel's producer works
+    this out per tile; the card's cases hold its copy)."""
+    n, rem = divmod(m0, args.Ho * args.Wo)
+    oh, ow = divmod(rem, args.Wo)
+    return n, args.lo_h + oh * args.stride, args.lo_w + ow * args.stride
+
+
+def _im2col(x, k, stride, pad):
+    """(M, k * k * C) explicit im2col of NHWC ``x``, K in (tap, channel) order."""
+    nb, hh, ww, c = x.shape
+    ho, wo = (hh + 2 * pad - k) // stride + 1, (ww + 2 * pad - k) // stride + 1
+    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    cols = [xp[:, r:r + stride * (ho - 1) + 1:stride, q:q + stride * (wo - 1) + 1:stride]
+            .reshape(nb * ho * wo, c) for r in range(k) for q in range(k)]
+    return np.concatenate(cols, 1), ho, wo
+
+
+@pytest.mark.parametrize("n,h,w,c,stride", [
+    (1, 20, 20, 64, 1),   # 3x3 s1 pad 1; M = 400: M % 128 != 0
+    (1, 13, 13, 128, 2),  # 3x3 s2 on an odd input: 13² -> 7²
+    (2, 13, 13, 512, 1),  # tile 1 spans the two images
+    (3, 9, 14, 64, 2),    # H != W, stride 2 across three images
+    (2, 12, 7, 128, 1),
+    (1, 20, 20, 32, 2),   # C = 32: one tap a stage of 32 channels
+])
+def test_conv_bf16_im2col_plan_walks_the_im2col(n, h, w, c, stride):
+    """K5's im2col routes: the boxes that the TMA unit loads from the kernel's
+    arguments as the wrapper builds them (the box corners and the stage
+    table of (first channel, tap) entries) are the rows of the conv's
+    explicit im2col, tile by tile and stage by stage, with zeros for
+    padding and for rows past M."""
+    k, pad = 3, 1
+    route = tk.conv_bf16_plan(c, 256, k, k, stride, pad)[0]
+    assert route == ("im2col" if c % 64 == 0 else "im2col32")
+    x = np.random.default_rng(c + h).integers(1, 100, (n, h, w, c)).astype(np.float32)
+    a, ho, wo = _im2col(x, k, stride, pad)
+    m = a.shape[0]
+    tiles = -(-m // tk.CONV_BF16_TILE_M)
+    a = np.concatenate([a, np.zeros((tiles * tk.CONV_BF16_TILE_M - m, a.shape[1]),
+                                    np.float32)])
+    args = tk._conv_bf16_args((n, h, w, c), (256, k, k, c), stride, pad, "leaky", route)
+    assert (args.M, args.Ho, args.Wo, args.C) == (m, ho, wo, c)
+    width = 64 if route == "im2col" else 32
+    ksteps = k * k * c // width
+    assert args.stages == ksteps and not any(args.stage_tab[ksteps:])
+    stages = [(e & 0xFFFF, e >> 16 & 0xFF, e >> 24) for e in args.stage_tab[:ksteps]]
+    assert tk.conv_bf16_traffic((n, h, w, c), (256, k, k, c), stride, pad)[:2] == (
+        -(-tiles // 2) * 4, ksteps)  # pairs of M-tiles, two N-tiles of 128
+    for t in range(tiles):
+        m0 = t * tk.CONV_BF16_TILE_M
+        start = _tile_start(args, m0)
+        for s in range(ksteps):
+            box = _tma_im2col_box(x, args, start, stages[s], width)
+            want = a[m0:m0 + tk.CONV_BF16_TILE_M, s * width:(s + 1) * width]
+            np.testing.assert_array_equal(box, want, err_msg=f"tile {t}, stage {s}")
+    if tiles % 2:  # a cluster's second M-tile past M reads zeros
+        start = _tile_start(args, tiles * tk.CONV_BF16_TILE_M)
+        assert not _tma_im2col_box(x, args, start, stages[0], width).any()
 
 
 SHORTCUT_CFG = """

@@ -154,6 +154,10 @@ CONV_BF16_CASES = {
                                                 False),
     "1x1 26² 64->128 leaky + shortcut": (1, 26, 26, 64, 128, 1, 1, "leaky", "normal", True),
     "1x1 13² 256->255 linear head": (2, 13, 13, 256, 255, 1, 1, "linear", "normal", False),
+    # K = 4608, the deepest chain, two images: tiles span the image boundary
+    "3x3 s1 13² 512->1024 leaky": (2, 13, 13, 512, 1024, 3, 1, "leaky", "normal", False),
+    "3x3 s2 13²->7² 256->512 leaky": (1, 13, 13, 256, 512, 3, 2, "leaky", "normal", False),
+    "3x3 s1 26² 32->64 leaky": (1, 26, 26, 32, 64, 3, 1, "leaky", "normal", False),  # C = 32
 }
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """How close K5 and its plain version come to the exact sum, on the card.
 
-    python3 tools/k5_accuracy.py
+    python3 tools/k5_accuracy.py [--root DIR] [--no-detector]
 
 For five yolov3 conv shapes at batch 8 (K = 1024 to 4608; inputs from a
 seeded CUDA generator, He-scaled weights, leaky, fp32 bias ~N(0, 0.5)) it
@@ -17,12 +17,15 @@ yolov3-tiny @416 (live weights, 2 frames, numpy seed 2) on the card
 against the same detector's CPU forward (K5's plain version), twice: with
 K5, and with the bf16 conv that K5 replaced (:func:`conv_bf16_cudnn`, the
 control).  ``tests/test_torch_cuda.py::test_cuda_bf16_detector_runs_k5``
-sets its limit between the two readings.  Needs one NVIDIA GPU; imports
+sets its limit between the two readings.  ``--root`` imports the port
+from another checkout (a build with another promotion interval P, say);
+``--no-detector`` skips the network.  Needs one NVIDIA GPU; imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import os
 import sys
@@ -99,14 +102,19 @@ def heads_rel_l2(det, cpu, frames, size: int = 416, conv=None) -> list[float]:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=ROOT, help="the checkout whose port to import")
+    ap.add_argument("--no-detector", action="store_true", help="the conv shapes only")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     from pytorch_yolo_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    print(f"{torch.cuda.get_device_name(0)}: share of equal bf16 outputs")
+    print(f"{torch.cuda.get_device_name(0)}, {os.path.abspath(args.root)}: share of equal "
+          f"bf16 outputs")
     for n, h, c, o, k, s in SHAPES:
         x = torch.randn((n, h, h, c), device=dev, generator=g).clamp_min(-0.1).to(torch.bfloat16)
         w = (torch.randn((o, k, k, c), device=dev, generator=g)
@@ -121,6 +129,8 @@ def main() -> None:
         print(f"  K = {k * k * c:5d}  {n}x{h}² {c}->{o} s{s}: K5 = exact {eq(ours, exact):.5%}, "
               f"plain = exact {eq(plain, exact):.5%}, K5 = plain {eq(ours, plain):.5%}")
 
+    if args.no_detector:
+        return
     det, cpu = tiny_detectors(dev)
     frames = detector_frames()
     for name, conv in (("K5", None), ("control: cuDNN bf16 + bf16 bias and activation",

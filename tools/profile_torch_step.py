@@ -3,7 +3,8 @@
 
     python3 tools/profile_torch_step.py --mode int8sb     # or bf16
     python3 tools/profile_torch_step.py --mode int8sb --mma   # K3/K4 on mma.sync
-    python3 tools/profile_torch_step.py --kernels --root DIR  # K1, K2 of DIR's port
+    python3 tools/profile_torch_step.py --kernels --root DIR  # K1, K2, K5 of DIR's port
+    python3 tools/profile_torch_step.py --k5 --batch 112 128 136  # K5 and cuDNN alone
 
 Runs the configuration of ``chip_smoke.py`` phase 6 (``bf16``: yolov3@416,
 bf16, batch 128, 480x640 uint8 frames on the card, every conv on K5) or
@@ -19,11 +20,18 @@ and K4 onto the ``mma.sync`` core, for an A/B against the wgmma core.
 prints one JSON line: K1 over the step's three heads in bf16 (where the
 port's K1 takes no bf16, the cast to fp32 and K1 on that), K1 on the fp32
 heads, K2 on the step's 128 x 300 candidates, on crowded boxes at 128 x 300
-and on a 1024-long suppression chain at batch 128; each as ``ms`` (20
+and on a 1024-long suppression chain at batch 128, and K5 at batch 128 at
+every distinct yolov3@416 conv that does not take A by a 2-D TMA box and
+at its largest 1x1 (``K5_SHAPES``); each as ``ms`` (20
 back-to-back eager calls between CUDA events, host time included) and
 ``device_ms`` (the same 20 calls replayed from one CUDA graph), with a
-digest of its output.  ``--root`` imports the port from another checkout,
-so that one call can run parent, change, change, parent:
+digest of its output.  ``--k5`` times K5 alone at ``K5_SHAPES`` (or the
+``--shape`` names given) at each ``--batch``, with no detector, its
+``device_ms`` beside the cuDNN bf16 conv + bias + leaky it replaced
+(``library_device_ms``), each from a CUDA graph in turns (K5, cuDNN,
+cuDNN, K5); one JSON line a batch.  ``--root`` imports the port from another checkout
+(with ``--mode``, its step), so that one call can run parent, change,
+change, parent:
 
     for r in _scratch/parent . . _scratch/parent; do
         python3 tools/profile_torch_step.py --kernels --root $r; done
@@ -52,7 +60,12 @@ GROUPS = (("wgmma_kernel<false", "K3 int8 GEMM (wgmma)"),
           ("wgmma_kernel<true", "K4 int8 conv (wgmma)"),
           ("igemm_kernel<false", "K3 int8 GEMM (mma.sync)"),
           ("igemm_kernel<true", "K4 int8 conv (mma.sync)"),
-          ("conv_bf16_kernel<true", "K5 bf16 conv (gather)"),
+          ("conv_bf16_kernel<0", "K5 bf16 conv (gather)"),
+          ("conv_bf16_kernel<1", "K5 bf16 conv (TMA A)"),
+          ("conv_bf16_kernel<2", "K5 bf16 conv (im2col A)"),
+          ("conv_bf16_kernel<4", "K5 bf16 conv (im2col A, C = 32)"),
+          ("conv_bf16_packed", "K5 bf16 conv (packed stem)"),
+          ("conv_bf16_kernel<true", "K5 bf16 conv (gather)"),  # before the im2col route
           ("conv_bf16_kernel<false", "K5 bf16 conv (TMA A)"),
           ("decode_score", "K1 decode+score"), ("nms_keep", "K2 NMS keep"),
           ("nms_build", "K2 NMS keep"), ("nms_scan", "K2 NMS keep"),
@@ -107,8 +120,56 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# K5 at batch 128: every distinct conv of yolov3@416 that does not take A
+# by a 2-D TMA box, and its largest 1x1: name -> (H = W, C, O, k, stride)
+K5_SHAPES = {"stem 416² 3->32": (416, 3, 32, 3, 1),
+             "3x3 s2 416²->208² 32->64": (416, 32, 64, 3, 2),
+             "3x3 s1 208² 32->64": (208, 32, 64, 3, 1),
+             "3x3 s2 208²->104² 64->128": (208, 64, 128, 3, 2),
+             "3x3 s1 104² 64->128": (104, 64, 128, 3, 1),
+             "3x3 s2 104²->52² 128->256": (104, 128, 256, 3, 2),
+             "3x3 s1 52² 128->256": (52, 128, 256, 3, 1),
+             "3x3 s2 52²->26² 256->512": (52, 256, 512, 3, 2),
+             "3x3 s1 26² 256->512": (26, 256, 512, 3, 1),
+             "3x3 s2 26²->13² 512->1024": (26, 512, 1024, 3, 2),
+             "3x3 s1 13² 512->1024": (13, 512, 1024, 3, 1),
+             "1x1 52² 256->128": (52, 256, 128, 1, 1)}
+
+
+def time_k5(kernels, dev, batch: int = 128, names=None, library: bool = False) -> dict:
+    """K5 alone at :data:`K5_SHAPES` (those of ``names``, else all): leaky,
+    N(0, 1) inputs and He-scaled weights from a seeded generator on the
+    card; ``ms`` and ``device_ms`` as for K1 and K2, with a digest of the
+    output.  ``library``: ``device_ms`` and the cuDNN bf16 conv + bf16 bias
+    + leaky's ``library_device_ms`` from CUDA graphs in turns instead."""
+    out = {}
+    for name in names or K5_SHAPES:
+        h, c, o, k, stride = K5_SHAPES[name]
+        g = torch.Generator(device=dev).manual_seed(sum(map(ord, name)))
+        x = torch.randn((batch, h, h, c), device=dev, generator=g).to(torch.bfloat16)
+        w = (torch.randn((o, k, k, c), device=dev, generator=g)
+             * (2.0 / (k * k * c)) ** 0.5).to(torch.bfloat16)
+        b = torch.randn(o, device=dev, generator=g) * 0.5
+        fn = lambda: kernels.conv_bf16(x, w, b, stride, k // 2, "leaky")  # noqa: E731
+        digest = hashlib.sha1(fn().view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+        out[name] = {"ms": eager_ms(fn), "device_ms": graph_ms(fn), "digest": digest}
+        if library:
+            F = torch.nn.functional
+            xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view, as the path before K5 ran it
+            wc = w.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            bc = b.to(torch.bfloat16)
+            lib = lambda: F.leaky_relu(F.conv2d(xc, wc, bc, stride=stride, padding=k // 2),  # noqa: E731
+                                       0.1, inplace=True)
+            t = [graph_ms(f) for f in (fn, lib, lib, fn)]
+            out[name].update(device_ms=(t[0] + t[3]) / 2, library_device_ms=(t[1] + t[2]) / 2)
+            del xc, wc, bc
+        del x, w, b
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_kernels(det, frames, kernels, root: str) -> dict:
-    """K1 and K2 at the bf16 step's shapes (``--kernels``)."""
+    """K1 and K2 at the bf16 step's shapes, and K5 at its shapes (``--kernels``)."""
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
 
     spec, dev = det.spec, frames.device
@@ -150,6 +211,7 @@ def time_kernels(det, frames, kernels, root: str) -> dict:
     for name, fn in cases.items():
         digest = hashlib.sha1(fn().cpu().numpy().tobytes()).hexdigest()[:16]
         out[name] = {"ms": eager_ms(fn), "device_ms": graph_ms(fn), "digest": digest}
+    out["k5"] = time_k5(kernels, dev)
     return out
 
 
@@ -160,6 +222,11 @@ def main() -> None:
     ap.add_argument("--mma", action="store_true", help="force K3/K4 onto the mma.sync core")
     ap.add_argument("--kernels", action="store_true",
                     help="time K1 and K2 at the bf16 step's shapes (sets --mode bf16)")
+    ap.add_argument("--k5", action="store_true",
+                    help="time K5 and cuDNN alone at each --batch (no detector)")
+    ap.add_argument("--batch", type=int, nargs="+", default=[128], help="--k5's batch sizes")
+    ap.add_argument("--shape", action="append", choices=tuple(K5_SHAPES),
+                    help="--k5's shapes (default: all of K5_SHAPES)")
     ap.add_argument("--root", default=ROOT, help="the checkout whose port to import")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -167,6 +234,14 @@ def main() -> None:
     sys.path.insert(0, os.path.abspath(args.root))
     from pytorch_yolo_tpu_torch import Detector
     from pytorch_yolo_tpu_torch.ops import kernels
+
+    if args.k5:
+        for batch in args.batch:
+            print(json.dumps({"root": args.root, "batch": batch,
+                              "card": torch.cuda.get_device_name(0),
+                              "k5": time_k5(kernels, torch.device("cuda", 0), batch, args.shape,
+                                            library=True)}, ensure_ascii=False), flush=True)
+        return
 
     if args.kernels:
         args.mode = "bf16"
