@@ -112,7 +112,29 @@ Phases, one line each (a failure in any phase exits non-zero):
      ``detect_many`` img/s over 384 images, ``detect_stream`` ms per
      frame at batch 1 over 480 frames (bf16, bf16 with the host letterbox
      and u8, int8sb), and the server's req/s and median latency with 16
-     clients POSTing 384 PNGs.
+     clients POSTing 384 PNGs;
+ 16. the command line at full width (``cli.main`` in this process, yolov3@416
+     from ``cfg/yolov3.cfg`` with the live weights, 480x640 PNG frames written
+     by the port's encoder): (a) ``write_weights_file``, then
+     ``load_weights(native=True)`` (the C++ loader, built with g++) and
+     ``native=False`` give equal folded params (rtol 1e-6, atol 1e-7), both
+     load times printed; (b) ``detect --bf16 --batch 8 --save-json`` on 16
+     frames equals ``detect_batch`` (same ids, boxes within 0.01), one K5 a
+     conv and one K1 and one K2 a batch, every ``det_*.png`` decodes; (c)
+     ``evaluate`` of the fp32 detector on a COCO set written from its own
+     ``detect_many(transfer="u8")`` at 384x512 (at least 50 boxes): mAP@0.5
+     and AP@[.5:.95] >= 0.999; ``--bf16`` printed beside phase 11's bf16
+     drift; fp32 ``detect_many`` u8 img/s at batch 8, 16, 32 and 64 over 3
+     windows in turns (``evaluate --batch``'s default is the best); (d)
+     ``profile --pipeline --bf16`` and ``profile --bf16`` at batch 128:
+     ``+nms`` within 15 % of phase 6's ms/batch and the stage rows' last
+     ``cum_ms`` within 10 % of the ``+forward`` delta; (e) ``detect --int8
+     --bf16 --int8-calib DIR --int8-scales F`` twice (calibrate and write,
+     then reload): set agreement 1.0, K3/K4 launched and none on
+     ``mma.sync``; (f) ``batched_nms`` on yolov3's 85-column rows (bf16
+     heads, the plain decode, widened to fp32) at batch 8: one K2 launch,
+     equal to the CPU's; (g) ``python -m pytorch_yolo_tpu_torch info`` and
+     ``detect`` in subprocesses exit 0 without rebuilding the kernels.
 
 The line before the second-to-last is the kernels' JSON report (``ms``
 eager time, as every kernel's figure since the port began; ``device_ms``
@@ -121,7 +143,7 @@ second-to-last is the card as nvidia-smi names it; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
 Synthetic He-init weights (seed 0) in phases 3-9, live (equalized) ones
-in 10-15; frames from numpy seed 0.
+in 10-16; frames from numpy seed 0 (phase 16: seed 16).
 """
 
 from __future__ import annotations
@@ -142,6 +164,12 @@ CONF, IOU, MAX_DET = 0.6, 0.45, 300
 K2_LARGE = (1025, 2048, 10647)  # phase 14: K past the shared-memory 1024; 10,647 = D at 416
 # phase 15: each rate is timed over WINDOWS windows of several seconds, in turns
 WINDOWS, MANY_WINDOW, STREAM_WINDOW, SERVE_WINDOW, SERVE_CLIENTS = 3, 384, 480, 384, 16
+# phase 16: evaluate's batch candidates, timed over EVAL_WINDOW frames a window
+EVAL_BATCHES, EVAL_WINDOW = (8, 16, 32, 64), 192
+EVAL_RESO = (384, 512)  # phase 16's self-set: the 480x640 frames' aspect, no letterbox padding
+# the 80 COCO category ids, in the dense order of coco.names
+COCO_IDS = (tuple(range(1, 12)) + tuple(range(13, 26)) + (27, 28) + tuple(range(31, 45))
+            + tuple(range(46, 66)) + (67, 70) + tuple(range(72, 83)) + tuple(range(84, 91)))
 TOL = 1e-5  # K1: expf and summation order; box columns relative to the row's corners
 # H100 SXM published dense peaks (NVIDIA data sheet, 700 W): the bounds' rates.
 PEAK_INT8_OPS = 1.979e15
@@ -417,24 +445,6 @@ def k5_agreement(ours, ref, x, w, b, stride, pad, shortcut=None) -> tuple[float,
     return equal, steps, float(gap.max())
 
 
-def png_bytes(img_bgr: np.ndarray) -> bytes:
-    """An (H, W, 3) uint8 BGR image as PNG bytes (RGB, no row filter), with
-    the standard library: what a client sends the server."""
-    import struct
-    import zlib
-
-    h, w, _ = img_bgr.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           np.ascontiguousarray(img_bgr[..., ::-1]).reshape(h, w * 3)], 1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
-
-
 def phase13_k5(kernels, v3, live, frames, dev, card) -> dict:
     """K5 against its plain version on every distinct conv of yolov3@416 at
     batch 8 (real activations), each activation and a fused shortcut; then
@@ -640,7 +650,7 @@ def phase15_prepared(kernels, v3, live, tiny_spec, tiny_live, calib_live, dev, c
     import urllib.request
 
     from pytorch_yolo_tpu_torch import Detection, Detector
-    from pytorch_yolo_tpu_torch.serve import make_server
+    from pytorch_yolo_tpu_torch.serve import encode_png, make_server
     from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 
     mix = np.random.default_rng(7)
@@ -732,7 +742,7 @@ def phase15_prepared(kernels, v3, live, tiny_spec, tiny_live, calib_live, dev, c
         answers: list = [None] * len(posts)
 
         def post(i):
-            req = urllib.request.Request(f"http://{host}:{port}/detect", data=png_bytes(posts[i]),
+            req = urllib.request.Request(f"http://{host}:{port}/detect", data=encode_png(posts[i]),
                                          method="POST")
             with urllib.request.urlopen(req, timeout=120) as r:
                 answers[i] = json.loads(r.read())
@@ -760,7 +770,7 @@ def phase15_prepared(kernels, v3, live, tiny_spec, tiny_live, calib_live, dev, c
         say(f"phase 15 make_server on 127.0.0.1, yolov3@{SIZE} live bf16: {len(posts)} "
             f"concurrent PNG POSTs answered, K1 {launched['decode_score']} / K5 "
             f"{launched['conv_bf16']} launches; equal to detect_many u8: {st.row()}")
-        bodies = [png_bytes(im) for im in imgs]
+        bodies = [encode_png(im) for im in imgs]
 
         def serve_window() -> tuple[float, list]:
             """SERVE_CLIENTS clients POST SERVE_WINDOW PNGs between them:
@@ -807,6 +817,254 @@ def phase15_prepared(kernels, v3, live, tiny_spec, tiny_live, calib_live, dev, c
         srv.shutdown()
         srv.server_close()
     del det
+    return out
+
+
+def phase16_cli(kernels, v3, cfg, live_raw, dev, card, root, ms6, bf16_drift) -> dict:
+    """The command line at full width: yolov3@416 from cfg/yolov3.cfg with the
+    live weights written as a .weights file, 16 PNG frames of 480x640."""
+    import contextlib
+    import io
+    import tempfile
+
+    from pytorch_yolo_tpu_torch import Detection, Detector, cli, native
+    from pytorch_yolo_tpu_torch.ops.decode import decode_all
+    from pytorch_yolo_tpu_torch.ops.nms import batched_nms
+    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+    from pytorch_yolo_tpu_torch.serve import decode_image, encode_png
+    from pytorch_yolo_tpu_torch.utils.drift import detection_drift
+    from pytorch_yolo_tpu_torch.weights import load_weights, write_weights_file
+
+    def run_cli(argv: list) -> str:
+        """cli.main in this process; its standard output."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        if rc != 0:
+            fail(f"cli {argv[0]} exited {rc}")
+        return out.getvalue()
+
+    def jsonl_dets(path: str) -> list:
+        rows = [json.loads(line) for line in open(path, encoding="utf-8")]
+        return [Detection(boxes=np.asarray(r["boxes"], np.float32).reshape(-1, 4),
+                          obj=np.asarray(r["obj"], np.float32),
+                          cls_score=np.asarray(r["cls_score"], np.float32),
+                          cls_id=np.asarray(r["cls_id"], np.int32)) for r in rows]
+
+    out: dict = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke16_")
+    d = tmp.name
+    try:
+        # a. the .weights writer and both loaders
+        w_path = os.path.join(d, "yolov3.weights")
+        write_weights_file(v3, live_raw, w_path)
+        t0 = time.perf_counter()
+        if native.load_library() is None:
+            fail("the native weights loader did not build (g++)")
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_nat = load_weights(v3, w_path, native=True)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_np = load_weights(v3, w_path, native=False)
+        np_s = time.perf_counter() - t0
+        worst = 0.0
+        for i, p in p_np.items():
+            for key in ("w", "b"):
+                a, b = p_nat[i][key], p[key]
+                if not np.allclose(a, b, rtol=1e-6, atol=1e-7):
+                    fail(f"native and numpy loads differ at conv {i} {key}: "
+                         f"{float(np.abs(a - b).max())}")
+                worst = max(worst, float(np.abs(a - b).max()))
+        out["load_ms"] = {"native": nat_s * 1e3, "numpy": np_s * 1e3}
+        say(f"phase 16a weights: wrote {os.path.getsize(w_path):,} B; native loader built in "
+            f"{build_s:.2f} s; load native {nat_s * 1e3:.1f} ms, numpy {np_s * 1e3:.1f} ms; "
+            f"folded params equal (max abs diff {worst:.3g}, rtol 1e-6, atol 1e-7)")
+
+        # b. detect --bf16 on 16 PNG frames, against detect_batch
+        frames_dir = os.path.join(d, "frames")
+        os.makedirs(frames_dir)
+        rng = np.random.default_rng(16)
+        frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(16)]
+        names = [f"f{i:02d}.png" for i in range(len(frames))]
+        for name, im in zip(names, frames):
+            with open(os.path.join(frames_dir, name), "wb") as f:
+                f.write(encode_png(im))
+        det_dir = os.path.join(d, "det")
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        run_cli(["detect", "--cfg", cfg, "--weights", w_path, "--bf16", "--images", frames_dir,
+                 "--batch", "8", "--save-json", "--det", det_dir, "--reso", str(SIZE)])
+        launched = dict(kernels.LAUNCHES)
+        bf16 = Detector.load(cfg, w_path, device=dev, dtype=torch.bfloat16, precision="default")
+        n_conv = len(bf16.model.convs)
+        if not (launched["conv_bf16"] == 2 * n_conv and launched["decode_score"] == 2
+                and launched["nms_keep"] == 2):
+            fail(f"cli detect --bf16: expected {n_conv} K5 launches and one K1 and one K2 a "
+                 f"batch of 8, two batches: {launched}")
+        decoded = [decode_image(open(os.path.join(frames_dir, n), "rb").read()) for n in names]
+        if not all(np.array_equal(a, b) for a, b in zip(decoded, frames)):
+            fail("the PNG encoder's frames do not decode to the frames written")
+        ref = (bf16.detect_batch(np.stack(decoded[:8]), size=SIZE)
+               + bf16.detect_batch(np.stack(decoded[8:]), size=SIZE))
+        got = jsonl_dets(os.path.join(det_dir, "detections.jsonl"))
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if not (np.array_equal(a.cls_id, b.cls_id)
+                    and np.abs(a.boxes - b.boxes).max(initial=0.0) <= 0.01 + 1e-4):
+                fail(f"cli detect frame {i} differs from detect_batch: {a.cls_id} vs {b.cls_id}")
+        drawn = [n for n in sorted(os.listdir(det_dir)) if n.startswith("det_")]
+        if len(drawn) != 16 or any(decode_image(open(os.path.join(det_dir, n), "rb").read())
+                                   is None for n in drawn):
+            fail(f"cli detect wrote {len(drawn)} det_*.png files, or one does not decode")
+        say(f"phase 16b cli detect --bf16, 16 PNG frames in batches of 8: equal to detect_batch "
+            f"({sum(len(x) for x in got)} dets, same ids, boxes within 0.01), "
+            f"{len(drawn)} det_*.png decode; launches {launched}")
+        del bf16
+
+        # c. evaluate: the fp32 detector's own detections as the ground truth,
+        # at 384x512, the 480x640 frames' own aspect: at 416 a quarter of the
+        # canvas is letterbox padding, and a box a random-weight head centres
+        # there clamps to zero height, which the evaluator (as pycocotools)
+        # gives IoU 0 with itself, so such a set could not score 1.0
+        conf, reso = 0.3, EVAL_RESO
+        fp32 = Detector.load(cfg, w_path, device=dev)
+        dets = fp32.detect_many(decoded, size=reso, conf=conf, batch=8, transfer="u8")
+        images, anns = [], []
+        for i, (name, det) in enumerate(zip(names, dets)):
+            images.append({"id": i, "file_name": name, "width": 640, "height": 480})
+            for box, c in zip(det.boxes.astype(np.float64), det.cls_id):
+                anns.append({"id": len(anns), "image_id": i, "category_id": COCO_IDS[int(c)],
+                             "bbox": [box[0], box[1], box[2] - box[0], box[3] - box[1]],
+                             "iscrowd": 0})
+        if len(anns) < 50:
+            fail(f"the self-set holds {len(anns)} boxes, fewer than 50")
+        ann_path = os.path.join(d, "instances.json")
+        with open(ann_path, "w", encoding="utf-8") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": c, "name": str(c)} for c in COCO_IDS]}, f)
+        ev = ["evaluate", "--cfg", cfg, "--weights", w_path, "--images", frames_dir,
+              "--annotations", ann_path, "--confidence", str(conf), "--batch", "8",
+              "--reso", f"{reso[0]}x{reso[1]}"]
+        r32 = json.loads(run_cli(ev).strip().splitlines()[-1])
+        if not (r32["mAP@0.5"] >= 0.999 and r32["AP@[.5:.95]"] >= 0.999):
+            fail(f"evaluate of the fp32 detector on its own set: {r32}")
+        r16 = json.loads(run_cli(ev + ["--bf16"]).strip().splitlines()[-1])
+        out["evaluate"] = {"boxes": len(anns), "fp32": r32, "bf16": r16}
+        say(f"phase 16c cli evaluate --reso {reso[0]}x{reso[1]}, fp32 detections of 16 frames as "
+            f"the set ({len(anns)} boxes, conf {conf}): fp32 mAP@0.5 {r32['mAP@0.5']}, "
+            f"AP@[.5:.95] {r32['AP@[.5:.95]']}; --bf16 mAP@0.5 {r16['mAP@0.5']}, AP@[.5:.95] "
+            f"{r16['AP@[.5:.95]']} (not gated; phase 11 live bf16 set agreement "
+            f"{bf16_drift:.3f})")
+        window = decoded * (EVAL_WINDOW // len(decoded))
+        rates: dict = {b: [] for b in EVAL_BATCHES}
+        for b in EVAL_BATCHES:
+            fp32.detect_many(window[:b], size=SIZE, conf=conf, batch=b, transfer="u8")  # warm
+        for _ in range(WINDOWS):
+            for b in EVAL_BATCHES:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fp32.detect_many(window, size=SIZE, conf=conf, batch=b, transfer="u8")
+                rates[b].append(len(window) / (time.perf_counter() - t0))
+        out["detect_many_u8_img_s"] = {b: spread(v) for b, v in rates.items()}
+        best = max(EVAL_BATCHES, key=lambda b: out["detect_many_u8_img_s"][b]["median"])
+        out["best_batch"] = best
+        say(f"phase 16c fp32 detect_many u8 at {SIZE}, {len(window)} 480x640 frames, {WINDOWS} "
+            f"windows in "
+            f"turns, img/s median (runs): "
+            + "; ".join(f"batch {b} {r['median']:.1f} ({r['runs']})"
+                        for b, r in out["detect_many_u8_img_s"].items())
+            + f"; best batch {best} (evaluate --batch default {cli.EVAL_BATCH}); on {card}")
+        del fp32
+
+        # d. profile --pipeline and profile, bf16 batch 128
+        common = ["--cfg", cfg, "--weights", w_path, "--bf16", "--batch", str(BATCH),
+                  "--reso", str(SIZE)]
+        pipe = json.loads(run_cli(["profile", "--pipeline"] + common).strip().splitlines()[-1])
+        stages = json.loads(run_cli(["profile"] + common).strip().splitlines()[-1])
+        nms_cum = pipe[-1]["cum_ms"]
+        fwd = next(r["delta_ms"] for r in pipe if r["stage"] == "+forward")
+        out["profile_pipeline"], out["profile_stages"] = pipe, stages
+        say(f"phase 16d cli profile --pipeline --bf16 batch {BATCH}: {json.dumps(pipe)}")
+        say(f"phase 16d cli profile --bf16 batch {BATCH}: {json.dumps(stages)}")
+        if not abs(nms_cum / ms6 - 1.0) <= 0.15:
+            fail(f"profile +nms cum {nms_cum} ms is not within 15 % of phase 6's {ms6:.3f}")
+        if not abs(stages[-1]["cum_ms"] / fwd - 1.0) <= 0.10:
+            fail(f"profile stages end at {stages[-1]['cum_ms']} ms, not within 10 % of the "
+                 f"+forward delta {fwd}")
+        say(f"phase 16d gates: +nms cum {nms_cum:.3f} ms vs phase 6 {ms6:.3f} "
+            f"({nms_cum / ms6 - 1:+.1%}); stages' last cum {stages[-1]['cum_ms']:.3f} vs +forward "
+            f"delta {fwd:.3f} ({stages[-1]['cum_ms'] / fwd - 1:+.1%}); on {card}")
+
+        # e. int8 through the command line: calibrate and write, then reload
+        calib_dir = os.path.join(d, "calib")
+        os.makedirs(calib_dir)
+        for i in range(4):
+            im = np.random.default_rng(100 + i).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+            with open(os.path.join(calib_dir, f"c{i}.png"), "wb") as f:
+                f.write(encode_png(im))
+        scales = os.path.join(d, "scales.json")
+        int8_runs, t_int8 = [], []
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        for run in range(2):
+            out_dir = os.path.join(d, f"int8_{run}")
+            t0 = time.perf_counter()
+            run_cli(["detect", "--cfg", cfg, "--weights", w_path, "--int8", "--bf16",
+                     "--int8-calib", calib_dir, "--int8-scales", scales, "--images", frames_dir,
+                     "--batch", "8", "--save-json", "--det", out_dir, "--reso", str(SIZE)])
+            t_int8.append(time.perf_counter() - t0)
+            int8_runs.append(jsonl_dets(os.path.join(out_dir, "detections.jsonl")))
+        launched = dict(kernels.LAUNCHES)
+        st = detection_drift(int8_runs[0], int8_runs[1])
+        recipe = json.load(open(scales, encoding="utf-8")).get("recipe")
+        if not (st.ref_dets > 0 and st.set_agreement == 1.0):
+            fail(f"cli int8 calibrate-then-reload: {st.row()}")
+        if not (launched["int8_gemm"] and launched["int8_conv"]) or (
+                launched["int8_gemm_mma"] or launched["int8_conv_mma"]):
+            fail(f"cli int8: expected K3 and K4 on the wgmma core only: {launched}")
+        say(f"phase 16e cli detect --int8 --bf16 --int8-calib (recipe {recipe}) then reload "
+            f"--int8-scales: {t_int8[0]:.1f} s / {t_int8[1]:.1f} s, the two runs {st.row()}; "
+            f"launches {launched}")
+
+        # f. batched_nms on the 85-column rows, card against CPU
+        bf16 = Detector.load(cfg, w_path, device=dev, dtype=torch.bfloat16, precision="default")
+        x = letterbox_batch(torch.from_numpy(np.stack(decoded[:8])).to(dev), SIZE)
+        with torch.no_grad():
+            rows = decode_all(bf16.model(x), v3).to(torch.float32).contiguous()
+        del bf16
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        res = batched_nms(rows, CONF, IOU, MAX_DET)
+        torch.cuda.synchronize()
+        launched = dict(kernels.LAUNCHES)
+        cpu = batched_nms(rows.cpu(), CONF, IOU, MAX_DET)
+        if launched["nms_keep"] != 1:
+            fail(f"batched_nms on the card: expected one K2 launch: {launched}")
+        keep = res.valid.cpu()
+        box_err = max_err(res.boxes.cpu()[keep], cpu.boxes[keep]) if bool(keep.any()) else 0.0
+        if not (torch.equal(keep, cpu.valid) and torch.equal(res.cls_id.cpu(), cpu.cls_id)
+                and box_err <= 1e-5 and bool(keep.any())):
+            fail(f"batched_nms card vs CPU: keep equal {torch.equal(keep, cpu.valid)}, "
+                 f"{int(keep.sum())} kept, box err {box_err}")
+        say(f"phase 16f batched_nms on {tuple(rows.shape)} rows (yolov3@{SIZE} bf16, plain decode "
+            f"widened to fp32), batch 8: one K2 launch, keep sets equal to the CPU's "
+            f"({int(keep.sum())} kept), boxes within {box_err:.3g}")
+
+        # g. the module runner in subprocesses, on the built kernel library
+        built = os.path.getmtime(kernels.LIBRARY)
+        for argv in (["info", "--cfg", cfg, "--int8-plan"],
+                     ["detect", "--cfg", cfg, "--weights", w_path, "--bf16", "--images",
+                      os.path.join(frames_dir, names[0]), "--det", os.path.join(d, "one"),
+                      "--reso", str(SIZE)]):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "pytorch_yolo_tpu_torch", *argv],
+                                  cwd=root, capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                fail(f"python -m pytorch_yolo_tpu_torch {argv[0]} exited {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}")
+            say(f"phase 16g python -m pytorch_yolo_tpu_torch {argv[0]}: exit 0 in "
+                f"{time.perf_counter() - t0:.1f} s")
+        if os.path.getmtime(kernels.LIBRARY) != built:
+            fail("the module runner rebuilt the kernel library")
+    finally:
+        tmp.cleanup()
     return out
 
 
@@ -1251,8 +1509,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     info = {}
-    live = fold_batchnorm(v3, equalize_raw_params(v3, random_raw_params(v3), device=dev,
-                                                  info=info))
+    live_raw = equalize_raw_params(v3, random_raw_params(v3), device=dev, info=info)
+    live = fold_batchnorm(v3, live_raw)
     eq_s = time.perf_counter() - t0
     det_ref = Detector(v3, live, device=dev, precision="highest")
     det_load = Detector.load(cfg, device=dev, precision="highest", synthetic="live")
@@ -1436,6 +1694,9 @@ def main() -> None:
     k2_large = phase14_k2_large(kernels, v3, live, frames, dev, rng, card)
     torch.cuda.empty_cache()
     prepared = phase15_prepared(kernels, v3, live, tiny_spec, tiny_live, calib_live, dev, card)
+    torch.cuda.empty_cache()
+    cli16 = phase16_cli(kernels, v3, cfg, live_raw, dev, card, root, ms,
+                        rows11["bf16 natural stem"]["agree"])
     k5_main = k5["timed"][f"3x3 s1 {SIZE // 8}² 128->256"]
 
     report = {"kernels": [
@@ -1483,6 +1744,7 @@ def main() -> None:
                     for k, v in k5["timed"].items()}},
     ]}
     say(f"phase 15 timings: {json.dumps(prepared)}")
+    say(f"phase 16 timings: {json.dumps(cli16)}")
     say(json.dumps(report))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -41,8 +41,8 @@ from .ops.nms import NMSResult, batched_nms_fused
 from .ops.postprocess import unletterbox_boxes, unletterbox_boxes_dynamic
 from .ops.preprocess import letterbox_batch, letterbox_geometry, letterbox_host
 from .utils.names import load_classes
-from .weights import (Params, equalize_raw_params, fold_batchnorm, random_raw_params,
-                      read_weights_file)
+from .weights import (Params, equalize_raw_params, fold_batchnorm, load_weights,
+                      random_raw_params)
 
 log = logging.getLogger(__name__)
 
@@ -388,7 +388,7 @@ class Detector:
             cfg_text = _GENERATORS[cfg]()
         spec = build_spec(parse_cfg_text(cfg_text))
         if weights is not None:
-            raw = read_weights_file(spec, weights)
+            params = load_weights(spec, weights)  # the C++ loader where it builds, else numpy
         else:
             if synthetic not in ("he", "live"):
                 raise ValueError(f"unknown synthetic regime {synthetic!r} (expected 'he' or "
@@ -396,7 +396,8 @@ class Detector:
             raw = random_raw_params(spec)
             if synthetic == "live":
                 raw = equalize_raw_params(spec, raw, device=device)
-        det = cls(spec, fold_batchnorm(spec, raw), class_names=load_classes(names),
+            params = fold_batchnorm(spec, raw)
+        det = cls(spec, params, class_names=load_classes(names),
                   device=device, dtype=dtype, precision=precision, cfg_text=cfg_text, **kw)
         det.weights_source = weights  # None = synthetic random (provenance)
         return det

@@ -351,6 +351,10 @@ class Darknet(nn.Module):
         self._chains = int8_resident_chains(spec, params) if quant == "w8a8" else {}
         self._split_groups = concat_split_groups(spec)
         self._fused = _fused_shortcuts(spec) if dtype == torch.bfloat16 else frozenset()
+        # called after each layer with its index and output (an NCHW view);
+        # the packed s2d stem reports layer 1 only.  The stage profiler
+        # (utils/profiling.py) and the command line's --debug-nans set it.
+        self.layer_hook: "Callable[[int, torch.Tensor], None] | None" = None
 
     def _fp_conv(self, w: torch.Tensor, b: torch.Tensor, stride: int, padding: int,
                  activation: str) -> nn.Module:
@@ -429,11 +433,14 @@ class Darknet(nn.Module):
         heads: list[torch.Tensor] = []
         stats: dict[int, Any] = {}
         layers = self.spec.layers
+        hook = self.layer_hook
         with torch.no_grad(), _conv_precision(self.precision):
             if self.stem_s2d:
                 x = self._s2d_stem(x)
                 if 1 in self._needed:
                     cache[1] = x
+                if hook is not None:
+                    hook(1, x)
                 layers = layers[2:]
             else:
                 x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view; each fp conv casts
@@ -481,6 +488,8 @@ class Darknet(nn.Module):
                     heads.append(h.contiguous())
                 if layer.index in self._needed:
                     cache[layer.index] = x
+                if hook is not None:
+                    hook(layer.index, x)
         if len({h.dtype for h in heads}) > 1:
             heads = [h.to(torch.float32) for h in heads]
         if hooked:

@@ -3,8 +3,12 @@
 Counterpart of ``pytorch_yolo_tpu/ops/nms.py``: per image, the top K =
 min(max_det, D) candidates by masked score (invalid = -1, so they sort
 last), then a greedy keep mask over them — :func:`ops.kernels.nms_keep`
-(K2) on the device.  :func:`fixpoint_suppress` and :func:`greedy_suppress`
-are the single-image oracles the tests hold K2's plain version against.
+(K2) on the device, its plain version (the parallel fixpoint) on the CPU.
+:func:`batched_nms_fused` takes the serving pipeline's 8-column rows,
+:func:`batched_nms` the 85-column decoded rows (the whole batch in one
+K2 launch).  :func:`fixpoint_suppress`, :func:`greedy_suppress` and
+:func:`leader_election_suppress` are the single-image oracles the tests
+hold K2's plain version against.
 
 Top-K is a stable descending sort, not ``torch.topk``: the keep mask
 depends on the candidates' order, ``lax.top_k`` puts equal scores lowest
@@ -123,3 +127,60 @@ def batched_nms_fused(
     keep = nms_keep(boxes, valid, iou_thresh, cls_id=None if class_agnostic else cls_f)
     return NMSResult(boxes=boxes, obj=sel[..., 4], cls_score=sel[..., 5],
                      cls_id=cls_f.to(torch.int32), valid=keep)
+
+
+def leader_election_suppress(iou: torch.Tensor, valid: torch.Tensor,
+                             iou_thresh: float) -> torch.Tensor:
+    """Greedy NMS by leader election over one image's score-sorted (K, K)
+    IoU matrix: each round keeps the highest-ranked undecided candidate and
+    eliminates every candidate it overlaps, so it runs once a kept box.
+    The keep-set equals :func:`greedy_suppress`'s."""
+    over = iou > iou_thresh
+    keep = torch.zeros_like(valid)
+    undecided = valid.clone()
+    while bool(undecided.any()):
+        lead = int(undecided.nonzero()[0, 0])
+        keep[lead] = True
+        undecided &= ~over[lead]
+        undecided[lead] = False
+    return keep
+
+
+def _select_topk(det: torch.Tensor, conf_thresh: float, max_det: int, score_mode: str):
+    """Candidate selection from (N, D, 5+C) decoded rows: each image's top
+    K = min(max_det, D) rows by masked score (objectness, or objectness
+    times the best class score), in a stable descending sort; returns the
+    rows, their objectness, best class score and class, and validity."""
+    obj = det[..., 4]
+    cls_score, cls_id = det[..., 5:].max(dim=-1)  # the first of equal maxima, as argmax
+    rank = obj if score_mode == "obj" else obj * cls_score
+    masked = torch.where(obj > conf_thresh, rank, torch.full_like(rank, -1.0))
+    k = min(max_det, det.shape[1])
+    top, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    top, idx = top[:, :k], idx[:, :k]
+    sel = torch.gather(det, 1, idx[..., None].expand(-1, -1, det.shape[-1]))
+    return (sel, torch.gather(obj, 1, idx), torch.gather(cls_score, 1, idx),
+            torch.gather(cls_id, 1, idx).to(torch.int32), top > 0.0)
+
+
+def batched_nms(
+    detections: torch.Tensor,
+    conf_thresh: float = 0.5,
+    iou_thresh: float = 0.4,
+    max_det: int = 300,
+    score_mode: str = "obj",
+    class_agnostic: bool = False,
+) -> NMSResult:
+    """Class-wise NMS over a batch of decoded detections (N, D, 5+C), fp32
+    rows [cx, cy, w, h, obj, class scores...]: the top-K candidates of each
+    image, their corners, and the greedy keep mask, one K2 launch for the
+    batch on the card."""
+    if score_mode not in ("obj", "obj*cls"):
+        raise ValueError(f"unknown score_mode {score_mode!r} ('obj' or 'obj*cls')")
+    sel, obj, cls_score, cls_id, valid = _select_topk(detections, conf_thresh, max_det,
+                                                      score_mode)
+    cx, cy, w, h = sel[..., 0], sel[..., 1], sel[..., 2], sel[..., 3]
+    boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+    keep = nms_keep(boxes, valid, iou_thresh,
+                    cls_id=None if class_agnostic else cls_id.to(torch.float32))
+    return NMSResult(boxes=boxes, obj=obj, cls_score=cls_score, cls_id=cls_id, valid=keep)

@@ -21,7 +21,8 @@ Endpoints:
 stdlib-only (http.server + threading) by design.  Images are decoded with
 OpenCV where ``cv2`` is importable; a host without it still serves PNG,
 decoded with the standard library alone (:func:`decode_png`: 8-bit gray,
-RGB or RGBA, not interlaced).
+RGB or RGBA, not interlaced).  :func:`encode_png` is the matching
+standard-library writer the command line uses without OpenCV.
 """
 
 from __future__ import annotations
@@ -101,6 +102,22 @@ def decode_png(data: bytes) -> "np.ndarray | None":
     if channels == 1:
         return np.repeat(img, 3, axis=-1)
     return np.ascontiguousarray(img[..., 2::-1])  # RGB(A) -> BGR
+
+
+def encode_png(img_bgr: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 BGR image as PNG bytes: 8-bit RGB, every row
+    filter 0, one zlib stream at level 1 (fast); :func:`decode_png` and
+    OpenCV read it back exactly."""
+    h, w, _ = img_bgr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(img_bgr[..., ::-1]).reshape(h, w * 3)], 1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
 def decode_image(data: bytes) -> "np.ndarray | None":

@@ -1,8 +1,9 @@
 """Darknet ``.weights`` binary IO and the port's parameter dictionaries.
 
-Counterpart of ``pytorch_yolo_tpu/weights.py`` (reading, BatchNorm folding,
-synthetic init), carried as a copy because that package imports jax.  The
-format is a flat float32 stream consumed in cfg order, conv layers only:
+Counterpart of ``pytorch_yolo_tpu/weights.py`` (reading, writing, the
+native loader, BatchNorm folding, synthetic init), carried as a copy
+because that package imports jax.  The format is a flat float32 stream
+consumed in cfg order, conv layers only:
 
     header:  int32 major, int32 minor, int32 revision
              if major*10+minor >= 2:  uint64 seen   else:  int32 seen
@@ -16,13 +17,15 @@ format is a flat float32 stream consumed in cfg order, conv layers only:
 
 Where the JAX package holds kernels HWIO (its TPU conv layout), this port
 holds them **OIHW** — Darknet's stream order and ``F.conv2d``'s layout — so
-reading is a reshape with no transpose.  :func:`params_from_jax` converts a
+reading and writing are reshapes with no transpose, and the C++ loader
+(``native/``) folds without one.  :func:`params_from_jax` converts a
 JAX params dict, and :func:`random_raw_params` makes the JAX package's draws
 in the same order from the same seed, so both packages get the same numbers.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 import numpy as np
@@ -124,6 +127,90 @@ def fold_batchnorm(spec: ModelSpec, raw: RawParams) -> Params:
         else:
             params[c.index] = {"w": w.astype(np.float32), "b": entry["b"].astype(np.float32)}
     return params
+
+
+def load_weights_native(spec: ModelSpec, path: str, n_threads: int = 0) -> "Params | None":
+    """Folded OIHW params via the C++ loader (mmap + fused fold).
+
+    Returns None when the native library is unavailable (no compiler etc.);
+    raises WeightsError for malformed files.  Equal to
+    ``fold_batchnorm(read_weights_file(...))`` up to the fp32 rounding of
+    the fold arithmetic."""
+    import ctypes
+
+    from .native import LayerDescStruct, load_library
+
+    lib = load_library()
+    if lib is None:
+        return None
+    convs = _conv_specs(spec)
+    params: Params = {}
+    descs = (LayerDescStruct * len(convs))()
+    offset = 0
+    for i, c in enumerate(convs):
+        w = np.empty((c.filters, c.in_channels, c.size, c.size), dtype=np.float32)
+        b = np.empty((c.filters,), dtype=np.float32)
+        params[c.index] = {"w": w, "b": b}
+        descs[i].filters = c.filters
+        descs[i].in_channels = c.in_channels
+        descs[i].size = c.size
+        descs[i].batch_normalize = int(c.batch_normalize)
+        descs[i].stream_offset = offset
+        descs[i].out_w = w.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        descs[i].out_b = b.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+        offset += (4 if c.batch_normalize else 1) * c.filters
+        offset += c.filters * c.in_channels * c.size * c.size
+    rc = lib.pyt_load_weights(path.encode(), descs, len(convs), offset, n_threads)
+    if rc != 0:
+        raise WeightsError(f"native loader: {lib.pyt_strerror(rc).decode()} ({path})")
+    return params
+
+
+def load_weights(spec: ModelSpec, path: str, fold_bn: bool = True,
+                 native: "bool | None" = None) -> "Params | RawParams":
+    """One call: .weights file -> inference-ready params (OIHW, BN folded).
+
+    ``native=None`` tries the C++ loader for the folded case and falls back
+    to numpy; True requires it; False skips it."""
+    if fold_bn and native is not False:
+        try:
+            params = load_weights_native(spec, path)
+        except WeightsError:
+            raise
+        except Exception:
+            params = None
+        if params is not None:
+            return params
+        if native:
+            raise RuntimeError("native weights loader unavailable")
+    raw = read_weights_file(spec, path)
+    return fold_batchnorm(spec, raw) if fold_bn else raw
+
+
+def write_weights_file(
+    spec: ModelSpec,
+    raw: Mapping[int, Mapping[str, np.ndarray]],
+    path: str,
+    seen: int = 0,
+    version: tuple[int, int, int] = (0, 2, 0),
+) -> None:
+    """Serialize raw (un-folded) OIHW params to Darknet .weights format:
+    the bytes ``pytorch_yolo_tpu.weights.write_weights_file`` writes for
+    the same numbers held HWIO."""
+    major, minor, revision = version
+    chunks: list[bytes] = [np.array([major, minor, revision], dtype=np.int32).tobytes()]
+    seen_type = np.uint64 if major * 10 + minor >= 2 else np.int32
+    chunks.append(np.array([seen], dtype=seen_type).tobytes())
+    for c in _conv_specs(spec):
+        entry = raw[c.index]
+        keys = ("bn_beta", "bn_gamma", "bn_mean", "bn_var") if c.batch_normalize else ("b",)
+        for key in keys:
+            chunks.append(np.asarray(entry[key], dtype=np.float32).tobytes())
+        chunks.append(np.ascontiguousarray(entry["w"], dtype=np.float32).tobytes())
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(b"".join(chunks))
+    os.replace(tmp, path)
 
 
 def random_raw_params(spec: ModelSpec, seed: int = 0, scale: float = 0.05) -> RawParams:

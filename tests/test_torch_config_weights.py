@@ -128,6 +128,9 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'pytorch_yolo_tpu'))\n"
         "assert 'torch' in sys.modules and len(mods) >= 12, mods\n"
+        "need = {'cli', 'eval', 'datasets', 'assets', 'native', 'utils.draw', 'utils.palette',\n"
+        "        '__main__'}\n"
+        "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -728,3 +728,101 @@ def test_cuda_prepared_path_matches_cpu(cuda, transfer):
     streamed = list(det.detect_stream(imgs, size=320, conf=0.3, host_preproc=True,
                                       transfer=transfer))
     assert detection_drift(ours, streamed).set_agreement == 1.0
+
+
+# ---------------------------------------------------------------------------
+# The command line, batched_nms and the native weights loader on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def tiny_weights(tmp_path):
+    """yolov3-tiny's .cfg and its live synthetic weights as a .weights file."""
+    from pytorch_yolo_tpu_torch import weights as tw
+
+    cfg = str(tmp_path / "tiny.cfg")
+    pt.write_cfg("yolov3-tiny", cfg)
+    spec = pt.model_spec("yolov3-tiny")
+    raw = tw.equalize_raw_params(spec, tw.random_raw_params(spec), device="cpu")
+    path = str(tmp_path / "tiny.weights")
+    tw.write_weights_file(spec, raw, path)
+    return cfg, path
+
+
+@pytest.mark.cuda
+def test_cuda_cli_detect_bf16_matches_detect_batch(cuda, tiny_weights, tmp_path):
+    """``detect --bf16`` on 4 PNG frames equals ``detect_batch`` of the same
+    bf16 detector (same ids, the 2-decimal boxes within 0.01), with one K5
+    launch a conv and one K1 and one K2 launch for the batch."""
+    import json
+
+    from pytorch_yolo_tpu_torch import cli
+    from pytorch_yolo_tpu_torch.serve import encode_png
+
+    cfg, weights = tiny_weights
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, (4, 480, 640, 3), dtype=np.uint8)
+    img_dir = tmp_path / "frames"
+    img_dir.mkdir()
+    for i, im in enumerate(frames):
+        (img_dir / f"f{i}.png").write_bytes(encode_png(im))
+    before = dict(tk.LAUNCHES)
+    assert cli.main(["detect", "--cfg", cfg, "--weights", weights, "--bf16", "--images",
+                     str(img_dir), "--save-json", "--det", str(tmp_path / "det"),
+                     "--confidence", "0.3"]) == 0
+    det = pt.Detector.load(cfg, weights, device=cuda, dtype=torch.bfloat16, precision="default")
+    launched = {k: v - before[k] for k, v in tk.LAUNCHES.items()}
+    assert (launched["conv_bf16"], launched["decode_score"], launched["nms_keep"]) == (
+        len(det.model.convs), 1, 1), launched
+    ref = det.detect_batch(frames, size=416, conf=0.3)
+    rows = [json.loads(line) for line in open(tmp_path / "det" / "detections.jsonl")]
+    assert sum(len(d) for d in ref) > 0
+    for row, d in zip(rows, ref):
+        assert row["cls_id"] == d.cls_id.tolist()
+        np.testing.assert_allclose(np.asarray(row["boxes"]).reshape(-1, 4), d.boxes,
+                                   rtol=0, atol=0.01 + 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("class_agnostic", [False, True])
+def test_cuda_batched_nms_matches_cpu(cuda, class_agnostic):
+    """batched_nms on 85-column rows: K2 on the card (one launch) equals the
+    CPU's fixpoint; boxes within 1e-5."""
+    from pytorch_yolo_tpu_torch.ops.nms import batched_nms
+
+    rng = np.random.default_rng(5)
+    rows = np.zeros((4, 2000, 85), np.float32)
+    rows[..., :2] = rng.uniform(0, 416, (4, 2000, 2))
+    rows[..., 2:4] = rng.uniform(8, 120, (4, 2000, 2))
+    rows[..., 4:] = rng.choice([0.2, 0.55, 0.7, 0.9, 1.0], (4, 2000, 81))
+    before = tk.LAUNCHES["nms_keep"]
+    ours = batched_nms(torch.from_numpy(rows).to(cuda), 0.5, 0.45, 300,
+                       class_agnostic=class_agnostic)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["nms_keep"] == before + 1
+    ref = batched_nms(torch.from_numpy(rows), 0.5, 0.45, 300, class_agnostic=class_agnostic)
+    assert torch.equal(ours.valid.cpu(), ref.valid) and bool(ref.valid.any())
+    assert torch.equal(ours.cls_id.cpu(), ref.cls_id)
+    np.testing.assert_allclose(ours.boxes.cpu().numpy(), ref.boxes.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_native_loader_feeds_card_detector(cuda, tiny_weights):
+    """load_weights(native=True) params served on the card give the heads
+    of the numpy-loaded params: the loads agree within rtol 1e-6 / atol
+    1e-7 (the fold's fp32 rounding), the fp32 heads within 1e-5."""
+    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+    from pytorch_yolo_tpu_torch.weights import load_weights
+
+    cfg, weights = tiny_weights
+    spec = pt.load_model_spec(cfg)
+    nat = load_weights(spec, weights, native=True)
+    ref = load_weights(spec, weights, native=False)
+    x = letterbox_batch(torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (2, 480, 640, 3), dtype=np.uint8)).to(cuda), 416)
+    for i, p in ref.items():
+        for key in ("w", "b"):
+            np.testing.assert_allclose(nat[i][key], p[key], rtol=1e-6, atol=1e-7)
+    heads = [pt.Detector(spec, p, device=cuda).model(x) for p in (nat, ref)]
+    for a, b in zip(*heads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
