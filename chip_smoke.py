@@ -134,7 +134,24 @@ Phases, one line each (a failure in any phase exits non-zero):
      ``mma.sync``; (f) ``batched_nms`` on yolov3's 85-column rows (bf16
      heads, the plain decode, widened to fp32) at batch 8: one K2 launch,
      equal to the CPU's; (g) ``python -m pytorch_yolo_tpu_torch info`` and
-     ``detect`` in subprocesses exit 0 without rebuilding the kernels.
+     ``detect`` in subprocesses exit 0 without rebuilding the kernels;
+ 17. the batch mesh (``parallel.make_batch_mesh``, ``Detector(mesh=)``),
+     each entry a shard: (a) yolov3@416 live bf16 at batch 128 on a mesh
+     of two entries of cuda:0 against the same detector without a mesh on
+     phase 6's frames: set agreement 1.0 (the largest box difference and
+     whether the two are bit-equal printed), the result on cuda:0, and
+     exactly twice the meshless step's launches; (b) yolov3-tiny live w8a8
+     with dynamic scales and bf16 glue on a skewed batch (one bright frame,
+     seven dim) on 2 entries: the shards' own max|x| at the first int8 conv
+     printed and required to differ, the detections bit-equal to meshless
+     (the scale is the whole batch's), every int8 conv on K3/K4 once a
+     shard; (c) on 17a's mesh: a ragged batch (5 -> 6), ``detect_many``
+     u8, ``detect_stream`` (raw and host letterbox) and a ``MicroBatcher``
+     of floor 2 (``batch_max`` 3 -> 4) answering 5 concurrent requests,
+     each at set agreement 1.0 with meshless; (d) bf16 ms/batch at batch
+     128, meshless and mesh in turns (a reading, not a gate); (e) 17a over
+     every card where there is more than one, else one line saying so.
+     The current device is what it was before the phase.
 
 The line before the second-to-last is the kernels' JSON report (``ms``
 eager time, as every kernel's figure since the port began; ``device_ms``
@@ -143,7 +160,7 @@ second-to-last is the card as nvidia-smi names it; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
 Synthetic He-init weights (seed 0) in phases 3-9, live (equalized) ones
-in 10-16; frames from numpy seed 0 (phase 16: seed 16).
+in 10-17; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17).
 """
 
 from __future__ import annotations
@@ -1068,6 +1085,195 @@ def phase16_cli(kernels, v3, cfg, live_raw, dev, card, root, ms6, bf16_drift) ->
     return out
 
 
+def skewed_frames(n: int = 8):
+    """n 480x640 frames: frame 3 over the whole range, the others dim (< 24),
+    so the shards of a mesh see different maxima."""
+    rng = np.random.default_rng(17)
+    x = rng.integers(0, 24, (n, 480, 640, 3), dtype=np.uint8)
+    x[3] = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    return x
+
+
+def bit_equal(ref, ours) -> bool:
+    return len(ref) == len(ours) and all(
+        len(a) == len(b) and all(np.array_equal(getattr(a, f), getattr(b, f))
+                                 for f in ("boxes", "obj", "cls_score", "cls_id"))
+        for a, b in zip(ref, ours))
+
+
+def box_gap(ref, ours) -> float:
+    """The largest |box difference| between two runs' detections, image by
+    image and row by row (inf where the counts differ)."""
+    gap = 0.0
+    for a, b in zip(ref, ours):
+        if len(a) != len(b):
+            return float("inf")
+        if len(a):
+            gap = max(gap, float(np.abs(a.boxes - b.boxes).max()))
+    return gap
+
+
+def phase17_mesh(kernels, v3, live, tiny_spec, tiny_live, frames, dev, card) -> dict:
+    """The batch mesh: a mesh of two entries of cuda:0 (and of every card,
+    where there are more) against the detector without a mesh."""
+    import threading
+
+    from pytorch_yolo_tpu_torch import Detection, Detector
+    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+    from pytorch_yolo_tpu_torch.parallel import make_batch_mesh
+    from pytorch_yolo_tpu_torch.serve import MicroBatcher
+    from pytorch_yolo_tpu_torch.utils.drift import detection_drift
+
+    current = torch.cuda.current_device()
+    bf = dict(dtype=torch.bfloat16, precision="default")
+    out: dict = {}
+    single = Detector(v3, live, device=dev, **bf)
+
+    def one_step(det):
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        res = det.raw_result(frames, size=SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
+        torch.cuda.synchronize()
+        return res, dict(kernels.LAUNCHES)
+
+    ref_res, ref_launches = one_step(single)
+    ref = single._trim(ref_res, BATCH)
+
+    def against_single(devices, tag):
+        """17a/17e: yolov3@416 live bf16 at batch 128 on a mesh over
+        ``devices``: agreement 1.0 with the meshless step, the launches of
+        one step once a shard."""
+        mesh = Detector(v3, live, mesh=make_batch_mesh(devices), **bf)
+        res, launched = one_step(mesh)
+        check_result(res, f"mesh {tag}")
+        if res.boxes.device != dev:
+            fail(f"mesh {tag}: the result lies on {res.boxes.device}, not on {dev}")
+        m = len(devices)
+        if any(launched[k] != m * ref_launches[k] for k in launched):
+            fail(f"mesh {tag}: launches {launched}, expected {m} x the meshless step's "
+                 f"{ref_launches}")
+        ours = mesh._trim(res, BATCH)
+        st = detection_drift(ref, ours)
+        if not (st.ref_dets > 0 and st.set_agreement == 1.0):
+            fail(f"mesh {tag} vs meshless: {st.row()}")
+        say(f"phase 17 yolov3@{SIZE} live bf16 batch {BATCH} on a mesh of {tag}: "
+            f"{st.row()}; largest box difference {box_gap(ref, ours):.6g} px, bit-equal "
+            f"{bit_equal(ref, ours)}; launches {launched} ({m} x {ref_launches})")
+        return mesh, {"agree": st.set_agreement, "box_gap_px": box_gap(ref, ours),
+                      "bit_equal": bit_equal(ref, ours), "launches": launched}
+
+    # 17a: two entries of cuda:0
+    mesh, out["17a"] = against_single([dev, dev], f"2 entries of {dev}")
+
+    # 17b: dynamic int8 (bf16 glue: every other conv on K5, which gives the
+    # same bits at any batch) on a skewed batch: the scale is the whole batch's
+    kw = dict(quant="w8a8", **bf)
+    t_single = Detector(tiny_spec, tiny_live, device=dev, **kw)
+    t_mesh = Detector(tiny_spec, tiny_live, mesh=make_batch_mesh([dev, dev]), **kw)
+    skew = skewed_frames()
+    first = min(map(int, t_mesh.model.qconvs))
+    x = letterbox_batch(torch.from_numpy(skew).to(dev), SIZE)
+    local = [float(t_mesh.model(x[i:i + 4], collect_conv_in_stats=lambda j, v: v.abs().amax()
+                                if j == first else None)[1][first]) for i in (0, 4)]
+    if local[0] == local[1]:
+        fail(f"17b: the skewed batch's shards have one maximum {local} at conv {first}")
+    t_ref = t_single.detect_batch(skew, size=SIZE, conf=0.3)
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    t_ours = t_mesh.detect_batch(skew, size=SIZE, conf=0.3)
+    torch.cuda.synchronize()
+    launched = dict(kernels.LAUNCHES)
+    int8 = {k: launched[k] for k in ("int8_gemm", "int8_conv", "int8_gemm_mma", "int8_conv_mma")}
+    if (sum(int8.values()) != 2 * len(t_mesh.model.qconvs) or not launched["int8_gemm"]
+            or not launched["int8_conv"] or any(v % 2 for v in int8.values())):
+        fail(f"17b: expected every int8 conv on K3/K4 once a shard: {launched}")
+    if not (sum(len(d) for d in t_ref) > 0 and bit_equal(t_ref, t_ours)):
+        fail(f"17b: dynamic int8 on the mesh differs from meshless "
+             f"(largest box difference {box_gap(t_ref, t_ours)})")
+    shard_scaled = [d for i in (0, 4) for d in t_single.detect_batch(skew[i:i + 4], size=SIZE,
+                                                                     conf=0.3)]
+    say(f"phase 17b yolov3-tiny@{SIZE} live w8a8 dynamic (bf16 glue), skewed batch of 8 on 2 "
+        f"entries: shards' max|x| at conv {first} {local[0]:.6g} / {local[1]:.6g}; bit-equal to "
+        f"meshless ({sum(len(d) for d in t_ours)} dets); int8 launches {int8}; a scale per "
+        f"shard instead would give agreement {detection_drift(t_ref, shard_scaled).set_agreement:.3f}")
+    out["17b"] = {"local_max": local, "bit_equal": True, "int8_launches": int8}
+    del t_single, t_mesh
+
+    # 17c: ragged batch, detect_many u8, detect_stream and a MicroBatcher of floor 2
+    mix = np.random.default_rng(71)
+    imgs = [mix.integers(0, 256, shp + (3,), dtype=np.uint8)
+            for shp in ((480, 640), (300, 500), (640, 480), (123, 777), (720, 1280))] * 2
+    five = np.stack([im for im in imgs if im.shape[:2] == (480, 640)] * 5)[:5]
+    checks = {
+        "ragged 5 -> 6": (single.detect_batch(five, size=SIZE, conf=CONF),
+                          mesh.detect_batch(five, size=SIZE, conf=CONF)),
+        "detect_many u8, 10 mixed in chunks of 4": (
+            single.detect_many(imgs, size=SIZE, conf=CONF, batch=4, transfer="u8"),
+            mesh.detect_many(imgs, size=SIZE, conf=CONF, batch=4, transfer="u8")),
+        "detect_stream, 5 mixed, host letterbox u8": (
+            list(single.detect_stream(iter(imgs[:5]), size=SIZE, conf=CONF, host_preproc=True,
+                                      transfer="u8")),
+            list(mesh.detect_stream(iter(imgs[:5]), size=SIZE, conf=CONF, host_preproc=True,
+                                    transfer="u8"))),
+        "detect_stream, 3 frames": (
+            list(single.detect_stream(iter(list(five[:3])), size=SIZE, conf=CONF)),
+            list(mesh.detect_stream(iter(list(five[:3])), size=SIZE, conf=CONF))),
+    }
+    batcher = MicroBatcher(mesh, SIZE, CONF, IOU, batch_max=3, batch_timeout_ms=20.0)
+    try:
+        if (batcher.bucket_floor, batcher.batch_max) != (2, 4):
+            fail(f"17c: MicroBatcher on 2 entries: floor {batcher.bucket_floor}, batch_max "
+                 f"{batcher.batch_max}; expected 2 and 4")
+        pend: list = [None] * 5
+        threads = [threading.Thread(target=lambda i=i, im=im: pend.__setitem__(i, batcher.submit(im)))
+                   for i, im in enumerate(imgs[:5])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        for p in pend:
+            if p is None or not p.event.wait(timeout=120) or p.error is not None:
+                fail(f"17c: a MicroBatcher request failed: {None if p is None else p.error}")
+    finally:
+        batcher.close()
+    served = [Detection(boxes=np.asarray(p.result["boxes"], np.float32).reshape(-1, 4),
+                        obj=np.asarray(p.result["obj"], np.float32),
+                        cls_score=np.asarray(p.result["cls_score"], np.float32),
+                        cls_id=np.asarray(p.result["cls_id"], np.int32)) for p in pend]
+    alone = [single.detect_many([im], size=SIZE, conf=CONF, iou=IOU, batch=1, transfer="u8")[0]
+             for im in imgs[:5]]
+    checks["MicroBatcher floor 2, 5 concurrent requests"] = (alone, served)
+    out["17c"] = {}
+    for name, (a, b) in checks.items():
+        st = detection_drift(a, b)
+        if not (st.ref_dets > 0 and st.set_agreement == 1.0 and len(a) == len(b)):
+            fail(f"17c {name}: mesh vs meshless {st.row()}")
+        out["17c"][name] = {"agree": st.set_agreement, "box_gap_px": box_gap(a, b),
+                            "bit_equal": bit_equal(a, b)}
+        say(f"phase 17c yolov3@{SIZE} live bf16, {name}: mesh vs meshless {st.row()}, largest "
+            f"box difference {box_gap(a, b):.6g} px, bit-equal {bit_equal(a, b)}")
+
+    # 17d: ms/batch, meshless and mesh in turns (a reading, not a gate)
+    def step_of(det):
+        return lambda: det.raw_result(frames, size=SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
+
+    turns = [time_ms(step_of(d), iters=10) for d in (single, mesh, mesh, single)]
+    out["17d"] = {"meshless_ms": [turns[0], turns[3]], "mesh_ms": [turns[1], turns[2]]}
+    say(f"phase 17d yolov3@{SIZE} live bf16 batch {BATCH} ms/batch in turns (meshless, mesh of 2 "
+        f"entries of {dev}, mesh, meshless): {turns[0]:.3f} / {turns[1]:.3f} / {turns[2]:.3f} / "
+        f"{turns[3]:.3f}; mesh {(turns[1] + turns[2]) / (turns[0] + turns[3]) - 1:+.2%} on {card}")
+    del mesh
+
+    # 17e: every card, where there is more than one
+    count = torch.cuda.device_count()
+    if count > 1:
+        _, out["17e"] = against_single([torch.device("cuda", i) for i in range(count)],
+                                       f"{count} cards")
+    else:
+        say("phase 17e: one card (torch.cuda.device_count() == 1): only the one-card mesh ran")
+    if torch.cuda.current_device() != current:
+        fail(f"phase 17 moved the current device from {current} to {torch.cuda.current_device()}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -1697,6 +1903,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli16 = phase16_cli(kernels, v3, cfg, live_raw, dev, card, root, ms,
                         rows11["bf16 natural stem"]["agree"])
+    torch.cuda.empty_cache()
+    mesh17 = phase17_mesh(kernels, v3, live, tiny_spec, tiny_live, frames, dev, card)
     k5_main = k5["timed"][f"3x3 s1 {SIZE // 8}² 128->256"]
 
     report = {"kernels": [
@@ -1745,6 +1953,7 @@ def main() -> None:
     ]}
     say(f"phase 15 timings: {json.dumps(prepared)}")
     say(f"phase 16 timings: {json.dumps(cli16)}")
+    say(f"phase 17 timings: {json.dumps(mesh17)}")
     say(json.dumps(report))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,6 +18,7 @@ from .config import ModelSpec, build_spec, load_model_spec, parse_cfg_file, pars
 from .models.zoo import available_models, model_spec, write_cfg
 from .ops.nms import NMSResult
 from .weights import fold_batchnorm, load_weights, random_raw_params, write_weights_file
+from . import parallel  # the batch mesh: Detector(mesh=parallel.make_batch_mesh(...))
 
 __all__ = [
     "Detection",

@@ -19,6 +19,12 @@ through pinned staging buffers with ``non_blocking`` copies.
 and bias correction); ``quant="w8"`` stores int8 weights and runs fp
 convs.  ``stem_s2d`` picks the space-to-depth stem; ``load(...,
 synthetic="live")`` gives variance-equalized synthetic weights.
+
+``mesh=`` (``parallel.sharding.make_batch_mesh``) splits every batch over
+the mesh's devices, as the JAX package's batch mesh does: one model replica
+a device, shard i of the batch through the pipeline on entry i's device,
+the dynamic int8 scale taken over the whole batch, the fixed-shape results
+gathered on the first device.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ from .ops.kernels import decode_score_all
 from .ops.nms import NMSResult, batched_nms_fused
 from .ops.postprocess import unletterbox_boxes, unletterbox_boxes_dynamic
 from .ops.preprocess import letterbox_batch, letterbox_geometry, letterbox_host
+from .parallel.sharding import (BatchMesh, gather_batch, pad_to_multiple, replicate_params,
+                                shard_batch)
 from .utils.names import load_classes
 from .weights import (Params, equalize_raw_params, fold_batchnorm, load_weights,
                       random_raw_params)
@@ -99,6 +107,27 @@ class _PipelineKey:
 _IDENTITY_GEO = (1.0, 0.0, 0.0, 1.0, 1.0)  # the geometry row of a padding frame
 
 
+def _pad_rows(x, k: int):
+    """``x`` (numpy array or tensor) with ``k`` zero rows appended."""
+    if isinstance(x, np.ndarray):
+        return np.concatenate([x, np.zeros((k,) + x.shape[1:], x.dtype)])
+    return torch.cat([x, x.new_zeros((k,) + tuple(x.shape[1:]))])
+
+
+def _resolve_device(device, mesh: "BatchMesh | None") -> torch.device:
+    """The detector's device: ``device``, else the mesh's first entry, else
+    "cuda".  A ``device`` that contradicts the mesh raises."""
+    if mesh is None:
+        return torch.device("cuda" if device is None else device)
+    first = mesh.devices[0]
+    if device is not None:
+        d = torch.device(device)
+        if d.type != first.type or d.index not in (None, first.index):
+            raise ValueError(f"device {device!r} contradicts the mesh, whose first entry is "
+                             f"{first}")
+    return first
+
+
 def _revive_scale(v):
     """A persisted scale: {"per_channel": [...]} (a smoothed grid), a list
     (per-branch split scales) or a float."""
@@ -143,14 +172,25 @@ class Detector:
     beyond the 0.2-0.8 % that runs of one code differ by: K5's packed route takes the
     plain stem's 3-channel conv, and the s2d stem's 12-channel conv takes the gather.
     ``PYTORCH_YOLO_STEM_S2D=1`` turns it on where the stem is conv_conv or
-    conv_pool and its convs stay fp; ``=0`` keeps it off."""
+    conv_pool and its convs stay fp; ``=0`` keeps it off.
+
+    ``mesh`` (a ``parallel.sharding.BatchMesh``) serves every batch split
+    over its entries, shard i on entry i's device; ``device`` defaults to
+    its first entry.  The ``mesh`` attribute is always a mesh: one entry,
+    the detector's device, where none is given (``mesh.size > 1`` where a
+    batch is split).  Calibration and the equalizer run once, on that
+    device, before the replicas are made (one a distinct device; repeated
+    entries share one); ``model`` is the first replica.  A batch must
+    divide the mesh: ``detect_batch``, ``detect_many``, ``detect_stream``
+    and ``warmup`` pad it (``_pad_to_mesh``) and trim the padding,
+    ``raw_result`` and ``detect_prepared`` raise."""
 
     def __init__(
         self,
         spec: ModelSpec,
         params: Params,
         class_names: Sequence[str] | None = None,
-        device: "str | torch.device" = "cuda",
+        device: "str | torch.device | None" = None,
         dtype: torch.dtype = torch.float32,
         precision: str = "highest",
         score_mode: str = "obj",
@@ -172,8 +212,10 @@ class Detector:
         cfg_text: "str | None" = None,
         interp: str = "linear",
         keep_fp32_params: bool = True,
+        mesh: "BatchMesh | None" = None,
     ) -> None:
-        self.device = torch.device(device)
+        self.device = _resolve_device(device, mesh)
+        self.mesh = mesh if mesh is not None else BatchMesh((self.device,))
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but torch.cuda.is_available() "
                                "is False")
@@ -216,13 +258,16 @@ class Detector:
                                     quant_smooth, quant_bias_correct, quant_act_scales,
                                     quant_bias_delta)
         self.stem_s2d = self._resolve_stem_s2d(stem_s2d)
-        self.model = Darknet(spec, params, dtype=dtype, precision=precision,
-                             quant=quant, stem_s2d=self.stem_s2d).to(self.device)
+        # one replica an entry of the mesh (repeated devices share one)
+        self._replicas = replicate_params(
+            Darknet(spec, params, dtype=dtype, precision=precision, quant=quant,
+                    stem_s2d=self.stem_s2d), self.mesh)
+        self.model = self._replicas[0]
         self._pipelines: "collections.OrderedDict[_PipelineKey, object]" = (
             collections.OrderedDict())
         self.max_cached_pipelines = 32  # LRU bound for long-running servers
-        # pinned host buffers of the prepared path, by (shape, dtype): a ring
-        # of slots, each with the event of its last copy
+        # pinned host buffers of the prepared path, by (device, shape, dtype):
+        # a ring of slots, each with the event of its last copy
         self._staging: "collections.OrderedDict[tuple, list]" = collections.OrderedDict()
 
     @staticmethod
@@ -360,7 +405,7 @@ class Detector:
         cfg: str,
         weights: str | None = None,
         names: str | None = None,
-        device: "str | torch.device" = "cuda",
+        device: "str | torch.device | None" = None,
         dtype: torch.dtype = torch.float32,
         precision: str = "highest",
         synthetic: str = "he",
@@ -374,8 +419,8 @@ class Detector:
         sigmoids), ``"live"`` adds the LSUV variance equalizer
         (``weights.equalize_raw_params``, run on ``device``), which puts the
         head logits in the sigmoid's responsive range.  ``kw`` are the
-        constructor's other arguments (``score_mode``, ``stem_s2d``,
-        ``interp``, ``keep_fp32_params``, ``quant*``)."""
+        constructor's other arguments (``mesh``, ``score_mode``,
+        ``stem_s2d``, ``interp``, ``keep_fp32_params``, ``quant*``)."""
         if cfg.endswith(".cfg"):
             with open(cfg, "r", encoding="utf-8") as f:
                 cfg_text = f.read()
@@ -395,7 +440,8 @@ class Detector:
                                  "'live')")
             raw = random_raw_params(spec)
             if synthetic == "live":
-                raw = equalize_raw_params(spec, raw, device=device)
+                raw = equalize_raw_params(spec, raw,
+                                          device=_resolve_device(device, kw.get("mesh")))
             params = fold_batchnorm(spec, raw)
         det = cls(spec, params, class_names=load_classes(names),
                   device=device, dtype=dtype, precision=precision, cfg_text=cfg_text, **kw)
@@ -481,29 +527,35 @@ class Detector:
                 "detect_stream, the median of 3 windows of 480 frames: 9.268 ms a frame, "
                 "8.654-9.901, against 5.748, 5.220-6.372; chip_smoke.py phase 15); serve "
                 "batch 1 with bf16 instead")
-        model, spec, interp = self.model, self.spec, self.interp
+        replicas, spec, interp, home = self._replicas, self.spec, self.interp, self.device
 
-        def postprocess(x: torch.Tensor) -> NMSResult:
-            rows = decode_score_all(model(x, _native_heads=True), spec,  # bf16 heads as they are
-                                    score_mode=key.score_mode)
-            return batched_nms_fused(rows, conf_thresh=key.conf, iou_thresh=key.iou,
-                                     max_det=key.max_det)
+        def postprocess(xs, unletterbox) -> NMSResult:
+            """Shard i's forward (in lockstep with the others), K1, top-K, K2
+            and ``unletterbox(i, boxes)`` on its device; the results
+            gathered on the first device."""
+            parts = []
+            for i, heads in enumerate(Darknet.forward_mesh(replicas, xs, _native_heads=True)):
+                rows = decode_score_all(heads, spec, score_mode=key.score_mode)  # bf16 as they are
+                res = batched_nms_fused(rows, conf_thresh=key.conf, iou_thresh=key.iou,
+                                        max_det=key.max_det)
+                parts.append(res._replace(boxes=unletterbox(i, res.boxes)))
+            return NMSResult(*(gather_batch(field, home) for field in zip(*parts)))
 
         if key.prepared:
             # host-letterboxed canvases with one geometry row an image: one
             # pipeline serves every source resolution
-            def prepared(x: torch.Tensor, geos: torch.Tensor) -> NMSResult:
-                if x.dtype == torch.uint8:  # uint8 transfer: / 255 on the device
-                    x = x.to(torch.float32).mul_(1.0 / 255.0)  # as letterbox_batch divides
-                res = postprocess(x)
-                return res._replace(boxes=unletterbox_boxes_dynamic(res.boxes, geos))
+            def prepared(xs, geos) -> NMSResult:
+                # uint8 transfer: / 255 on the device, as letterbox_batch divides
+                xs = [x.to(torch.float32).mul_(1.0 / 255.0) if x.dtype == torch.uint8 else x
+                      for x in xs]
+                return postprocess(xs, lambda i, b: unletterbox_boxes_dynamic(b, geos[i]))
 
             return prepared
         geo = letterbox_geometry(key.orig_h, key.orig_w, key.size)
 
-        def pipeline(imgs: torch.Tensor) -> NMSResult:
-            res = postprocess(letterbox_batch(imgs, size=key.size, bgr=key.bgr, method=interp))
-            return res._replace(boxes=unletterbox_boxes(res.boxes, geo))
+        def pipeline(shards) -> NMSResult:
+            xs = [letterbox_batch(s, size=key.size, bgr=key.bgr, method=interp) for s in shards]
+            return postprocess(xs, lambda i, b: unletterbox_boxes(b, geo))
 
         return pipeline
 
@@ -531,13 +583,18 @@ class Detector:
                                  "(deepest head stride of this model)")
         return size
 
-    def _to_device(self, images) -> torch.Tensor:
-        if images.ndim != 4:
-            raise ValueError(f"expected (N, H, W, C) uint8 batch, got {tuple(images.shape)}")
-        images = _normalize_channels(images)
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(np.ascontiguousarray(images))
-        return images.to(self.device).contiguous()
+    def _pad_to_mesh(self, x, geos: "np.ndarray | None" = None, rows: int = 0):
+        """Pad a (usually batch-1) dispatch with zero frames (and identity
+        geometries) up to a multiple of the mesh size, at least ``rows``;
+        callers trim back with :meth:`_trim`.  Off-mesh it pads to ``rows``
+        only."""
+        k = pad_to_multiple(max(x.shape[0], rows), self.mesh.size) - x.shape[0]
+        if k:
+            x = _pad_rows(x, k)
+            if geos is not None:
+                geos = np.concatenate([np.asarray(geos, np.float32),
+                                       np.tile([_IDENTITY_GEO], (k, 1)).astype(np.float32)])
+        return (x, geos) if geos is not None else x
 
     # ------------------------------------------------------------------
     # Detection entry points
@@ -552,47 +609,60 @@ class Detector:
                      conf: float = 0.5, iou: float = 0.4, max_det: int = 300,
                      bgr: bool = True) -> list[Detection]:
         """Detect objects in a uniform (N, H, W, 3) uint8 batch (numpy array
-        or torch tensor on any device)."""
-        res = self.raw_result(images, size, conf, iou, max_det, bgr)
-        return self._trim(res, res.valid.shape[0])
+        or torch tensor on any device).  On a mesh the batch is padded to a
+        multiple of the mesh size and the padding trimmed."""
+        res = self.raw_result(self._pad_to_mesh(images), size, conf, iou, max_det, bgr)
+        return self._trim(res, images.shape[0])
 
     def raw_result(self, images, size: "int | tuple[int, int] | None" = None,
                    conf: float = 0.5, iou: float = 0.4, max_det: int = 300,
                    bgr: bool = True) -> NMSResult:
-        """Device-resident fixed-shape result (no host trim) — for pipelining."""
-        imgs = self._to_device(images)
-        key = _PipelineKey(batch=imgs.shape[0], orig_h=imgs.shape[1], orig_w=imgs.shape[2],
-                           size=self._resolve_size(size), conf=conf, iou=iou,
-                           max_det=max_det, bgr=bgr, score_mode=self.score_mode)
-        return self._pipeline(key)(imgs)
+        """Device-resident fixed-shape result (no host trim) — for pipelining.
 
-    def _stage(self, arr) -> torch.Tensor:
-        """A host array (or tensor) on the detector's device.  On the card it
-        is copied into a pinned staging buffer and sent with a
-        ``non_blocking`` copy, so the host goes on (letterboxing the next
-        chunk) while it travels; each (shape, dtype) has a ring of three
-        buffers, and a buffer is reused only after its last copy is done."""
+        No mesh padding (the caller owns the batch's geometry): on a mesh a
+        batch that does not divide its size raises.  The result lies on
+        the detector's device (the mesh's first)."""
+        if images.ndim != 4:
+            raise ValueError(f"expected (N, H, W, C) uint8 batch, got {tuple(images.shape)}")
+        if images.shape[0] % self.mesh.size:
+            raise ValueError(
+                f"raw_result batch {images.shape[0]} must divide the mesh size "
+                f"{self.mesh.size}; use detect_batch for auto-padding")
+        shards = shard_batch(_normalize_channels(images), self.mesh)
+        key = _PipelineKey(batch=images.shape[0], orig_h=images.shape[1],
+                           orig_w=images.shape[2], size=self._resolve_size(size), conf=conf,
+                           iou=iou, max_det=max_det, bgr=bgr, score_mode=self.score_mode)
+        return self._pipeline(key)(shards)
+
+    def _stage(self, arr, device: torch.device) -> torch.Tensor:
+        """A host array (or tensor) on ``device``.  On a card it is copied
+        into a pinned staging buffer and sent with a ``non_blocking`` copy
+        on the card's current stream, so the host goes on (letterboxing the
+        next chunk) while it travels.  Each (device, shape, dtype) has a ring
+        of three buffers for each of the device's mesh entries, and a buffer
+        is reused only after its last copy is done: the event of the copy
+        is recorded on the stream that carried it."""
         t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda" or t.device.type != "cpu":
-            return t.to(self.device)
-        key = (tuple(t.shape), t.dtype)
+        if device.type != "cuda" or t.device.type != "cpu":
+            return t.to(device)
+        key = (device, tuple(t.shape), t.dtype)
         ring = self._staging.get(key)
         if ring is None:
-            ring = [0] + [[torch.empty(key[0], dtype=t.dtype, pin_memory=True), None]
-                          for _ in range(3)]
+            ring = [0] + [[torch.empty(key[1], dtype=t.dtype, pin_memory=True), None]
+                          for _ in range(3 * self.mesh.devices.count(device))]
             self._staging[key] = ring
-            while len(self._staging) > 8:
+            while len(self._staging) > 8 * self.mesh.size:
                 self._staging.popitem(last=False)
         else:
             self._staging.move_to_end(key)
-        ring[0] = ring[0] % 3 + 1
+        ring[0] = ring[0] % (len(ring) - 1) + 1
         slot = ring[ring[0]]
         if slot[1] is not None:
             slot[1].synchronize()  # its last copy has left the buffer
         slot[0].copy_(t)
-        out = slot[0].to(self.device, non_blocking=True)
+        out = slot[0].to(device, non_blocking=True)
         slot[1] = torch.cuda.Event()
-        slot[1].record()
+        slot[1].record(torch.cuda.current_stream(device))
         return out
 
     def detect_prepared(self, x, geos, size: "int | tuple[int, int]", conf: float = 0.5,
@@ -604,12 +674,21 @@ class Detector:
         quarter of the bytes to copy); ``geos``: (N, 5) float32 [scale,
         pad_x, pad_y, orig_w, orig_h].  One pipeline a batch size serves
         every source resolution.  Returns the device-resident result (no
-        host trim)."""
-        key = _PipelineKey(batch=x.shape[0], orig_h=0, orig_w=0, size=size, conf=conf, iou=iou,
+        host trim).  On a mesh each shard is staged straight to its device
+        (never through the first), and a batch that does not divide the
+        mesh raises."""
+        n, m = x.shape[0], self.mesh.size
+        if n % m:
+            raise ValueError(f"detect_prepared batch {n} must divide the mesh size {m}; pad "
+                             "it with _pad_to_mesh")
+        key = _PipelineKey(batch=n, orig_h=0, orig_w=0, size=size, conf=conf, iou=iou,
                            max_det=max_det, bgr=False, score_mode=self.score_mode,
                            prepared=True)
         fn = self._pipeline(key)
-        return fn(self._stage(x), self._stage(np.asarray(geos, np.float32)))
+        geos, k = np.asarray(geos, np.float32), n // m
+        return fn([self._stage(x[i * k:(i + 1) * k], d) for i, d in enumerate(self.mesh.devices)],
+                  [self._stage(geos[i * k:(i + 1) * k], d)
+                   for i, d in enumerate(self.mesh.devices)])
 
     def detect_many(self, images: Sequence, size: "int | tuple[int, int] | None" = None,
                     conf: float = 0.5, iou: float = 0.4, max_det: int = 300, bgr: bool = True,
@@ -621,7 +700,8 @@ class Detector:
         padded, so every chunk reuses one pipeline).  Chunks are double
         buffered: the host letterbox of chunk t+1 runs while the device
         works on chunk t.  ``transfer="u8"`` ships rounded uint8 canvases
-        (a quarter of the bytes; <= 0.5/255 rounding a pixel)."""
+        (a quarter of the bytes; <= 0.5/255 rounding a pixel).  On a mesh
+        each chunk is padded up to a multiple of the mesh size as well."""
         rsize = self._resolve_size(size)
         out_dtype = _transfer_dtype(transfer)
         out: list[Detection] = []
@@ -634,14 +714,9 @@ class Detector:
                                        method=self.interp, out_dtype=out_dtype)
                 lbs.append(lb)
                 geos.append([g.scale, g.pad_x, g.pad_y, g.orig_w, g.orig_h])
-            x = np.stack(lbs)
-            ge = np.asarray(geos, dtype=np.float32)
-            n = len(chunk)
-            if n < batch:  # pad so every chunk reuses one pipeline
-                x = np.concatenate([x, np.zeros((batch - n,) + x.shape[1:], x.dtype)])
-                ge = np.concatenate([ge, np.tile([_IDENTITY_GEO], (batch - n, 1))
-                                     .astype(np.float32)])
-            return x, ge, n
+            # pad so every chunk reuses one pipeline
+            x, ge = self._pad_to_mesh(np.stack(lbs), np.asarray(geos, np.float32), rows=batch)
+            return x, ge, len(chunk)
 
         for start in range(0, len(images), batch):
             x, ge, n = prepare(images[start:start + batch])
@@ -662,7 +737,8 @@ class Detector:
         work of item t+1 (decode, letterbox, bookkeeping) overlaps the
         device work of item t; yields :class:`Detection` in input order.
         ``host_preproc=True`` letterboxes on the host and feeds the prepared
-        pipeline (heterogeneous source sizes share it)."""
+        pipeline (heterogeneous source sizes share it).  On a mesh each
+        dispatch is padded to the mesh size (the results trimmed to 1)."""
         inflight: collections.deque = collections.deque()
         rsize = self._resolve_size(size)
         out_dtype = _transfer_dtype(transfer)
@@ -673,11 +749,12 @@ class Detector:
                                          method=self.interp, out_dtype=out_dtype)
                 geos = np.asarray([[geo.scale, geo.pad_x, geo.pad_y, geo.orig_w, geo.orig_h]],
                                   dtype=np.float32)
-                inflight.append(self.detect_prepared(lb[None], geos, rsize, conf=conf, iou=iou,
+                x, geos = self._pad_to_mesh(lb[None], geos)
+                inflight.append(self.detect_prepared(x, geos, rsize, conf=conf, iou=iou,
                                                      max_det=max_det))
             else:
-                inflight.append(self.raw_result(img[None], size=size, conf=conf, iou=iou,
-                                                max_det=max_det, bgr=bgr))
+                inflight.append(self.raw_result(self._pad_to_mesh(img[None]), size=size,
+                                                conf=conf, iou=iou, max_det=max_det, bgr=bgr))
 
         it = iter(images)
         for img in it:
@@ -695,7 +772,7 @@ class Detector:
                batch: int = 1, **kw) -> None:
         """Build and run once the pipelines of the given (H0, W0) x size
         buckets (on the card: the kernel library and every launch's
-        first-call set-up)."""
+        first-call set-up); on a mesh ``batch`` is padded to its size."""
         for h, w in shapes:
             dummy = np.zeros((batch, h, w, 3), dtype=np.uint8)
             for s in sizes:

@@ -12,6 +12,9 @@ Every subcommand and flag of the JAX command line, plus ``--device``
 on on the CPU; ``--device cpu`` runs the kernels' plain versions).  Flag
 names mirror the reference CLI (--confidence, --nms_thresh, --reso).
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace into DIR.
+``--devices N`` splits every batch over the first N local cards (a batch
+mesh, ``parallel/sharding.py``; 0 = every card) and rounds ``--batch`` up
+to a multiple of N.
 
 Images are read and written with OpenCV where ``cv2`` imports.  Without it
 (the port's card machine has none) the command line reads PNG with the
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from .api import Detector
+from .parallel.sharding import make_batch_mesh, pad_to_multiple
 from .serve import decode_image, encode_png
 from .utils.draw import draw_detections
 from .utils.profiling import PipelineStats
@@ -141,9 +145,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "are written there (calibrate once, serve many); "
                         "either package's file loads in the other")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="number of local cards to split the batch over.  1 = "
-                        "one card (default), 0 = every local card; more than "
-                        "one needs the batch mesh, which is not ported yet")
+                   help="shard the batch over the first N local cards via a "
+                        "batch mesh (one model replica a card, results "
+                        "gathered on the first; parallel/sharding.py).  1 = "
+                        "single device (default), 0 = every local device")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted and ignored: the JAX package's persistent "
                         "XLA compilation cache is not ported (the kernels are "
@@ -207,6 +212,14 @@ def _raise_on_nonfinite(index: int, x: torch.Tensor) -> None:
         raise FloatingPointError(f"--debug-nans: layer {index} output is not finite")
 
 
+def _local_devices(device: torch.device) -> list[torch.device]:
+    """The local devices ``--devices`` counts: every CUDA card for a CUDA
+    ``--device``, else the one CPU."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
 def _build_detector(args) -> Detector:
     source = args.cfg or args.model
     if source is None:
@@ -218,15 +231,25 @@ def _build_detector(args) -> Detector:
     kw = {"interp": getattr(args, "interp", "linear")}
     n_dev = getattr(args, "devices", 1)
     if n_dev != 1:
-        count = torch.cuda.device_count() if device.type == "cuda" else 1
+        devs = _local_devices(device)
         if n_dev == 0:
-            n_dev = count
-        if not 1 <= n_dev <= count:
-            raise SystemExit(f"--devices {n_dev}: only {count} local "
+            n_dev = len(devs)
+        if not 1 <= n_dev <= len(devs):
+            raise SystemExit(f"--devices {n_dev}: only {len(devs)} local "
                              f"device(s) available")
         if n_dev > 1:
-            raise SystemExit(f"--devices {n_dev}: the batch mesh (a batch split over "
-                             "several cards) is not ported yet; run on one card")
+            kw.update(mesh=make_batch_mesh(devs[:n_dev]))
+            device = None  # the mesh's first entry
+            log.info("sharding batches over %d devices", n_dev)
+            batch = getattr(args, "batch", None)
+            if batch is not None:
+                # prepared pipelines (detect_many/evaluate/serve) stack
+                # fixed-size chunks, which must divide the mesh: round the
+                # bucket up rather than erroring later
+                args.batch = pad_to_multiple(batch, n_dev)
+                if args.batch != batch:
+                    log.info("rounded --batch %d up to %d (multiple of %d "
+                             "mesh devices)", batch, args.batch, n_dev)
     if args.bf16:
         kw.update(dtype=torch.bfloat16, precision="default")
     calib_dir = getattr(args, "int8_calib", None)
@@ -349,7 +372,8 @@ def _build_detector(args) -> Detector:
     det = Detector.load(source, weights, names=args.names, device=device, **kw)
     det.weights_source = weights  # provenance: None = synthetic random
     if getattr(args, "debug_nans", False):
-        det.model.layer_hook = _raise_on_nonfinite
+        for replica in det._replicas:
+            replica.layer_hook = _raise_on_nonfinite
     if scales_path and not os.path.exists(scales_path):
         state = det.quant_state()
         with open(scales_path, "w", encoding="utf-8") as f:
@@ -676,7 +700,7 @@ def cmd_serve(args) -> int:
     # run once every batch bucket the MicroBatcher can dispatch (its own
     # batch_max, so warmup cannot desync from the flush arithmetic): no
     # first client request waits on the kernel library or a first launch
-    ladder = bucket_ladder(server.batcher.batch_max)
+    ladder = bucket_ladder(server.batcher.batch_max, server.batcher.bucket_floor)
     rh, rw = (args.reso, args.reso) if isinstance(args.reso, int) else args.reso
     for b in ladder:
         x = np.zeros((b, rh, rw, 3), np.uint8)
@@ -702,6 +726,10 @@ def cmd_profile(args) -> int:
     from .utils.profiling import profile_pipeline, profile_stages
 
     det = _build_detector(args)
+    if det.mesh.size > 1:
+        print(f"profile on a mesh of {det.mesh.size}: the first replica ({det.device}) with "
+              f"the whole batch of {args.batch}, as the JAX profiler times replicated params "
+              "on an unsharded input", file=sys.stderr)
     if args.pipeline:
         rows = profile_pipeline(det, size=args.reso, batch=args.batch,
                                 iters=args.iters)

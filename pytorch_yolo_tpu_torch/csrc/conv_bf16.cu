@@ -92,6 +92,7 @@
 
 #include <cuda_bf16.h>
 
+#include "device_guard.cuh"
 #include "int8_igemm.cuh"
 #include "int8_wgmma.cuh"
 
@@ -944,8 +945,9 @@ inline bool encode_im2col(CUtensorMap* map, const ConvBf16Args& a, int row) {
 // _ConvBf16Args).  Requires C % 8 == 0 and x, w, shortcut and out 16-byte
 // aligned (ops/kernels.py: conv_bf16 checks and pads).
 extern "C" int yolo_conv_bf16(const void* args, int bn, int route, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaError_t err = cudaSuccess;
   const cb::ConvBf16Args& a = *static_cast<const cb::ConvBf16Args*>(args);
   const bool packed = route == cb::kRoutePacked;
   const bool im2col = route == cb::kRouteIm2col || route == cb::kRouteIm2col32;

@@ -44,6 +44,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kMaxHeads = 8;         // ops/kernels.py: MAX_HEADS
@@ -268,8 +272,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct GridCache {
-  int device = -1, smem = -1, grid = 0;
+// One device's launch set-up, for one instantiation: the most dynamic
+// shared memory the kernel is allowed there (only ever raised, so a launch
+// that another thread set up for less stays valid), and the grid of each
+// shared-memory size launched there (a few: one a head dtype and class count).
+constexpr int kDevices = 64;
+constexpr int kSizes = 8;
+struct DeviceGrids {
+  int allowed = 0, used = 0;
+  int smem[kSizes] = {}, grid[kSizes] = {};
 };
 
 template <typename T>
@@ -293,20 +304,39 @@ int launch(DecodeArgs args, int device, cudaStream_t stream) {
   const int smem = kBarBytes + args.stages * args.stage_bytes;
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
 
-  static GridCache cache;  // the grid for the last (device, shared memory) pair
-  if (cache.device != device || cache.smem != smem) {
-    cudaError_t err = cudaFuncSetAttribute(decode_score_ring_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_score_ring_kernel<T>,
-                                                        kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    cache = {device, smem, max(1, per_sm) * sms};
+  // one table a device, under a lock: launches that alternate between the
+  // cards of a mesh or between sizes, or come from several threads, keep
+  // every card's grids and never lower another launch's allowance
+  static std::mutex mu;
+  static DeviceGrids grids[kDevices];
+  if (device < 0 || device >= kDevices) return (int)cudaErrorInvalidDevice;
+  int most = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    DeviceGrids& g = grids[device];
+    for (int i = 0; i < min(g.used, kSizes) && !most; ++i)
+      if (g.smem[i] == smem) most = g.grid[i];
+    if (!most) {
+      cudaError_t err;
+      if (smem > g.allowed) {
+        err = cudaFuncSetAttribute(decode_score_ring_kernel<T>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        g.allowed = smem;
+      }
+      int per_sm = 0, sms = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_score_ring_kernel<T>,
+                                                          kThreads, smem);
+      if (err != cudaSuccess) return (int)err;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return (int)err;
+      most = max(1, per_sm) * sms;
+      const int slot = g.used++ % kSizes;  // past kSizes sizes, the oldest goes
+      g.smem[slot] = smem;
+      g.grid[slot] = most;
+    }
   }
-  const int grid = min(tiles, cache.grid);
+  const int grid = min(tiles, most);
   decode_score_ring_kernel<T><<<grid, kThreads, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
@@ -316,8 +346,8 @@ int launch(DecodeArgs args, int device, cudaStream_t stream) {
 // Launches K1 over the heads of `args` (a DecodeArgs) of `elem_bytes`-byte
 // values (2: bf16, 4: fp32) on `stream`; returns cudaGetLastError() (0 = ok).
 extern "C" int yolo_decode_score(const void* args, int elem_bytes, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const DecodeArgs& a = *static_cast<const DecodeArgs*>(args);
   if (elem_bytes == 2) return launch<uint16_t>(a, device, (cudaStream_t)stream);
   if (elem_bytes == 4) return launch<float>(a, device, (cudaStream_t)stream);

@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kMaxGroups = 4;
@@ -361,8 +363,8 @@ __global__ void __launch_bounds__(kThreads) igemm_kernel(const IgemmArgs a) {
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 template <bool kConv>
 int launch_igemm(const IgemmArgs* args, int vec, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const IgemmArgs a = *args;
   if (a.groups < 1 || a.groups > kMaxGroups) return (int)cudaErrorInvalidValue;
   if (a.M == 0 || a.O == 0) return 0;

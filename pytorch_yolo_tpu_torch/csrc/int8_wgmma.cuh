@@ -56,6 +56,7 @@
 
 #include <mutex>
 
+#include "device_guard.cuh"
 #include "int8_igemm.cuh"
 
 namespace {
@@ -689,8 +690,9 @@ cudaError_t launch_one(const Params& p, int device, int sms, cudaStream_t s) {
 // and w are 16-byte aligned.
 template <bool kGather>
 int launch_wgmma(const IgemmArgs* args, int bn, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaError_t err = cudaSuccess;
   const IgemmArgs& a = *args;
   const bool split = a.sxg != nullptr;
   if (a.groups < 1 || a.groups > kMaxGroups || (bn != 128 && bn != 256) || (split && bn != 128))

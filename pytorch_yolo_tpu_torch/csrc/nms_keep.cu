@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -279,8 +281,9 @@ __global__ void __launch_bounds__(1024)
 extern "C" int yolo_nms_keep(const float* boxes, const uint8_t* valid, const float* cls,
                              uint8_t* keep, uint32_t* scratch, int n, int k, float iou_thresh,
                              int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaError_t err = cudaSuccess;
   if (k < 1 || reinterpret_cast<uintptr_t>(boxes) % 16 != 0 || (k > kMaxK && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;

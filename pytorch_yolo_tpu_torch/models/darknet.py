@@ -48,7 +48,7 @@ widens them in registers (bf16 -> fp32 is exact, so the rows are the same).
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -68,6 +68,7 @@ from ..config import (
     head_strides,
 )
 from ..ops.kernels import conv_bf16
+from ..ops.quant import dynamic_amax, quantized_conv, scale_of_amax
 
 
 def apply_activation(y: torch.Tensor, activation: str) -> torch.Tensor:
@@ -348,8 +349,17 @@ class Darknet(nn.Module):
                 del self.convs["1"]
                 self.stem1 = self._fp_conv(_pack_s2d_conv1(fp32(1, "w")), fp32(1, "b"), 1, 0,
                                            "leaky")
+        # each conv's module by layer index, in plain dicts: the layer loop
+        # reads one a conv, and a ModuleDict lookup is a Python call
+        self._conv_at = {int(k): c for k, c in self.convs.items()}
+        self._qconv_at = {int(k): q for k, q in self.qconvs.items()}
         self._chains = int8_resident_chains(spec, params) if quant == "w8a8" else {}
         self._split_groups = concat_split_groups(spec)
+        # the quantized convs that take their input scale from the batch
+        # (max|x| / 127 + eps): no static scale and no split scales
+        self._dynamic = frozenset(i for i in self._qconv_at
+                                  if self._scale_args(i)[0] is None
+                                  and self._scale_args(i)[2] is None)
         self._fused = _fused_shortcuts(spec) if dtype == torch.bfloat16 else frozenset()
         # called after each layer with its index and output (an NCHW view);
         # the packed s2d stem reports layer 1 only.  The stage profiler
@@ -389,18 +399,25 @@ class Darknet(nn.Module):
         return torch.maximum(torch.maximum(y[:, :o], y[:, o:2 * o]),
                              torch.maximum(y[:, 2 * o:3 * o], y[:, 3 * o:]))
 
-    def _quantized(self, x: torch.Tensor, layer: ConvSpec) -> torch.Tensor:
-        """One W8A8 conv on the NCHW (channels_last) view."""
-        from ..ops.quant import quantized_conv
-
-        q = self.qconvs[str(layer.index)]
+    def _quantized(self, x: torch.Tensor, layer: ConvSpec,
+                   shared_sx: "torch.Tensor | None" = None) -> torch.Tensor:
+        """One W8A8 conv on the NCHW (channels_last) view; ``shared_sx`` is
+        the whole batch's dynamic scale for a conv without a static one."""
+        q = self._qconv_at[layer.index]
         out_idx = self._chains.get(layer.index)
+        sx, sxg, splits = self._scale_args(layer.index)
         y = quantized_conv(
-            x.permute(0, 2, 3, 1), q.wq, q.ws, q.b, layer, sx=q.get("sa"),
-            out_scale=self.qconvs[str(out_idx)].sa if out_idx is not None else None,
-            sxg=q.get("sag"),
-            splits=self._split_groups.get(layer.index) if q.get("sag") is not None else None)
+            x.permute(0, 2, 3, 1), q.wq, q.ws, q.b, layer, sx=shared_sx if sx is None else sx,
+            out_scale=self._qconv_at[out_idx].sa if out_idx is not None else None,
+            sxg=sxg, splits=splits)
         return y.permute(0, 3, 1, 2)
+
+    def _scale_args(self, idx: int) -> tuple:
+        """(sx, sxg, splits) of quantized conv ``idx``: its static scale,
+        or its per-branch scales and the branches' widths."""
+        q = self._qconv_at[idx]
+        sxg = q.get("sag")
+        return q.get("sa"), sxg, self._split_groups.get(idx) if sxg is not None else None
 
     def forward(self, x: torch.Tensor,
                 collect_conv_in_stats: "Callable[[int, torch.Tensor], Any] | None" = None,
@@ -429,72 +446,149 @@ class Darknet(nn.Module):
         if hooked and self.stem_s2d:
             raise ValueError("a stats hook with stem_s2d would leave convs 0-1 unseen: the "
                              "packed stem runs neither; build the model with stem_s2d=False")
-        cache: dict[int, torch.Tensor] = {}
-        heads: list[torch.Tensor] = []
-        stats: dict[int, Any] = {}
-        layers = self.spec.layers
-        hook = self.layer_hook
-        with torch.no_grad(), _conv_precision(self.precision):
-            if self.stem_s2d:
-                x = self._s2d_stem(x)
-                if 1 in self._needed:
-                    cache[1] = x
-                if hook is not None:
-                    hook(1, x)
-                layers = layers[2:]
+        (walk,) = _walk_layers([self], [x], collect_conv_in_stats, collect_conv_out_stats,
+                               _native_heads)
+        if hooked:
+            return walk.heads, walk.stats
+        return walk.heads
+
+    @staticmethod
+    def forward_mesh(replicas: "Sequence[Darknet]", xs: "Sequence[torch.Tensor]",
+                     _native_heads: bool = False) -> list[tuple[torch.Tensor, ...]]:
+        """The forward of a batch split into shards, shard i on ``xs[i]``'s
+        device with ``replicas[i]`` (one model a device; repeated devices
+        share one): each shard's heads, as :meth:`forward` gives them.  The
+        layers run in lockstep over the shards, so a dynamic int8 conv
+        quantizes every shard at the whole batch's scale, as one device
+        would (:func:`_shared_scales`)."""
+        return [w.heads for w in _walk_layers(replicas, xs, None, None, _native_heads)]
+
+    def _enter(self, x: torch.Tensor, w: "_Walk") -> None:
+        """The input of the first layer the loop runs: the packed stem's
+        output (layer 1's), or the NHWC batch as an NCHW view."""
+        if not self.stem_s2d:
+            w.x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view; each fp conv casts
+            return
+        w.x = self._s2d_stem(x)
+        if 1 in self._needed:
+            w.cache[1] = w.x
+        if self.layer_hook is not None:
+            self.layer_hook(1, w.x)
+
+    def _layer(self, w: "_Walk", layer, shared_sx: "torch.Tensor | None") -> None:
+        """Run one layer on a shard's state ``w``; ``shared_sx`` is the
+        whole batch's dynamic int8 scale where ``layer`` is a dynamic int8
+        conv."""
+        x = w.x
+        if isinstance(layer, ConvSpec):
+            w.fused = False
+            if w.conv_in is not None:
+                s = w.conv_in(layer.index, x.permute(0, 2, 3, 1))
+                if s is not None:
+                    w.stats[layer.index] = s
+            if layer.index in self._qconv_at:
+                x = self._quantized(x, layer, shared_sx)
+            elif layer.index in self._fused and not w.hooked:
+                # the [shortcut] at index + 1 in K5's epilogue
+                x = self._run_conv(self._conv_at[layer.index], x,
+                                   w.cache[self.spec.layers[layer.index + 1].from_layer])
+                w.fused = True
             else:
-                x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view; each fp conv casts
-            fused = False  # the last conv took the [shortcut] after it
+                x = self._run_conv(self._conv_at[layer.index], x)
+            if w.conv_out is not None:
+                s = w.conv_out(layer.index, x.permute(0, 2, 3, 1))
+                if s is not None:
+                    w.stats[layer.index] = s
+        elif isinstance(layer, MaxPoolSpec):
+            x = _maxpool(x, layer)
+        elif isinstance(layer, UpsampleSpec):
+            x = _upsample(x, layer.stride)
+        elif isinstance(layer, ReorgSpec):
+            x = _reorg(x, layer.stride)
+        elif isinstance(layer, RouteSpec):
+            srcs = [w.cache[j] for j in layer.layers]
+            if layer.groups > 1:  # CSP split route (YOLOv4-tiny)
+                srcs = [t[:, (t.shape[1] // layer.groups) * layer.group_id:
+                          (t.shape[1] // layer.groups) * (layer.group_id + 1)]
+                        for t in srcs]
+            x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+        elif isinstance(layer, ShortcutSpec):
+            if not w.fused:
+                x = w.cache[layer.index - 1] + w.cache[layer.from_layer]
+        elif isinstance(layer, (YoloSpec, RegionSpec)):
+            h = x.permute(0, 2, 3, 1)
+            if not (w.native_heads and h.dtype in (torch.bfloat16, torch.float32)):
+                h = h.to(torch.promote_types(h.dtype, torch.float32))
+            w.heads.append(h.contiguous())
+        w.x = x
+        if layer.index in self._needed:
+            w.cache[layer.index] = x
+        if self.layer_hook is not None:
+            self.layer_hook(layer.index, x)
+
+
+class _Walk:
+    """One shard's state on its way through the layers: the activation
+    ``x`` (an NCHW view), the outputs later layers read, the heads, the
+    stats of a hook, and whether the last conv took the [shortcut] after
+    it into its epilogue; and the forward's options (the stats hooks,
+    native heads)."""
+
+    __slots__ = ("x", "cache", "heads", "stats", "fused", "conv_in", "conv_out", "hooked",
+                 "native_heads")
+
+    def __init__(self, conv_in, conv_out, native_heads: bool) -> None:
+        self.x: "torch.Tensor | None" = None
+        self.cache: dict[int, torch.Tensor] = {}
+        self.heads: "list[torch.Tensor] | tuple[torch.Tensor, ...]" = []
+        self.stats: dict[int, Any] = {}
+        self.fused = False
+        self.conv_in, self.conv_out = conv_in, conv_out
+        self.hooked = conv_in is not None or conv_out is not None
+        self.native_heads = native_heads
+
+
+def _shared_scales(walks: "list[_Walk]") -> list[torch.Tensor]:
+    """Each shard's copy of the whole batch's dynamic int8 scale at a
+    dynamic int8 conv, whose input is each walk's ``x``:
+    ``fma(max over shards of max|x_shard|, 1/127, eps)``, the expression
+    and the bits of ``ops.quant.dynamic_scale`` on the whole batch.  The
+    shards' 0-d maxima meet on the first shard's device and the scale goes
+    back to each, all on the devices' streams: no host sync."""
+    home = walks[0].x.device
+    sx = scale_of_amax(torch.stack([dynamic_amax(w.x).to(home) for w in walks]).amax())
+    return [sx.to(w.x.device) for w in walks]
+
+
+def _walk_layers(models: "Sequence[Darknet]", xs: "Sequence[torch.Tensor]", conv_in, conv_out,
+                 native_heads: bool) -> "list[_Walk]":
+    """Run every layer over every shard, shard i on ``models[i]``, one layer
+    at a time across the shards.  Launches are asynchronous, so one thread
+    keeps every card busy; each dynamic int8 conv first takes every
+    shard's input maximum (:func:`_shared_scales`)."""
+    lead = models[0]
+    walks = [_Walk(conv_in, conv_out, native_heads) for _ in xs]
+    layers = lead.spec.layers[2:] if lead.stem_s2d else lead.spec.layers
+    with torch.no_grad(), _conv_precision(lead.precision):
+        for m, w, x in zip(models, walks, xs):
+            m._enter(x, w)
+        if len(walks) == 1:  # one shard: its own dynamic scale is the batch's
+            step, w = lead._layer, walks[0]
             for layer in layers:
-                if isinstance(layer, ConvSpec):
-                    fused = False
-                    if collect_conv_in_stats is not None:
-                        s = collect_conv_in_stats(layer.index, x.permute(0, 2, 3, 1))
-                        if s is not None:
-                            stats[layer.index] = s
-                    if str(layer.index) in self.qconvs:
-                        x = self._quantized(x, layer)
-                    elif layer.index in self._fused and not hooked:
-                        # the [shortcut] at index + 1 in K5's epilogue
-                        x = self._run_conv(self.convs[str(layer.index)], x,
-                                           cache[self.spec.layers[layer.index + 1].from_layer])
-                        fused = True
-                    else:
-                        x = self._run_conv(self.convs[str(layer.index)], x)
-                    if collect_conv_out_stats is not None:
-                        s = collect_conv_out_stats(layer.index, x.permute(0, 2, 3, 1))
-                        if s is not None:
-                            stats[layer.index] = s
-                elif isinstance(layer, MaxPoolSpec):
-                    x = _maxpool(x, layer)
-                elif isinstance(layer, UpsampleSpec):
-                    x = _upsample(x, layer.stride)
-                elif isinstance(layer, ReorgSpec):
-                    x = _reorg(x, layer.stride)
-                elif isinstance(layer, RouteSpec):
-                    srcs = [cache[j] for j in layer.layers]
-                    if layer.groups > 1:  # CSP split route (YOLOv4-tiny)
-                        srcs = [t[:, (t.shape[1] // layer.groups) * layer.group_id:
-                                  (t.shape[1] // layer.groups) * (layer.group_id + 1)]
-                                for t in srcs]
-                    x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
-                elif isinstance(layer, ShortcutSpec):
-                    if not fused:
-                        x = cache[layer.index - 1] + cache[layer.from_layer]
-                elif isinstance(layer, (YoloSpec, RegionSpec)):
-                    h = x.permute(0, 2, 3, 1)
-                    if not (_native_heads and h.dtype in (torch.bfloat16, torch.float32)):
-                        h = h.to(torch.promote_types(h.dtype, torch.float32))
-                    heads.append(h.contiguous())
-                if layer.index in self._needed:
-                    cache[layer.index] = x
-                if hook is not None:
-                    hook(layer.index, x)
+                step(w, layer, None)
+        else:
+            static, dynamic = [None] * len(walks), lead._dynamic
+            steps = [m._layer for m in models]
+            for layer in layers:
+                sxs = _shared_scales(walks) if layer.index in dynamic else static
+                for step, w, sx in zip(steps, walks, sxs):
+                    step(w, layer, sx)
+    for w in walks:
+        heads = w.heads
         if len({h.dtype for h in heads}) > 1:
             heads = [h.to(torch.float32) for h in heads]
-        if hooked:
-            return tuple(heads), stats
-        return tuple(heads)
+        w.heads = tuple(heads)
+    return walks
 
 
 def head_shapes(spec: ModelSpec, input_size: "int | tuple[int, int]",

@@ -61,7 +61,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 SOURCES = tuple(os.path.join(CSRC, f) for f in
                 ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu",
                   "conv_bf16.cu"))
-HEADERS = tuple(os.path.join(CSRC, f) for f in ("int8_igemm.cuh", "int8_wgmma.cuh"))
+HEADERS = tuple(os.path.join(CSRC, f) for f in ("int8_igemm.cuh", "int8_wgmma.cuh",
+                                                "device_guard.cuh"))
 BUILD_DIR = os.path.join(CSRC, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libyolo_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
@@ -187,9 +188,15 @@ def _cuda_args(name: str, *tensors: "torch.Tensor | None") -> tuple[int, int]:
     return dev.index, torch.cuda.current_stream(dev).cuda_stream
 
 
-def _raise_on(rc: int, name: str) -> None:
+def _launch(name: str, entry, *args) -> None:
+    """Call the library's C ``entry`` and count the launch.  Each entry
+    launches on the device it is given and gives the calling thread its
+    current device back (``csrc/device_guard.cuh``), so a launch on one
+    card of a mesh leaves torch's current device as it found it."""
+    rc = entry(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -384,10 +391,8 @@ def _launch_decode(heads, plans: tuple[HeadPlan, ...], out: torch.Tensor,
     args.out, args.out_batch_stride = out.data_ptr(), out.stride(0)
     for slot, raw in zip(args.head, heads):
         slot.raw = raw.data_ptr()
-    rc = load_library().yolo_decode_score(ctypes.byref(args), heads[0].element_size(), device,
-                                          stream)
-    _raise_on(rc, "decode_score")
-    LAUNCHES["decode_score"] += 1
+    _launch("decode_score", load_library().yolo_decode_score, ctypes.byref(args),
+            heads[0].element_size(), device, stream)
 
 
 def decode_score_head(
@@ -497,12 +502,10 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
     words = nms_scratch_words(n, k)
     scratch = torch.empty(words, dtype=torch.int32, device=boxes.device) if words else None
-    rc = load_library().yolo_nms_keep(
-        boxes.data_ptr(), valid.data_ptr(), None if cls_id is None else cls_id.data_ptr(),
-        keep.data_ptr(), None if scratch is None else scratch.data_ptr(), n, k,
-        float(iou_thresh), device, stream)
-    _raise_on(rc, "nms_keep")
-    LAUNCHES["nms_keep"] += 1
+    _launch("nms_keep", load_library().yolo_nms_keep, boxes.data_ptr(), valid.data_ptr(),
+            None if cls_id is None else cls_id.data_ptr(), keep.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, k, float(iou_thresh), device,
+            stream)
     return keep
 
 
@@ -726,9 +729,7 @@ def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
         out_shape[2] if len(out_shape) == 4 else 1, o, kh, kw, stride, pad, m, len(goff) - 1,
         (ctypes.c_int * (MAX_SPLIT_GROUPS + 1))(*goff), mode, _ACT[activation],
         int(out_scale is not None and out_scale.dim() == 1), pre, mul, sh)
-    fn = getattr(load_library(), "yolo_" + key)
-    _raise_on(fn(ctypes.byref(args), arg, device, stream), key)
-    LAUNCHES[key] += 1
+    _launch(key, getattr(load_library(), "yolo_" + key), ctypes.byref(args), arg, device, stream)
     return out
 
 
@@ -976,8 +977,6 @@ def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pa
     out = torch.empty((n, ho, wo, o), dtype=torch.bfloat16, device=x.device)
     ptrs = tuple(None if t is None else t.data_ptr() for t in (x, w, b, shortcut, out))
     args = _conv_bf16_args(tuple(x.shape), tuple(w.shape), stride, pad, act, route, ptrs)
-    rc = load_library().yolo_conv_bf16(ctypes.byref(args), bn, CONV_BF16_ROUTES[route], device,
-                                       stream)
-    _raise_on(rc, "conv_bf16")
-    LAUNCHES["conv_bf16"] += 1
+    _launch("conv_bf16", load_library().yolo_conv_bf16, ctypes.byref(args), bn,
+            CONV_BF16_ROUTES[route], device, stream)
     return out

@@ -449,7 +449,20 @@ def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
     fuses the add into it (one rounding).  Written out, it gives the same
     bits on every device: one bit of difference can flip an int8 rounding
     downstream."""
-    m = x.abs().amax()  # fp32 constants filled on the device: no host copy, no sync
+    return scale_of_amax(dynamic_amax(x))
+
+
+def dynamic_amax(x: torch.Tensor) -> torch.Tensor:
+    """``max|x|`` of a batch (or of one shard of it) as a 0-d fp32 device
+    tensor, that of ``x`` cast to fp32 (rounding is monotone, so the max
+    and the cast commute).  The max is exact, so the max of the shards'
+    maxima is the batch's."""
+    return x.abs().amax().to(torch.float32)
+
+
+def scale_of_amax(m: torch.Tensor) -> torch.Tensor:
+    """The dynamic scale from a 0-d ``max|x|``: ``fma(m, 1/127, eps)``, the
+    fp32 constants filled on its device (no host copy, no sync)."""
     return kernels.fma(m, torch.full_like(m, 1.0 / 127.0), torch.full_like(m, _QEPS))
 
 

@@ -10,6 +10,8 @@ A copy of ``pytorch_yolo_tpu/serve.py`` on the port's ``Detector``:
   client resolution.
 * **Bounded pipeline keys**: batches are padded to the next power of two
   (<= batch_max), so at most log2(batch_max)+1 pipelines are ever built.
+  On a mesh-bound detector the bucket is rounded up to a multiple of the
+  mesh size (``bucket_floor``), and ``batch_max`` with it.
 * **uint8 transfer** end-to-end: request bytes -> decoded uint8 -> rounded
   uint8 letterbox canvas -> device (/255 on the device).
 
@@ -28,6 +30,7 @@ standard-library writer the command line uses without OpenCV.
 from __future__ import annotations
 
 import json
+import logging
 import struct
 import threading
 import time
@@ -37,6 +40,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .ops.preprocess import letterbox_host
+from .parallel.sharding import pad_to_multiple
 
 # Reject request bodies above this size before reading them (a single huge
 # Content-Length must not be able to exhaust server memory).
@@ -137,10 +141,18 @@ def _pow2_bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-def bucket_ladder(cap: int) -> list[int]:
+def _mesh_bucket(n: int, cap: int, floor: int) -> int:
+    """The batch a flush of ``n`` requests actually runs: the pow2 bucket
+    rounded UP to a multiple of ``floor`` (batches must divide a
+    mesh-bound detector's mesh), capped at ``cap`` (itself a floor
+    multiple)."""
+    return min(pad_to_multiple(_pow2_bucket(n, cap), floor), cap)
+
+
+def bucket_ladder(cap: int, floor: int = 1) -> list[int]:
     """Every batch size the MicroBatcher can dispatch — the exact set the
     server warmup must precompile so no first request waits on a compile."""
-    return sorted({_pow2_bucket(n, cap) for n in range(1, cap + 1)})
+    return sorted({_mesh_bucket(n, cap, floor) for n in range(1, cap + 1)})
 
 
 @dataclass
@@ -163,7 +175,16 @@ class MicroBatcher:
         self.conf = conf
         self.iou = iou
         self.max_det = max_det
-        self.batch_max = batch_max
+        # prepared-pipeline batches must divide a mesh-bound detector's
+        # mesh, so the bucket floor is the mesh size and batch_max rounds up
+        # to it
+        self.bucket_floor = detector.mesh.size
+        rounded = pad_to_multiple(batch_max, self.bucket_floor)
+        if rounded != batch_max:
+            logging.getLogger("pytorch_yolo_tpu_torch.serve").info(
+                "batch_max %d rounded up to %d (multiple of the %d-device "
+                "mesh)", batch_max, rounded, self.bucket_floor)
+        self.batch_max = rounded
         self.timeout_s = batch_timeout_ms / 1e3
         self._queue: list[_Pending] = []
         self._lock = threading.Lock()
@@ -215,7 +236,7 @@ class MicroBatcher:
 
     def _flush(self, batch: "list[_Pending]") -> None:
         n = len(batch)
-        run_n = _pow2_bucket(n, self.batch_max)
+        run_n = _mesh_bucket(n, self.batch_max, self.bucket_floor)
         x = np.stack([p.lb for p in batch])
         geos = np.asarray([p.geo for p in batch], dtype=np.float32)
         if run_n != n:  # pad to the bucket so executables stay bounded

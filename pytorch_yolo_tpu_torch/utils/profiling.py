@@ -88,17 +88,18 @@ class PipelineStats:
 
 
 class _Clock:
-    """Marks on one device's work: CUDA events on the current stream, or
-    the host clock on the CPU."""
+    """Marks on one device's work: CUDA events on that device's current
+    stream (whatever device is current), or the host clock on the CPU."""
 
     def __init__(self, device: torch.device) -> None:
+        self.device = device
         self.cuda = device.type == "cuda"
 
     def mark(self):
         if not self.cuda:
             return time.perf_counter()
         ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
+        ev.record(torch.cuda.current_stream(self.device))
         return ev
 
     def ms(self, start, end) -> float:
@@ -107,7 +108,7 @@ class _Clock:
 
     def sync(self) -> None:
         if self.cuda:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(self.device)
 
 
 def _timed(clock: _Clock, run, iters: int) -> list[float]:

@@ -98,8 +98,9 @@ def run_video(
             return False
         idx, frame = item
         with stats.stage("dispatch"):
-            res = detector.raw_result(frame[None], size=size, conf=conf, iou=iou,
-                                      max_det=max_det)
+            # mesh-bound: pad batch-1 to the mesh (trimmed on consume)
+            res = detector.raw_result(detector._pad_to_mesh(frame[None]), size=size, conf=conf,
+                                      iou=iou, max_det=max_det)
         inflight.put((idx, frame, res))
         return True
 

@@ -129,7 +129,7 @@ def test_port_imports_no_jax():
         "'pytorch_yolo_tpu'))\n"
         "assert 'torch' in sys.modules and len(mods) >= 12, mods\n"
         "need = {'cli', 'eval', 'datasets', 'assets', 'native', 'utils.draw', 'utils.palette',\n"
-        "        '__main__'}\n"
+        "        '__main__', 'parallel', 'parallel.sharding'}\n"
         "assert need <= {m.split('.', 1)[1] for m in mods}, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

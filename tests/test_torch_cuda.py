@@ -31,6 +31,7 @@ import pytorch_yolo_tpu_torch as pt
 from pytorch_yolo_tpu_torch.config import MaxPoolSpec
 from pytorch_yolo_tpu_torch.models.darknet import _maxpool
 from pytorch_yolo_tpu_torch.ops import kernels as tk
+from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch, letterbox_host
 from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale, quantize_input
 from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 
@@ -826,3 +827,189 @@ def test_cuda_native_loader_feeds_card_detector(cuda, tiny_weights):
     heads = [pt.Detector(spec, p, device=cuda).model(x) for p in (nat, ref)]
     for a, b in zip(*heads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The batch mesh on the card
+# ---------------------------------------------------------------------------
+
+
+def _skewed(n=8, shape=(480, 640)):
+    """n frames, frame 3 over the whole range, the others dim (< 24)."""
+    rng = np.random.default_rng(17)
+    x = rng.integers(0, 24, (n,) + shape + (3,), dtype=np.uint8)
+    x[3] = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+    return x
+
+
+def _same(ref, ours):
+    assert len(ref) == len(ours) and sum(len(d) for d in ref) > 0
+    for a, b in zip(ref, ours):
+        for f in ("boxes", "obj", "cls_score", "cls_id"):
+            np.testing.assert_array_equal(getattr(b, f), getattr(a, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "w8a8_dynamic"])
+def test_cuda_mesh_of_two_entries_matches_single(cuda, mode):
+    """A mesh of two entries of cuda:0 gives the meshless detector's
+    detections bit for bit: bf16 (K5, K1, K2 a shard) and dynamic int8 with
+    bf16 glue on a skewed batch, whose shards' own maxima differ at the
+    first int8 conv (the scale is the whole batch's; K3/K4 a shard)."""
+    from pytorch_yolo_tpu_torch.parallel import make_batch_mesh
+
+    kw = dict(dtype=torch.bfloat16, precision="default", synthetic="live")
+    if mode == "w8a8_dynamic":
+        kw.update(quant="w8a8")
+    single = pt.Detector.load("yolov3-tiny", device="cuda:0", **kw)
+    mesh = pt.Detector.load("yolov3-tiny", mesh=make_batch_mesh(["cuda:0", "cuda:0"]), **kw)
+    assert mesh.device == torch.device("cuda", 0) and mesh._replicas[1] is mesh.model
+    frames = _skewed()
+    ref = single.detect_batch(frames, size=416, conf=0.3)
+    before = dict(tk.LAUNCHES)
+    ours = mesh.detect_batch(frames, size=416, conf=0.3)
+    torch.cuda.synchronize()
+    ran = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES}
+    assert ran["decode_score"] == ran["nms_keep"] == 2
+    assert ran["conv_bf16"] == 2 * len(mesh.model.convs)
+    if mode == "w8a8_dynamic":
+        assert (ran["int8_gemm"] + ran["int8_conv"] + ran["int8_gemm_mma"]
+                + ran["int8_conv_mma"]) == 2 * len(mesh.model.qconvs)
+        first = min(map(int, mesh.model.qconvs))
+        x = letterbox_batch(torch.from_numpy(frames).to(cuda), 416)
+        local = [float(mesh.model(x[i:i + 4], collect_conv_in_stats=lambda i, v: v.abs().amax()
+                                  if i == first else None)[1][first]) for i in (0, 4)]
+        assert local[0] != local[1]
+    _same(ref, ours)
+
+
+@pytest.mark.cuda
+def test_cuda_launches_keep_the_current_device(cuda):
+    """K1-K5 launched on each card leave torch's current device as it was
+    (each C entry restores it: ``csrc/device_guard.cuh``)."""
+    rng = np.random.default_rng(5)
+    count = torch.cuda.device_count()
+    for target in range(count):
+        dev = torch.device("cuda", target)
+        for current in range(count):
+            with torch.cuda.device(current):
+                tk.decode_score_head(torch.from_numpy(decode_input("grid13")).to(dev), ANCHORS,
+                                     32, 80)
+                assert torch.cuda.current_device() == current
+                boxes, valid, cls = (torch.from_numpy(a).to(dev) for a in crowded_boxes(1, 2, 300))
+                tk.nms_keep(boxes, valid, 0.45, cls)
+                assert torch.cuda.current_device() == current
+                xq = torch.from_numpy(rng.integers(-127, 128, (2, 8, 8, 64), dtype=np.int8)).to(dev)
+                wq = torch.from_numpy(rng.integers(-127, 128, (32, 3, 3, 64), dtype=np.int8)).to(dev)
+                tk.int8_conv(xq, wq, 1, 1, accumulators=True)
+                tk.int8_gemm(xq.reshape(-1, 64), wq[:, 0, 0].contiguous(), accumulators=True)
+                assert torch.cuda.current_device() == current
+                x = torch.randn(2, 8, 8, 64, device=dev).to(torch.bfloat16)
+                w = torch.randn(32, 3, 3, 64, device=dev).to(torch.bfloat16)
+                tk.conv_bf16(x, w, torch.zeros(32, device=dev), 1, 1, "leaky")
+                assert torch.cuda.current_device() == current
+        torch.cuda.synchronize(dev)
+
+
+@pytest.mark.cuda
+def test_cuda_stage_on_mesh_hands_each_chunk_its_data(cuda):
+    """The pinned ring of a mesh detector: chunks staged back to back, with
+    no sync between them, arrive on their device as they were sent (a
+    slot is reused only after the copy recorded on its own stream is
+    done); detect_prepared on the mesh equals the meshless one."""
+    from pytorch_yolo_tpu_torch.parallel import make_batch_mesh
+
+    det = pt.Detector.load("yolov3-tiny", mesh=make_batch_mesh(["cuda:0", "cuda:0"]))
+    rng = np.random.default_rng(8)
+    chunks = [rng.integers(0, 256, (4, 320, 320, 3), dtype=np.uint8) for _ in range(12)]
+    staged = [det._stage(c, d) for c in chunks for d in det.mesh.devices]
+    assert len(det._staging) == 1 and len(next(iter(det._staging.values()))) == 1 + 6
+    torch.cuda.synchronize()
+    for c, (a, b) in zip(chunks, zip(staged[::2], staged[1::2])):
+        np.testing.assert_array_equal(a.cpu().numpy(), c)
+        np.testing.assert_array_equal(b.cpu().numpy(), c)
+    single = pt.Detector.load("yolov3-tiny", device="cuda:0")
+    lbs = [letterbox_host(f, 320, out_dtype="uint8") for f in _skewed(4)]
+    x = np.stack([lb for lb, _ in lbs])
+    geos = np.asarray([[g.scale, g.pad_x, g.pad_y, g.orig_w, g.orig_h] for _, g in lbs],
+                      np.float32)
+    _same(single._trim(single.detect_prepared(x, geos, 320), 4),
+          det._trim(det.detect_prepared(x, geos, 320), 4))
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+def test_cuda_second_card_matches_first(two_cards):
+    """A cuda:1 detector gives the cuda:0 detector's detections, and leaves
+    the current device at cuda:0; the profiler times it on cuda:1."""
+    frames = _skewed(4)
+    kw = dict(dtype=torch.bfloat16, precision="default", synthetic="live")
+    ref = pt.Detector.load("yolov3-tiny", device=two_cards[0], **kw).detect_batch(frames)
+    with torch.cuda.device(0):
+        det = pt.Detector.load("yolov3-tiny", device=two_cards[1], **kw)
+        ours = det.detect_batch(frames)
+        assert torch.cuda.current_device() == 0
+        # the stage profiler's events on the detector's card, not the current one
+        from pytorch_yolo_tpu_torch.utils.profiling import profile_pipeline
+
+        rows = profile_pipeline(det, size=416, batch=2, iters=2)
+        assert rows[-1]["cum_ms"] > 0 and torch.cuda.current_device() == 0
+    _same(ref, ours)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "w8a8"])
+def test_cuda_mesh_over_two_cards_matches_one(two_cards, quant):
+    """A mesh over cuda:0 and cuda:1 (one replica each, the results and the
+    dynamic int8 scale through peer copies) equals one card."""
+    from pytorch_yolo_tpu_torch.parallel import make_batch_mesh
+
+    kw = dict(dtype=torch.bfloat16, precision="default", synthetic="live", quant=quant)
+    single = pt.Detector.load("yolov3-tiny", device=two_cards[0], **kw)
+    mesh = pt.Detector.load("yolov3-tiny", mesh=make_batch_mesh(list(two_cards)), **kw)
+    assert mesh._replicas[1] is not mesh.model
+    assert next(mesh._replicas[1].buffers()).device == two_cards[1]
+    frames = _skewed()
+    _same(single.detect_batch(frames, conf=0.3), mesh.detect_batch(frames, conf=0.3))
+    _same(single.detect_many(list(frames), conf=0.3, batch=4, transfer="u8"),
+          mesh.detect_many(list(frames), conf=0.3, batch=4, transfer="u8"))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_grid_cache_under_two_threads(cuda):
+    """K1 launched from two threads at once, each alternating heads of two
+    class counts (two shared-memory sizes of one instantiation, the larger
+    first in one thread and the smaller in the other): every launch goes
+    and gives its plain version's rows (each device's grids sit under a
+    lock, and the kernel's shared-memory allowance is only ever raised)."""
+    import threading
+
+    cases = [(torch.from_numpy(np.random.default_rng(c).normal(
+        0, 1, (2, 13, 13, 3 * (5 + c))).astype(np.float32)).to(cuda), c) for c in (80, 20)]
+    refs = [tk.decode_score_head_ref(raw.cpu(), ANCHORS, 32, c) for raw, c in cases]
+    errors: list = []
+
+    def run(first):
+        try:
+            outs = []
+            for i in range(100):
+                j = (first + i) % 2
+                outs.append((j, tk.decode_score_head(cases[j][0], ANCHORS, 32, cases[j][1])))
+            torch.cuda.current_stream(cuda).synchronize()
+            for j, out in outs:
+                assert_rows_close(out.cpu().numpy(), refs[j].numpy(), rtol=1e-5, atol=1e-5)
+        except Exception as e:  # reported below, from the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(first,)) for first in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
