@@ -40,7 +40,15 @@ Phases, one line each (a failure in any phase exits non-zero):
      output, int8 out with O not a multiple of 16, the byte path), each on
      the core ``igemm_plan`` picks (its launch counter checked) and on the
      ``mma.sync`` core, against their plain versions (int32 and int8 equal,
-     fp32 within 1e-6 relative);
+     fp32 within 1e-6 relative); K3/K4 with a [shortcut] operand (fp32 and
+     bf16, leaky and mish, ragged output rows, a split conv, the byte path)
+     on both cores, within 1e-6 of the larger of the output and the
+     operand; then K6, the int8 input quantizer, against its plain version
+     (int8 equal: fp32 and bf16, a scalar, a per-channel and a split scale,
+     exact ties and saturation in every case, in fp32 values that a
+     multiply by the reciprocal would round the other way, ragged tails at
+     C = 3 and 24, an offset view and a channel slice) and its ``max|x|``
+     (bit-equal);
   8. yolov3-tiny@416 ``quant="w8a8"`` with fp32 glue (every non-head conv
      int8, the maxpool ladder int8-resident), static scales calibrated on
      the card from 4 frames (``quant_recipe="none"``), against the CPU
@@ -50,10 +58,22 @@ Phases, one line each (a failure in any phase exits non-zero):
      w8a8 with bf16 glue, the stride-8 early skip, int8-resident chains,
      static scales from 4 frames, batch 128, the frames of phase 6 — median
      ms/batch and img/s as in phase 6, the launch counts (one K1 and one K2
-     a step, one K3/K4 launch a quantized conv), the drift against
-     phase 6's bf16 detections (printed, not gated); it fails if any of its
-     int8 convs ran on the ``mma.sync`` core.  Then K3's and K4's times at
-     phase 7's four yolov3 shapes at batch 128: the wgmma core and the
+     a step, one K3/K4 launch a quantized conv, one K6 launch a conv input
+     that is not int8-resident, every [shortcut] after an int8 conv in its
+     epilogue), the drift against phase 6's bf16 detections (printed, not
+     gated); it fails if any of its int8 convs ran on the ``mma.sync`` core,
+     or if ``torch.profiler`` finds an activation-sized ``aten::div``,
+     ``round``, ``clamp`` or an unfused shortcut ``add`` in its forward.
+     Then int8sb with dynamic scales (one ``absmax`` and one K6 launch a
+     conv), median ms/batch; K6 alone at (128, 52, 52, 256), the largest
+     input, fp32 and bf16, eager and device time, its plain version, its
+     bound and ``torch.quantize_per_tensor`` (a yardstick: it rounds to
+     [-128, 127]), per channel beside ``torch.quantize_per_channel``, and
+     ``absmax`` beside ``torch.linalg.vector_norm(x, inf)``.  Then K3 and K4 at
+     phase 7's four yolov3 shapes and the 26² 3x3 conv at batch 128: each
+     against its plain version on both cores, without and with an fp32 and
+     a bf16 [shortcut] operand (phase 7's gates); their times, the wgmma
+     core and the
      ``mma.sync`` core in turns (old, new, new, old), the wgmma core's
      device time, the plain version, a cuDNN bf16 ``F.conv2d`` of the same
      shape, ``torch._int_mm`` for K3, and the bound (ops at 1,979 TOPS or
@@ -231,7 +251,8 @@ def int8_case(rng, k, stride, shape, o, mode, device):
     ``mode``: "acc", "fixed", or a dict with "sx" ("dynamic", "static",
     "int8" input, "vector" grid) or "splits", "act", and "out" ("scalar" /
     "vector" requant)."""
-    from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale, quantize_input
+    from pytorch_yolo_tpu_torch.ops.kernels import quantize_i8
+    from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale
 
     c = shape[-1]
     t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(dt).to(device)  # noqa: E731
@@ -249,7 +270,7 @@ def int8_case(rng, k, stride, shape, o, mode, device):
         sxg = t(rng.uniform(0.02, 0.04, len(mode["splits"])))
         parts, off = [], 0
         for g, cg in enumerate(mode["splits"]):
-            parts.append(quantize_input(xf[..., off:off + cg], sxg[g]))
+            parts.append(quantize_i8(xf[..., off:off + cg], sxg[g]))
             off += cg
         xq, sx_val = torch.cat(parts, -1), 0.03
         kw.update(sxg=sxg, splits=mode["splits"])
@@ -261,7 +282,7 @@ def int8_case(rng, k, stride, shape, o, mode, device):
         sx = {"dynamic": lambda: dynamic_scale(xf),
               "static": lambda: t(0.025),
               "vector": lambda: t(rng.uniform(0.01, 0.04, c))}[mode["sx"]]()
-        xq = quantize_input(xf, sx)
+        xq = quantize_i8(xf, sx)
         sx_val = 1.0 if sx.dim() == 1 else float(sx)
         kw["sx"] = sx
     acc_std = np.sqrt(k * k * c) * 35.0 * 73.0
@@ -269,6 +290,76 @@ def int8_case(rng, k, stride, shape, o, mode, device):
     if "out" in mode:
         kw["out_scale"] = t(0.012) if mode["out"] == "scalar" else t(rng.uniform(0.008, 0.016, o))
     return xq, wq, stride, k // 2, kw
+
+
+# K6 cases of phase 7: name -> (NHWC shape, dtype, scale, view); as
+# tests/test_torch_cuda.py: QUANT_CASES
+K6_CASES = {
+    "fp32 scalar": ((8, 52, 52, 256), torch.float32, "scalar", None),
+    "bf16 scalar": ((8, 52, 52, 256), torch.bfloat16, "scalar", None),
+    "fp32 per channel": ((8, 26, 26, 512), torch.float32, "vector", None),
+    "bf16 per channel": ((8, 26, 26, 512), torch.bfloat16, "vector", None),
+    "fp32 split (128, 256)": ((8, 52, 52, 384), torch.float32, (128, 256), None),
+    "bf16 split (256, 512)": ((8, 26, 26, 768), torch.bfloat16, (256, 512), None),
+    "fp32 C=3 ragged tail": ((1, 5, 7, 3), torch.float32, "scalar", None),
+    "bf16 C=24 ragged tail": ((3, 5, 5, 24), torch.bfloat16, "vector", None),
+    "fp32 offset view": ((2, 9, 9, 40), torch.float32, "scalar", "offset"),
+    "bf16 channel slice": ((2, 13, 13, 32), torch.bfloat16, "vector", "slice"),
+}
+
+
+def division_traps(s, n=7):
+    """Up to ``n`` fp32 values within 3 ulps of (k + 0.5) * s for which
+    round(x / s) and round(x * (1 / s)) differ: a quantizer that multiplies
+    by the reciprocal instead of dividing gets them wrong."""
+    s = np.float32(s)
+    base = ((np.arange(-130, 130) + 0.5) * np.float64(s)).astype(np.float32)
+    cand = (base.view(np.int32)[:, None] + np.arange(-3, 4, dtype=np.int32)).view(np.float32)
+    cand = cand.ravel()
+    return cand[np.rint(cand / s) != np.rint(cand * (np.float32(1) / s))][:n]
+
+
+def k6_case(name, device):
+    """(x, sx) of a K6_CASES entry: 20 % exact ties at (k + 0.5) * s, 5 %
+    past +-127.5 * s, and in fp32 :func:`division_traps` in the last rows
+    of every channel whose scale is not a power of two; scales powers of
+    two and others; ``view`` "offset" (4 bytes off the 16-byte grid) or
+    "slice" (the upper half of the channels, as a group route gives)."""
+    from pytorch_yolo_tpu_torch.ops.quant import split_scale_vector
+
+    shape, dtype, scale, view = K6_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    c = shape[-1]
+    if scale == "scalar":
+        per_ch = np.full(c, 2.0 ** -5, np.float32)
+    elif scale == "vector":
+        per_ch = (2.0 ** rng.integers(-7, -3, c)).astype(np.float32)
+        per_ch[::3] = rng.uniform(0.01, 0.05, per_ch[::3].shape)
+    else:
+        sxg = np.array([2.0 ** -6, 0.0371][:len(scale)], np.float32)
+        per_ch = np.repeat(sxg, scale)
+    x = (rng.normal(0.0, 1.5, shape).astype(np.float32) * 64 * per_ch).reshape(-1, c)
+    tie = rng.uniform(size=x.shape) < 0.2
+    x[tie] = ((rng.integers(-130, 130, x.shape) + 0.5) * per_ch)[tie]
+    sat = rng.uniform(size=x.shape) < 0.05
+    x[sat] = (rng.choice([-1.0, 1.0], x.shape) * rng.uniform(127.5, 400.0, x.shape) * per_ch)[sat]
+    if dtype == torch.float32:
+        for ch, sc in enumerate(per_ch):
+            if np.log2(sc) % 1:
+                t = division_traps(sc)
+                x[x.shape[0] - len(t):, ch] = t
+    x = torch.from_numpy(x.reshape(shape)).to(device=device, dtype=dtype)
+    if view == "offset":
+        buf = torch.zeros(x.numel() + 1, dtype=dtype, device=device)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
+    elif view == "slice":
+        x = torch.cat([torch.zeros_like(x), x], -1)[..., c:]
+    if scale == "scalar":
+        return x, torch.tensor(per_ch[0], device=device)
+    if scale == "vector":
+        return x, torch.from_numpy(per_ch).to(device)
+    return x, split_scale_vector(torch.from_numpy(sxg).to(device), scale)
 
 
 def run_int8(kernels, xq, wq, stride, pad, kw, plain=False, mma=False):
@@ -282,6 +373,40 @@ def run_int8(kernels, xq, wq, stride, pad, kw, plain=False, mma=False):
             n, h, w, -1)
     fn = kernels.int8_conv_ref if plain else kernels.int8_conv
     return fn(xq, wq, stride, pad, **core, **kw)
+
+
+def check_shortcut(kernels, errs, where, name, xq, wq, stride, pad, kw, sdt) -> None:
+    """K3/K4 with a [shortcut] operand of dtype ``sdt`` (N(0, 1), the
+    output's shape) on the core ``igemm_plan`` picks and on the ``mma.sync``
+    core, against the plain version: within 1e-6 of the larger of |out| and
+    |operand|, one launch each; the error is folded into ``errs``."""
+    n, h, w, _ = xq.shape
+    o, k = wq.shape[0], wq.shape[1]
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    sc = torch.randn((n, ho, wo, o), device=xq.device,
+                     generator=torch.Generator(xq.device).manual_seed(3)).to(sdt)
+    kw = {**kw, "shortcut": sc.reshape(n * ho * wo, o) if k == 1 and stride == 1 else sc}
+    ref = run_int8(kernels, xq, wq, stride, pad, kw, plain=True)
+    if torch.equal(ref, run_int8(kernels, xq, wq, stride, pad, {**kw, "shortcut": None},
+                                 plain=True)):
+        fail(f"K3/K4 shortcut {name}: the operand changed nothing in the plain version")
+    lim = 1e-6 * torch.maximum(ref.abs(), sc.float().reshape(ref.shape).abs())
+    want = int8_key(kernels, wq, stride, kw)
+    for mma in (False, True):
+        key = want if not mma else want.removesuffix("_mma") + "_mma"
+        before = kernels.LAUNCHES[key]
+        ours = run_int8(kernels, xq, wq, stride, pad, kw, mma=mma)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES[key] != before + 1:
+            fail(f"{name}: expected one launch of {key}, counts {kernels.LAUNCHES}")
+        gap = abs_diff(ours, ref)
+        if ours.shape != ref.shape or not bool((gap <= lim).all()):
+            fail(f"{key} shortcut {name}: kernel disagrees with its plain version "
+                 f"(max abs err {float(gap.max()):.3g})")
+        base = key.removesuffix("_mma")
+        errs[base] = max(errs[base], float(gap.max()))
+        say(f"{where} {key} shortcut {name} {tuple(xq.shape)}->{o}: ok, max abs err "
+            f"{float(gap.max()):.3g} (tol 1e-6 of max(|out|, |operand|))")
 
 
 def int8_key(kernels, wq, stride, kw) -> str:
@@ -1594,6 +1719,60 @@ def main() -> None:
     say(f"phase 7: {len(cases)} cases, {cores['wgmma']} on the wgmma core and {cores['mma']} "
         f"on the mma.sync core, all equal to the plain versions")
 
+    # K3/K4 with a [shortcut] operand in the fp32 epilogue, on both cores
+    sc_cases = [
+        ("1x1 52² 256->128 leaky, fp32 operand", 1, 1, (8, 52, 52, 256), 128,
+         {"sx": "static", "act": "leaky"}, torch.float32),
+        ("3x3 s1 52² 128->256 mish, bf16 operand", 3, 1, (8, 52, 52, 128), 256,
+         {"sx": "dynamic", "act": "mish"}, torch.bfloat16),
+        ("3x3 s1 13² 512->1024 leaky (BN 256), bf16 operand", 3, 1, (8, 13, 13, 512), 1024,
+         {"sx": "static", "act": "leaky"}, torch.bfloat16),
+        ("1x1 O=42 mish (ragged rows), fp32 operand", 1, 1, (2, 26, 26, 64), 42,
+         {"sx": "static", "act": "mish"}, torch.float32),
+        ("3x3 s2 O=42 leaky (ragged rows), bf16 operand", 3, 2, (1, 27, 33, 48), 42,
+         {"sx": "static", "act": "leaky"}, torch.bfloat16),
+        ("split (128, 256) leaky, fp32 operand", 1, 1, (2, 26, 26, 384), 128,
+         {"splits": (128, 256), "act": "leaky"}, torch.float32),
+        ("byte path K=24 mish, bf16 operand", 1, 1, (1, 16, 16, 24), 32,
+         {"sx": "static", "act": "mish"}, torch.bfloat16)]
+    for name, k, stride, shape, o, mode, sdt in sc_cases:
+        xq, wq, st, pad, kw = int8_case(rng, k, stride, shape, o, mode, dev)
+        check_shortcut(kernels, errs, "phase 7", name, xq, wq, st, pad, kw, sdt)
+        del xq, wq, kw
+
+    # K6: the quantizer and max|x| against their plain versions
+    k6_err = k6_am_err = 0.0
+    for name in K6_CASES:
+        x, sx = k6_case(name, dev)
+        before = dict(kernels.LAUNCHES)
+        ours = kernels.quantize_i8(x, sx)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES != {**before, "quantize_i8": before["quantize_i8"] + 1}:
+            fail(f"K6 {name}: expected one quantize_i8 launch, counts {kernels.LAUNCHES}")
+        ref = kernels.quantize_i8_ref(x, sx)
+        q = (x.float() / sx).reshape(-1)
+        ties, sat = int((q.frac().abs() == 0.5).sum()), int((q.abs() > 127.5).sum())
+        # elements a multiply by the reciprocal would quantize the other way
+        traps = int((torch.clamp(torch.round(x.float() * (1.0 / sx)), -127, 127).to(torch.int8)
+                     != ref).sum())
+        err = float((ours.long() - ref.long()).abs().max())
+        k6_err = max(k6_err, err)
+        if ours.dtype != torch.int8 or ours.shape != x.shape or err or not (ties and sat):
+            fail(f"K6 {name}: {ours.dtype} {tuple(ours.shape)}, max difference {err}, "
+                 f"{ties} ties, {sat} saturated")
+        peak = 2.0 * float(x.float().abs().amax())
+        x[(0,) * x.dim()] = -peak
+        m = kernels.absmax(x.permute(0, 3, 1, 2) if name == "fp32 scalar" else x)
+        torch.cuda.synchronize()
+        k6_am_err = max(k6_am_err, abs(m.item() - kernels.absmax_ref(x).item()))
+        if not m.item() == kernels.absmax_ref(x).item() == peak:
+            fail(f"K6 absmax {name}: {m.item()} vs plain {kernels.absmax_ref(x).item()}, "
+                 f"expected {peak}")
+        say(f"phase 7 K6 {name} {tuple(x.shape)}: ok, int8 equal ({ties} exact ties, {sat} "
+            f"past 127.5 s, {traps} a reciprocal would round otherwise); absmax bit-equal "
+            f"({m.item():.6g})")
+        del x, ours, ref, q
+
     # 8. int8 yolov3-tiny at fp32 glue: card against CPU.  Not 1.0: the fp32
     # head convs run in cuDNN on the card and in oneDNN on the CPU, and an
     # ulp of difference before a requant can move an int8 value by one step.
@@ -1650,6 +1829,38 @@ def main() -> None:
     if launches9["conv_bf16"] != len(det.model.convs) * (len(times9) + 3):
         fail(f"int8sb: expected one K5 launch for each of its {len(det.model.convs)} bf16 glue "
              f"convs a step: {launches9}")
+    model9 = det.model
+    n_quant = len(model9.qconvs) - len(model9._chains)  # conv inputs not int8-resident
+    if launches9["quantize_i8"] != n_quant * (len(times9) + 3) or launches9["absmax"]:
+        fail(f"int8sb: expected {n_quant} K6 launches a step (one a conv input that is not "
+             f"int8-resident) and no absmax (static scales): {launches9}")
+    shortcuts = [l.index - 1 for l in det.spec.layers if type(l).__name__ == "ShortcutSpec"]
+    fused_q = sorted(i for i in model9._fused if i in model9._qconv_at)
+    if fused_q != sorted(i for i in shortcuts if i in model9._qconv_at):
+        fail(f"int8sb: the [shortcut]s after int8 convs {shortcuts} are not all fused: "
+             f"{fused_q}")
+    unfused = [i for i in shortcuts if i not in model9._fused]
+    # the forward's aten ops on activation-sized tensors
+    with torch.no_grad():
+        xin = letterbox_batch(frames, SIZE)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                    record_shapes=True) as prof:
+            model9(xin, _native_heads=True)
+    big: dict = {}
+    for evt in prof.events():
+        if any(int(np.prod(sh)) >= 1 << 16 for sh in (evt.input_shapes or [])
+               if sh and all(isinstance(d, int) for d in sh)):
+            big[evt.name] = big.get(evt.name, 0) + 1
+    glue = {k: big.get(f"aten::{k}", 0) for k in ("div", "round", "clamp", "add", "abs",
+                                                   "_to_copy", "copy_")}
+    if glue["div"] or glue["round"] or glue["clamp"] or glue["add"] != len(unfused):
+        fail(f"int8sb forward: activation-sized aten ops {glue}; expected no div, round or "
+             f"clamp and {len(unfused)} adds (unfused shortcuts {unfused})")
+    say(f"phase 9 int8sb forward under torch.profiler: activation-sized aten ops {glue} "
+        f"(no div/round/clamp; {len(fused_q)} of {len(shortcuts)} [shortcut]s in K3/K4's "
+        f"epilogue, {len(shortcuts) - len(fused_q) - len(unfused)} in K5's, unfused "
+        f"{unfused}); K6 launches {launches9['quantize_i8']} = {n_quant} a step")
+    del xin, prof
     check_result(res9, "int8sb")
     drift9 = detection_drift(bf16_dets, det._trim(res9, BATCH))
     ms9 = statistics.median(times9)
@@ -1660,12 +1871,74 @@ def main() -> None:
         f"load+calibrate {build_s:.1f} s) on {card}; bf16 phase 6: {ms:.3f} ms/batch; "
         f"launches {launches9}")
     say(f"phase 9 drift int8sb vs bf16 (He-init weights saturate: not gated): {drift9.row()}")
-    del det, res9
+    del det, res9, model9
+
+    # int8sb with dynamic scales: one absmax and one K6 launch a conv a step
+    det = Detector.load(cfg, device=dev, dtype=torch.bfloat16, precision="default",
+                        quant="w8a8")
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    times9d, res9d = pipeline_ms(lambda: det.raw_result(frames, size=SIZE, conf=CONF, iou=IOU,
+                                                        max_det=MAX_DET))
+    launches9d = dict(kernels.LAUNCHES)
+    n9d = len(det.model.qconvs) * (len(times9d) + 3)
+    if not (launches9d["absmax"] == launches9d["quantize_i8"] == n9d):
+        fail(f"int8sb dynamic: expected {n9d} absmax and K6 launches: {launches9d}")
+    check_result(res9d, "int8sb dynamic")
+    ms9d = statistics.median(times9d)
+    say(f"phase 9 yolov3@{SIZE} int8sb with dynamic scales batch {BATCH}: median {ms9d:.3f} "
+        f"ms/batch (min {min(times9d):.3f}, max {max(times9d):.3f}); launches {launches9d}")
+    del det, res9d
+
+    # K6 alone at the largest int8sb input, (128, 52, 52, 256)
+    x6 = torch.randn((BATCH, 52, 52, 256), device=dev,
+                     generator=torch.Generator(dev).manual_seed(9))
+    s6 = torch.tensor(0.03, device=dev)
+    v6 = torch.rand(256, device=dev, generator=torch.Generator(dev).manual_seed(10)) * 0.04 + 0.01
+
+    def library(fn):  # a yardstick only; the port never calls it
+        try:
+            return time_ms(fn)
+        except (RuntimeError, NotImplementedError) as e:
+            say(f"phase 9 library call refused: {str(e).splitlines()[0][:160]}")
+            return None
+
+    k6 = {}
+    for tag, x, sx, lib in (
+            ("fp32", x6, s6, lambda: torch.quantize_per_tensor(x6, 0.03, 0, torch.qint8)),
+            ("bf16", x6.to(torch.bfloat16), s6, None),
+            ("fp32 per channel", x6, v6, lambda: torch.quantize_per_channel(
+                x6, v6, torch.zeros(256, dtype=torch.long, device=dev), 3, torch.qint8))):
+        if not torch.equal(kernels.quantize_i8(x, sx), kernels.quantize_i8_ref(x, sx)):
+            fail(f"K6 {tag} at {tuple(x.shape)}: kernel disagrees with its plain version")
+        fn = lambda x=x, sx=sx: kernels.quantize_i8(x, sx)  # noqa: E731
+        bms = x.numel() * (x.element_size() + 1) / PEAK_HBM_BYTES * 1e3  # read x, write int8
+        k6[tag] = dict(ms=time_ms(fn), device_ms=graph_ms(fn), bound_ms=bms, bound_by="bytes",
+                       plain_ms=time_ms(lambda x=x, sx=sx: kernels.quantize_i8_ref(x, sx), 5, 1),
+                       library_ms=library(lib) if lib is not None else None)
+        say(f"phase 9 K6 quantize_i8 {tag} {tuple(x.shape)}: {k6[tag]['ms']:.4f} ms eager, "
+            f"{k6[tag]['device_ms']:.4f} ms device ({bms / k6[tag]['device_ms']:.1%} of "
+            f"{bms:.4f} ms, bytes); plain {k6[tag]['plain_ms']:.4f} ms; library "
+            f"{k6[tag]['library_ms']}; on {card}")
+    am = lambda: kernels.absmax(x6)  # noqa: E731
+    if kernels.absmax(x6).item() != kernels.absmax_ref(x6).item():
+        fail("K6 absmax at (128, 52, 52, 256): kernel disagrees with its plain version")
+    am_bound = x6.numel() * 4 / PEAK_HBM_BYTES * 1e3
+    k6["absmax"] = dict(ms=time_ms(am), device_ms=graph_ms(am), bound_ms=am_bound,
+                        bound_by="bytes", plain_ms=time_ms(lambda: kernels.absmax_ref(x6), 5, 1),
+                        library_ms=library(lambda: torch.linalg.vector_norm(x6, float("inf"))))
+    say(f"phase 9 K6 absmax fp32 {tuple(x6.shape)}: {k6['absmax']['ms']:.4f} ms eager, "
+        f"{k6['absmax']['device_ms']:.4f} ms device ({am_bound / k6['absmax']['device_ms']:.1%} "
+        f"of {am_bound:.4f} ms, bytes); plain {k6['absmax']['plain_ms']:.4f} ms; "
+        f"torch.linalg.vector_norm(inf) {k6['absmax']['library_ms']}; on {card}")
+    del x6, v6
 
     # K3 and K4 at batch 128: the wgmma core against the mma.sync core in
     # turns, beside the plain version, cuDNN bf16, torch._int_mm and the bound
+    # (and, at every shape and at the 26² conv, the epilogue with a
+    # [shortcut] operand: 20 of int8sb's K4 launches a step take one)
     timed = {}
-    for name, (k, stride, shape, o) in v3_shapes.items():
+    shapes128 = {**v3_shapes, "3x3 s1 26² 256->512": (3, 1, (8, 26, 26, 256), 512)}
+    for name, (k, stride, shape, o) in shapes128.items():
         shape = (BATCH, *shape[1:])
         xq, wq, st, pad, kw = int8_case(rng, k, stride, shape, o,
                                         {"sx": "static", "act": "leaky"}, dev)
@@ -1677,7 +1950,10 @@ def main() -> None:
             if not bool((abs_diff(got, ref) <= 1e-6 * ref.abs()).all()):
                 fail(f"{key} {name} batch {BATCH} (mma={mma}): kernel disagrees with its "
                      "plain version")
-        del ref
+        del ref, got
+        for sdt in (torch.float32, torch.bfloat16):
+            check_shortcut(kernels, errs, "phase 9", f"{name} batch {BATCH}, "
+                           f"{str(sdt).removeprefix('torch.')} operand", xq, wq, st, pad, kw, sdt)
         new = lambda: run_int8(kernels, xq, wq, st, pad, kw)  # noqa: E731
         old = lambda: run_int8(kernels, xq, wq, st, pad, kw, mma=True)  # noqa: E731
         new_ms, old_ms = in_turns(old, new)
@@ -1704,7 +1980,7 @@ def main() -> None:
             + (f", torch._int_mm {ims:.4f} ms" if ims is not None else "")
             + f"; bound {bms:.4f} ms ({by}: {ops / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB); "
             f"on {card}")
-        del xq, wq, xb, wb, got
+        del xq, wq, xb, wb
     g9, c9 = timed["1x1 52² 256->128"], timed["3x3 s1 52² 128->256"]
     say(f"phase 9 timings: {json.dumps(timed, ensure_ascii=False)}")
 
@@ -1950,6 +2226,21 @@ def main() -> None:
          "shapes": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms", "bound_ms",
                                              "plan", "launches_per_step")}
                     for k, v in k5["timed"].items()}},
+        {"name": "quantize_i8", "route": "cuda",
+         "source": "pytorch_yolo_tpu_torch/csrc/quantize_i8.cu",
+         "replaces": "pytorch_yolo_tpu/ops/quant.py:596",
+         "launches": launches9["quantize_i8"], "max_abs_err": k6_err,
+         "ms": k6["fp32"]["ms"], "plain_ms": k6["fp32"]["plain_ms"],
+         "bound_ms": k6["fp32"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": k6["fp32"]["library_ms"], "device_ms": k6["fp32"]["device_ms"],
+         "bf16": k6["bf16"], "per_channel": k6["fp32 per channel"]},
+        {"name": "absmax", "route": "cuda",
+         "source": "pytorch_yolo_tpu_torch/csrc/quantize_i8.cu",
+         "replaces": "pytorch_yolo_tpu/ops/quant.py:595",
+         "launches": launches9d["absmax"], "max_abs_err": k6_am_err,
+         "ms": k6["absmax"]["ms"], "plain_ms": k6["absmax"]["plain_ms"],
+         "bound_ms": k6["absmax"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": k6["absmax"]["library_ms"], "device_ms": k6["absmax"]["device_ms"]},
     ]}
     say(f"phase 15 timings: {json.dumps(prepared)}")
     say(f"phase 16 timings: {json.dumps(cli16)}")

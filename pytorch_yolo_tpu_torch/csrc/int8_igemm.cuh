@@ -27,7 +27,9 @@
 //   * the epilogue follows quant.py:600-622 (JAX) as written: dequant
 //     (sx * ws[o], or ws[o] alone for a per-channel grid or a split conv),
 //     bias, activation, and optionally requant to int8 at a scalar or
-//     per-channel out_scale.  Every multiply-add is one explicit __fmaf_rn,
+//     per-channel out_scale; at fp32 out, optionally a Darknet [shortcut]
+//     operand (fp32 or bf16, (M, O) like the output) added after the
+//     activation (activate_add).  Every multiply-add is one explicit __fmaf_rn,
 //     as XLA compiles the JAX epilogue and as the plain version computes it
 //     (ops/kernels.py: fma); every other product, sum and quotient is an
 //     _rn intrinsic, so nvcc contracts nothing on its own.  Rounding is
@@ -65,11 +67,13 @@ struct IgemmArgs {
   const float* ws;          // (O,) per-output-channel weight scales
   const float* bias;        // (O,)
   const float* out_scale;   // device scalar or (O,) requant scale
+  const void* shortcut;     // (M, O) fp32 or bf16 [shortcut] operand (fp32 out), or null
   int batch, H, W, C, Ho, Wo, O, KH, KW, stride, pad, M;
   int groups;
   int goff[kMaxGroups + 1];  // channel offsets of the groups, goff[0] = 0
   int mode, act, out_scale_vec;
   int pre, mul, sh;          // fixed-point requant (the probe's epilogue)
+  int shortcut_bf16;         // the shortcut operand is bf16 (else fp32)
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -108,6 +112,26 @@ __device__ __forceinline__ float activate(float y, int act) {
     default:
       return y;
   }
+}
+
+// The activation of the pre-activation `y`, plus the [shortcut] operand `s`,
+// as the JAX forward computes `act(acc * deq + b) + cache[from]` when XLA:CPU
+// fuses the add into the epilogue: mish's last product is contracted into
+// the add (one rounding, fma(y, tanh(sp), s)); every other activation is
+// rounded, then added (tests/test_torch_quantize_i8.py pins both).
+__device__ __forceinline__ float activate_add(float y, int act, float s) {
+  if (act == kMish) {
+    const float sp = __fadd_rn(log1pf(expf(-fabsf(y))), fmaxf(y, 0.0f));
+    return __fmaf_rn(y, tanhf(sp), s);
+  }
+  return __fadd_rn(activate(y, act), s);
+}
+
+// Element `idx` of the (M, O) shortcut operand, widened to fp32 (exact).
+__device__ __forceinline__ float shortcut_at(const IgemmArgs& a, long long idx) {
+  return a.shortcut_bf16
+             ? __uint_as_float((uint32_t)static_cast<const uint16_t*>(a.shortcut)[idx] << 16)
+             : static_cast<const float*>(a.shortcut)[idx];
 }
 
 __device__ __forceinline__ int8_t requant(float y) {
@@ -341,9 +365,13 @@ __global__ void __launch_bounds__(kThreads) igemm_kernel(const IgemmArgs a) {
               static_cast<int8_t*>(a.out)[idx] = (int8_t)min(max(y, -127), 127);
               break;
             }
-            case kEpiF32:
-              static_cast<float*>(a.out)[idx] = activate(__fmaf_rn(v, deq, bias), a.act);
+            case kEpiF32: {
+              const float y = __fmaf_rn(v, deq, bias);
+              static_cast<float*>(a.out)[idx] = a.shortcut != nullptr
+                                                    ? activate_add(y, a.act, shortcut_at(a, idx))
+                                                    : activate(y, a.act);
               break;
+            }
             default: {  // kEpiI8
               float y;
               if (homogeneous) {  // divide first, activate after

@@ -34,7 +34,11 @@
 //     of int8), eight threads to a row's 32 columns.  The store loop is
 //     compiled once per (mode, activation) and chosen once per chunk:
 //     switched per element, the two switches compiled to indirect jumps
-//     that cost 2-3x the whole kernel's time at fp32 out.
+//     that cost 2-3x the whole kernel's time at fp32 out.  At fp32 out a
+//     Darknet [shortcut] operand, when given, is read with the same
+//     pieces (16 bytes of fp32 or 8 of bf16 a row's four) and added after
+//     the activation, so the separate add's 8 bytes read and 4 written an
+//     element become 4 (or 2) read.
 // The K loop walks (channel group, tap, 128-byte slice), so a split-concat
 // conv keeps one int32 sum per group and folds it into fp32 at the group's
 // last slice in the plain version's order; the next group's first wgmma
@@ -239,6 +243,8 @@ struct Epi {
   long long M;
   int O, pre, mul, sh;
   bool vec_ok;
+  const char* shortcut;  // the (M, O) [shortcut] operand at fp32 out, or null
+  int sc_bytes;          // 4 (fp32) or 2 (bf16)
 };
 
 // One output of the fused epilogue (int8_igemm.cuh: igemm_kernel, the same
@@ -246,11 +252,13 @@ struct Epi {
 // compile time: switched per element they compile to indirect jumps that
 // cost more than the arithmetic.  `mul`, `add`, `div` are the column's
 // deq / bias / 1 (fp32 out, homogeneous int8 out: deq/os, bias/os, 1) or
-// deq / bias / os (other int8 out).  Returns the int32 or fp32 bits, or the
-// int8 in the low byte.
-template <int kMode, int kAct, bool kSplit>
+// deq / bias / os (other int8 out).  With kSc (fp32 out) the [shortcut]
+// operand `sc` is added after the activation (int8_igemm.cuh:
+// activate_add).  Returns the int32 or fp32 bits, or the int8 in the low
+// byte.
+template <int kMode, int kAct, bool kSplit, bool kSc>
 __device__ __forceinline__ uint32_t epilogue_one(const Epi& e, uint32_t raw, float mul, float add,
-                                                 float div) {
+                                                 float div, float sc) {
   const int iacc = (int)raw;
   if constexpr (kMode == kEpiAcc) {
     return raw;
@@ -260,11 +268,38 @@ __device__ __forceinline__ uint32_t epilogue_one(const Epi& e, uint32_t raw, flo
     return (uint32_t)(uint8_t)(int8_t)min(max(y, -127), 127);
   } else {
     const float v = kSplit ? __uint_as_float(raw) : __int2float_rn(iacc);
-    const float y = activate(__fmaf_rn(v, mul, add), kAct);
-    if constexpr (kMode == kEpiF32) return __float_as_uint(y);
+    const float pre = __fmaf_rn(v, mul, add);
+    if constexpr (kMode == kEpiF32)
+      return __float_as_uint(kSc ? activate_add(pre, kAct, sc) : activate(pre, kAct));
+    const float y = activate(pre, kAct);
     constexpr bool kHomogeneous = kAct == kLeaky || kAct == kRelu || kAct == kLinear;
     return (uint32_t)(uint8_t)requant(kHomogeneous ? y : __fdiv_rn(y, div));
   }
+}
+
+// The four shortcut values at element `idx` of the (M, O) operand (columns
+// o0 .. o0 + 3 of a row), widened to fp32: one 16-byte (fp32) or 8-byte
+// (bf16) load where the row's four are whole, else element by element.
+__device__ __forceinline__ float4 shortcut4(const Epi& e, long long idx, int o0, bool whole) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (e.sc_bytes == 4) {
+    const float* p = reinterpret_cast<const float*>(e.shortcut) + idx;
+    if (whole) return __ldg(reinterpret_cast<const float4*>(p));
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (o0 + i < e.O) s[i] = p[i];
+  } else {
+    const uint16_t* p = reinterpret_cast<const uint16_t*>(e.shortcut) + idx;
+    if (whole) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                         __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (o0 + i < e.O) s[i] = __uint_as_float((uint32_t)p[i] << 16);
+  }
+  return make_float4(s[0], s[1], s[2], s[3]);
 }
 
 __device__ __forceinline__ uint4 lds128(uint32_t addr) {
@@ -284,20 +319,21 @@ __device__ __forceinline__ void sts64(uint32_t addr, uint32_t a, uint32_t b) {
 // columns o0 .. o0 + 3, and stores each row's four with one store: 16
 // bytes (int32, fp32) or 4 bytes (int8) where the row is aligned and
 // whole, else element by element.
-template <int kMode, int kAct, bool kSplit>
+template <int kMode, int kAct, bool kSplit, bool kShortcut>
 __device__ __forceinline__ void store_rows(const Epi& e, uint32_t staging, int row0, long long m0,
                                         int o0, float4 mul, float4 add, float4 div) {
+  constexpr bool kSc = kShortcut && kMode == kEpiF32;
   constexpr int kOut = (kMode == kEpiAcc || kMode == kEpiF32) ? 4 : 1;
   const bool whole = e.vec_ok && o0 + 4 <= e.O;
-#pragma unroll 1
-  for (int row = row0; row < 64; row += 16) {
+  // One row: its four outputs from the staged sums, stored; false past M.
+  auto one_row = [&](int row, float4 sc) {
     const long long m = m0 + row;
-    if (m >= e.M) break;
+    if (m >= e.M) return false;
     const uint4 raw = lds128(staging + row * kStageRow);
-    const uint32_t y0 = epilogue_one<kMode, kAct, kSplit>(e, raw.x, mul.x, add.x, div.x);
-    const uint32_t y1 = epilogue_one<kMode, kAct, kSplit>(e, raw.y, mul.y, add.y, div.y);
-    const uint32_t y2 = epilogue_one<kMode, kAct, kSplit>(e, raw.z, mul.z, add.z, div.z);
-    const uint32_t y3 = epilogue_one<kMode, kAct, kSplit>(e, raw.w, mul.w, add.w, div.w);
+    const uint32_t y0 = epilogue_one<kMode, kAct, kSplit, kSc>(e, raw.x, mul.x, add.x, div.x, sc.x);
+    const uint32_t y1 = epilogue_one<kMode, kAct, kSplit, kSc>(e, raw.y, mul.y, add.y, div.y, sc.y);
+    const uint32_t y2 = epilogue_one<kMode, kAct, kSplit, kSc>(e, raw.z, mul.z, add.z, div.z, sc.z);
+    const uint32_t y3 = epilogue_one<kMode, kAct, kSplit, kSc>(e, raw.w, mul.w, add.w, div.w, sc.w);
     char* dst = e.out + (m * e.O + o0) * kOut;
     if (kOut == 4) {
       if (whole) {
@@ -320,32 +356,78 @@ __device__ __forceinline__ void store_rows(const Epi& e, uint32_t staging, int r
           if (o0 + i < e.O) dst[i] = (char)((word >> (8 * i)) & 0xFF);
       }
     }
+    return true;
+  };
+  if constexpr (kSc) {
+    // the operand of the thread's four rows, loaded together (from L2: the
+    // tile prefetched it, prefetch_shortcut), so their latencies overlap
+    float4 scs[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long m = m0 + row0 + 16 * j;
+      scs[j] = m < e.M ? shortcut4(e, m * e.O + o0, o0, whole)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (!one_row(row0 + 16 * j, scs[j])) break;
+  } else {
+#pragma unroll 1
+    for (int row = row0; row < 64; row += 16)
+      if (!one_row(row, make_float4(0.0f, 0.0f, 0.0f, 0.0f))) break;
+  }
+}
+
+// Asks L2 for the [shortcut] operand of a warpgroup's 64 rows from m0 and
+// columns n0 .. n0 + bn - 1, one 128-byte line a request spread over its
+// 128 threads, at the start of the tile: by the epilogue the lines are in
+// L2, and its loads wait for L2 instead of HBM.
+__device__ __forceinline__ void prefetch_shortcut(const IgemmArgs& a, long long m0, int n0, int bn,
+                                                  int tid) {
+  const int esize = a.shortcut_bf16 ? 2 : 4;
+  const int cols = min(bn, a.O - n0);
+  const int per_row = (cols * esize + 127) / 128 + 1;  // + 1: rows need not start on a line
+  for (int i = tid; i < 64 * per_row; i += 128) {
+    const int r = i / per_row;
+    const long long m = m0 + r;
+    if (m >= a.M) break;
+    const uintptr_t row = reinterpret_cast<uintptr_t>(a.shortcut) + (m * a.O + n0) * esize;
+    const uintptr_t line = (row & ~(uintptr_t)127) + (uintptr_t)(i - r * per_row) * 128;
+    if (line < row + (uintptr_t)cols * esize)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(line));
   }
 }
 
 // store_rows for the call's mode and activation: one dispatch per chunk.
-template <bool kSplit>
+template <bool kSplit, bool kShortcut>
 __device__ __forceinline__ void store_rows_for(int mode, int act, const Epi& e, uint32_t staging,
                                                int row0, long long m0, int o0, float4 mul,
                                                float4 add, float4 div) {
-#define YOLO_ACTS(MODE)                                                                     \
-  switch (act) {                                                                            \
-    case kLeaky:                                                                            \
-      return store_rows<MODE, kLeaky, kSplit>(e, staging, row0, m0, o0, mul, add, div);     \
-    case kMish:                                                                             \
-      return store_rows<MODE, kMish, kSplit>(e, staging, row0, m0, o0, mul, add, div);      \
-    case kRelu:                                                                             \
-      return store_rows<MODE, kRelu, kSplit>(e, staging, row0, m0, o0, mul, add, div);      \
-    case kLogistic:                                                                         \
-      return store_rows<MODE, kLogistic, kSplit>(e, staging, row0, m0, o0, mul, add, div);  \
-    default:                                                                                \
-      return store_rows<MODE, kLinear, kSplit>(e, staging, row0, m0, o0, mul, add, div);    \
+#define YOLO_ACTS(MODE)                                                                  \
+  switch (act) {                                                                         \
+    case kLeaky:                                                                         \
+      return store_rows<MODE, kLeaky, kSplit, kShortcut>(e, staging, row0, m0, o0, mul,  \
+                                                         add, div);                      \
+    case kMish:                                                                          \
+      return store_rows<MODE, kMish, kSplit, kShortcut>(e, staging, row0, m0, o0, mul,   \
+                                                        add, div);                       \
+    case kRelu:                                                                          \
+      return store_rows<MODE, kRelu, kSplit, kShortcut>(e, staging, row0, m0, o0, mul,   \
+                                                        add, div);                       \
+    case kLogistic:                                                                      \
+      return store_rows<MODE, kLogistic, kSplit, kShortcut>(e, staging, row0, m0, o0,    \
+                                                            mul, add, div);              \
+    default:                                                                             \
+      return store_rows<MODE, kLinear, kSplit, kShortcut>(e, staging, row0, m0, o0, mul, \
+                                                          add, div);                     \
   }
   switch (mode) {
     case kEpiAcc:
-      return store_rows<kEpiAcc, kLinear, kSplit>(e, staging, row0, m0, o0, mul, add, div);
+      return store_rows<kEpiAcc, kLinear, kSplit, false>(e, staging, row0, m0, o0, mul, add,
+                                                         div);
     case kEpiFixed:
-      return store_rows<kEpiFixed, kLinear, kSplit>(e, staging, row0, m0, o0, mul, add, div);
+      return store_rows<kEpiFixed, kLinear, kSplit, false>(e, staging, row0, m0, o0, mul, add,
+                                                           div);
     case kEpiF32:
       YOLO_ACTS(kEpiF32)
     default:
@@ -382,7 +464,11 @@ __device__ __forceinline__ void stage_chunk(const int (&acc)[N], const float (&f
   }
 }
 
-template <bool kGather, bool kSplit, int BN>
+// kShortcut: the call passes a [shortcut] operand (fp32 out).  A separate
+// instantiation, so that a conv without one compiles as if the operand did
+// not exist: its registers, at BN = 256 close to the 168 ptxas allows a
+// thread of the 384-thread block, are not touched.
+template <bool kGather, bool kSplit, int BN, bool kShortcut>
 __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(__grid_constant__ const Params p) {
   using L = Layout<BN>;
   constexpr int kStages = L::kStages;
@@ -495,7 +581,9 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(__grid_constant__ co
     const bool homogeneous = a.act == kLeaky || a.act == kRelu || a.act == kLinear;
     const int out_bytes = (a.mode == kEpiAcc || a.mode == kEpiF32) ? 4 : 1;
     const Epi epi = {static_cast<char*>(a.out), a.M, a.O, a.pre, a.mul, a.sh,
-                     ((long long)a.O * out_bytes) % 16 == 0};
+                     ((long long)a.O * out_bytes) % 16 == 0,
+                     kShortcut ? static_cast<const char*>(a.shortcut) : nullptr,
+                     a.shortcut_bf16 ? 2 : 4};
     const int mode = a.mode, act = a.act;
 
     int acc[BN / 2];
@@ -510,6 +598,7 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(__grid_constant__ co
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
       const int m0 = (t / p.tiles_n) * kBM;
       const int n0 = (t % p.tiles_n) * BN;
+      if constexpr (kShortcut) prefetch_shortcut(a, m0 + 64 * cw, n0, BN, tid);
       KStep k = {0, 0, a.goff[0]};
       bool first = true;  // the next wgmma starts a sum: scale-d = 0
       for (int i = 0; i < total; ++i) {
@@ -613,7 +702,7 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(__grid_constant__ co
                                          __uint_as_float(ad.z), __uint_as_float(ad.w));
           const float4 div = make_float4(__uint_as_float(dv.x), __uint_as_float(dv.y),
                                          __uint_as_float(dv.z), __uint_as_float(dv.w));
-          store_rows_for<kSplit>(mode, act, epi, staging + 16 * q, tid / 8,
+          store_rows_for<kSplit, kShortcut>(mode, act, epi, staging + 16 * q, tid / 8,
                                  (long long)m0 + 64 * cw, o0, mul, add, div);
         }
       }
@@ -663,12 +752,12 @@ inline bool encode_2d(CUtensorMap* map, const void* ptr, long long cols, long lo
          CUDA_SUCCESS;
 }
 
-template <bool kGather, bool kSplit, int BN>
+template <bool kGather, bool kSplit, int BN, bool kShortcut>
 cudaError_t launch_one(const Params& p, int device, int sms, cudaStream_t s) {
   constexpr int kDevices = 64;
   static std::mutex mu;
   static bool ready[kDevices] = {};
-  auto kernel = wgmma_kernel<kGather, kSplit, BN>;
+  auto kernel = wgmma_kernel<kGather, kSplit, BN, kShortcut>;
   if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
   {
     std::lock_guard<std::mutex> lock(mu);
@@ -713,9 +802,14 @@ int launch_wgmma(const IgemmArgs* args, int bn, int device, void* stream) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (split) return (int)launch_one<kGather, true, 128>(p, device, sms, s);
-  if (bn == 256) return (int)launch_one<kGather, false, 256>(p, device, sms, s);
-  return (int)launch_one<kGather, false, 128>(p, device, sms, s);
+  if (a.shortcut != nullptr) {
+    if (split) return (int)launch_one<kGather, true, 128, true>(p, device, sms, s);
+    if (bn == 256) return (int)launch_one<kGather, false, 256, true>(p, device, sms, s);
+    return (int)launch_one<kGather, false, 128, true>(p, device, sms, s);
+  }
+  if (split) return (int)launch_one<kGather, true, 128, false>(p, device, sms, s);
+  if (bn == 256) return (int)launch_one<kGather, false, 256, false>(p, device, sms, s);
+  return (int)launch_one<kGather, false, 128, false>(p, device, sms, s);
 }
 
 }  // namespace wg

@@ -15,7 +15,8 @@ fp32 and fp64 the convs are ``F.conv2d`` (cuDNN on the card, TF32 off at
 fp32 sum of the bf16 operands, + the fp32 bias, the activation in fp32, one
 rounding to bf16.  A bf16 conv whose output only a following [shortcut]
 reads takes that shortcut into its epilogue (the bf16 add after the
-rounding, as JAX adds the two bf16 maps).
+rounding, as JAX adds the two bf16 maps); so does an int8 conv with fp32
+output, at any glue dtype (the fp32 add after the activation, in K3/K4).
 
 ``stem_s2d=True`` runs the space-to-depth stem: the first two layers
 (3x3/s1 conv + 3x3/s2 conv, or 3x3/s1 conv + 2x2/s2 maxpool) become one
@@ -29,7 +30,9 @@ sums.
 from ``ops.quant.quantize_params``) through ``ops.quant.quantized_conv``:
 the hand-written int8 kernels K3/K4 on the card, with int8-resident chains
 (a producer writes int8 at its consumer's static scale; maxpool and
-upsample pass int8 through) and per-branch scales for split-concat convs.
+upsample pass int8 through) and per-branch scales for split-concat convs;
+every other int8 conv input is quantized by K6 (``ops.kernels.quantize_i8``,
+with ``absmax`` for a dynamic scale).
 A quantized conv returns fp32, so each fp conv casts its input to the
 module's dtype first, as the JAX ``_conv`` does.  ``quant="w8"`` dequantizes
 the int8 weights once (``wq * ws``) and runs the fp conv.
@@ -67,8 +70,8 @@ from ..config import (
     YoloSpec,
     head_strides,
 )
-from ..ops.kernels import conv_bf16
-from ..ops.quant import dynamic_amax, quantized_conv, scale_of_amax
+from ..ops.kernels import absmax, conv_bf16
+from ..ops.quant import quantized_conv, scale_of_amax
 
 
 def apply_activation(y: torch.Tensor, activation: str) -> torch.Tensor:
@@ -360,7 +363,13 @@ class Darknet(nn.Module):
         self._dynamic = frozenset(i for i in self._qconv_at
                                   if self._scale_args(i)[0] is None
                                   and self._scale_args(i)[2] is None)
-        self._fused = _fused_shortcuts(spec) if dtype == torch.bfloat16 else frozenset()
+        # the convs that take the [shortcut] after them into their epilogue:
+        # K5 (every fp conv of a bf16 model) and K3/K4 (an int8 conv of an
+        # fp32 or bf16 model: its output is fp32, since a fused conv's output
+        # is needed and so never chained int8)
+        glue = dtype in (torch.float32, torch.bfloat16)
+        self._fused = frozenset(i for i in _fused_shortcuts(spec)
+                                if (glue and i in self._qconv_at) or dtype == torch.bfloat16)
         # called after each layer with its index and output (an NCHW view);
         # the packed s2d stem reports layer 1 only.  The stage profiler
         # (utils/profiling.py) and the command line's --debug-nans set it.
@@ -400,16 +409,20 @@ class Darknet(nn.Module):
                              torch.maximum(y[:, 2 * o:3 * o], y[:, 3 * o:]))
 
     def _quantized(self, x: torch.Tensor, layer: ConvSpec,
-                   shared_sx: "torch.Tensor | None" = None) -> torch.Tensor:
+                   shared_sx: "torch.Tensor | None" = None,
+                   shortcut: "torch.Tensor | None" = None) -> torch.Tensor:
         """One W8A8 conv on the NCHW (channels_last) view; ``shared_sx`` is
-        the whole batch's dynamic scale for a conv without a static one."""
+        the whole batch's dynamic scale for a conv without a static one;
+        ``shortcut`` (an NCHW view of the output's shape) the [shortcut]
+        operand its epilogue adds."""
         q = self._qconv_at[layer.index]
         out_idx = self._chains.get(layer.index)
         sx, sxg, splits = self._scale_args(layer.index)
         y = quantized_conv(
             x.permute(0, 2, 3, 1), q.wq, q.ws, q.b, layer, sx=shared_sx if sx is None else sx,
             out_scale=self._qconv_at[out_idx].sa if out_idx is not None else None,
-            sxg=sxg, splits=splits)
+            sxg=sxg, splits=splits,
+            shortcut=None if shortcut is None else shortcut.permute(0, 2, 3, 1))
         return y.permute(0, 3, 1, 2)
 
     def _scale_args(self, idx: int) -> tuple:
@@ -481,20 +494,17 @@ class Darknet(nn.Module):
         conv."""
         x = w.x
         if isinstance(layer, ConvSpec):
-            w.fused = False
             if w.conv_in is not None:
                 s = w.conv_in(layer.index, x.permute(0, 2, 3, 1))
                 if s is not None:
                     w.stats[layer.index] = s
+            # the [shortcut] at index + 1 in K3/K4's or K5's epilogue
+            w.fused = layer.index in self._fused and not w.hooked
+            sc = w.cache[self.spec.layers[layer.index + 1].from_layer] if w.fused else None
             if layer.index in self._qconv_at:
-                x = self._quantized(x, layer, shared_sx)
-            elif layer.index in self._fused and not w.hooked:
-                # the [shortcut] at index + 1 in K5's epilogue
-                x = self._run_conv(self._conv_at[layer.index], x,
-                                   w.cache[self.spec.layers[layer.index + 1].from_layer])
-                w.fused = True
+                x = self._quantized(x, layer, shared_sx, sc)
             else:
-                x = self._run_conv(self._conv_at[layer.index], x)
+                x = self._run_conv(self._conv_at[layer.index], x, sc)
             if w.conv_out is not None:
                 s = w.conv_out(layer.index, x.permute(0, 2, 3, 1))
                 if s is not None:
@@ -556,7 +566,8 @@ def _shared_scales(walks: "list[_Walk]") -> list[torch.Tensor]:
     shards' 0-d maxima meet on the first shard's device and the scale goes
     back to each, all on the devices' streams: no host sync."""
     home = walks[0].x.device
-    sx = scale_of_amax(torch.stack([dynamic_amax(w.x).to(home) for w in walks]).amax())
+    sx = scale_of_amax(torch.stack([absmax(w.x.permute(0, 2, 3, 1)).to(home)
+                                   for w in walks]).amax())
     return [sx.to(w.x.device) for w in walks]
 
 

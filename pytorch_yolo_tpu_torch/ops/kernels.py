@@ -21,12 +21,18 @@
   rounding to bf16, optional shortcut add) on the wgmma core
   (``pytorch_yolo_tpu/models/darknet.py: _conv``); every fp conv of a bf16
   detector.
+* **K6** :func:`quantize_i8` and :func:`absmax` (``csrc/quantize_i8.cu``):
+  the int8 input quantizer ``clamp(round(x / sx), -127, 127)`` of a bf16 or
+  fp32 input at a scalar or per-channel scale, and the dynamic scale's
+  ``max|x|`` (XLA's fusion in ``pytorch_yolo_tpu/ops/quant.py:
+  quantized_conv``); every int8 conv input that is not int8-resident.
 
 K3 and K4 run on the Hopper core ``csrc/int8_wgmma.cuh`` (wgmma, TMA, a
 warp-specialised ring, persistent blocks) whenever C and the group offsets
 are multiples of 16 (:func:`igemm_plan`); the ``mma.sync`` core
 ``csrc/int8_igemm.cuh`` keeps the byte path, counted apart as
-``int8_gemm_mma`` / ``int8_conv_mma``.
+``int8_gemm_mma`` / ``int8_conv_mma``.  Both take a Darknet [shortcut]
+operand into their fp32 epilogue (``shortcut=``).
 
 Each has a plain torch version beside it (``*_ref``).  A wrapper takes the
 plain version only when its input lies on the CPU; for a CUDA tensor it
@@ -60,7 +66,7 @@ from .decode import head_decode_args
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f) for f in
                 ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu",
-                  "conv_bf16.cu"))
+                  "conv_bf16.cu", "quantize_i8.cu"))
 HEADERS = tuple(os.path.join(CSRC, f) for f in ("int8_igemm.cuh", "int8_wgmma.cuh",
                                                 "device_guard.cuh"))
 BUILD_DIR = os.path.join(CSRC, "_build")
@@ -70,7 +76,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"decode_score": 0, "nms_keep": 0, "int8_gemm": 0, "int8_gemm_mma": 0,
-            "int8_conv": 0, "int8_conv_mma": 0, "conv_bf16": 0}
+            "int8_conv": 0, "int8_conv_mma": 0, "conv_bf16": 0, "quantize_i8": 0, "absmax": 0}
 
 MAX_ANCHORS = 8         # csrc/decode_score.cu: kMaxAnchors
 MAX_HEADS = 8           # csrc/decode_score.cu: kMaxHeads, heads in one K1 launch
@@ -153,7 +159,11 @@ def load_library() -> ctypes.CDLL:
             lib.yolo_decode_score.argtypes = [ctypes.POINTER(_DecodeArgs), i, i, p]
             lib.yolo_nms_keep.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i, p]
             lib.yolo_conv_bf16.argtypes = [ctypes.POINTER(_ConvBf16Args), i, i, i, p]
-            for fn in (lib.yolo_decode_score, lib.yolo_nms_keep, lib.yolo_conv_bf16):
+            n = ctypes.c_longlong
+            lib.yolo_quantize_i8.argtypes = [p, i, p, i, p, n, i, p]
+            lib.yolo_absmax.argtypes = [p, i, n, p, i, p]
+            for fn in (lib.yolo_decode_score, lib.yolo_nms_keep, lib.yolo_conv_bf16,
+                       lib.yolo_quantize_i8, lib.yolo_absmax):
                 fn.restype = i
             for fn in (lib.yolo_int8_gemm, lib.yolo_int8_conv, lib.yolo_int8_gemm_mma,
                        lib.yolo_int8_conv_mma):
@@ -186,6 +196,13 @@ def _cuda_args(name: str, *tensors: "torch.Tensor | None") -> tuple[int, int]:
         raise ValueError(f"{name}: no kernel for device {dev}")
     _check_hopper(dev.index)
     return dev.index, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _on_grid(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on the 16-byte grid that the kernels' vector
+    copies need: a view with an offset may sit off it, and is then copied."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _launch(name: str, entry, *args) -> None:
@@ -523,12 +540,13 @@ class _IgemmArgs(ctypes.Structure):
     """csrc/int8_igemm.cuh: IgemmArgs, field for field."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in
-                 ("x", "w", "out", "sx", "sxg", "ws", "bias", "out_scale")]
+                 ("x", "w", "out", "sx", "sxg", "ws", "bias", "out_scale", "shortcut")]
                 + [(n, ctypes.c_int) for n in
                    ("batch", "H", "W", "C", "Ho", "Wo", "O", "KH", "KW", "stride", "pad", "M",
                     "groups")]
                 + [("goff", ctypes.c_int * (MAX_SPLIT_GROUPS + 1))]
-                + [(n, ctypes.c_int) for n in ("mode", "act", "out_scale_vec", "pre", "mul", "sh")])
+                + [(n, ctypes.c_int) for n in ("mode", "act", "out_scale_vec", "pre", "mul", "sh",
+                                                "shortcut_bf16")])
 
 
 def _requant_fixed(acc: torch.Tensor, pre: int, m: int, sh: int) -> torch.Tensor:
@@ -556,11 +574,29 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where((err != 0) & even, torch.nextafter(s, away), s).float()
 
 
+def _activate_add(y: torch.Tensor, activation: str, s: torch.Tensor) -> torch.Tensor:
+    """The activation of the fp32 pre-activation ``y``, plus a [shortcut]
+    operand ``s`` (fp32 or bf16, widened), as the JAX forward computes
+    ``act(acc * deq + b) + cache[from]`` when XLA:CPU fuses the add into the
+    epilogue: mish's last product ``y * tanh(sp)`` is contracted into the
+    add (one rounding, :func:`fma`); every other activation's result is
+    rounded, then added (``tests/test_torch_quantize_i8.py`` pins both)."""
+    from ..models.darknet import apply_activation  # darknet imports this module
+
+    s = s.to(torch.float32)
+    if activation == "mish":
+        sp = torch.log1p(torch.exp(-torch.abs(y))) + torch.clamp(y, min=0.0)
+        return fma(y, torch.tanh(sp), s)
+    return apply_activation(y, activation) + s
+
+
 def _serving_epilogue(v: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, activation: str,
-                      sx: "torch.Tensor | None", out_scale: "torch.Tensor | None") -> torch.Tensor:
+                      sx: "torch.Tensor | None", out_scale: "torch.Tensor | None",
+                      shortcut: "torch.Tensor | None" = None) -> torch.Tensor:
     """``pytorch_yolo_tpu/ops/quant.py:600-622`` on an fp32 (..., O) sum:
     dequant (``sx * ws``, or ``ws`` alone when ``sx`` is None or a per-channel
-    grid), bias, activation; with ``out_scale``, int8 at that scale (leaky,
+    grid), bias, activation (and at fp32 out the ``shortcut`` operand added,
+    :func:`_activate_add`); with ``out_scale``, int8 at that scale (leaky,
     relu and linear divide first and activate after, the others activate at
     the true scale, then divide).  ``sum * deq + bias`` is one fused
     multiply-add, as XLA compiles it."""
@@ -568,6 +604,8 @@ def _serving_epilogue(v: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, activa
 
     deq = ws if sx is None or sx.dim() == 1 else sx * ws
     if out_scale is None:
+        if shortcut is not None:
+            return _activate_add(fma(v, deq, b), activation, shortcut)
         return apply_activation(fma(v, deq, b), activation)
     if activation in _HOMOGENEOUS:
         y = apply_activation(fma(v, deq / out_scale, b / out_scale), activation)
@@ -591,20 +629,21 @@ def _split_sum(parts, sxg: torch.Tensor) -> torch.Tensor:
 
 def _epilogue_ref(acc_of, channels: int, *, fixed=None, accumulators=False, ws=None, b=None,
                   activation="linear", sx=None, out_scale=None, sxg=None,
-                  splits=None) -> torch.Tensor:
+                  splits=None, shortcut=None) -> torch.Tensor:
     """The kernels' epilogue in plain torch (arguments: :func:`int8_gemm`);
     ``acc_of(lo, hi)`` gives the int32 accumulators over input channels
     [lo, hi)."""
     if sxg is not None:  # split concat: per-branch int32 sums, merged in fp32
         bounds = [0, *itertools.accumulate(splits)]
         parts = [acc_of(lo, hi).to(torch.float32) for lo, hi in zip(bounds, bounds[1:])]
-        return _serving_epilogue(_split_sum(parts, sxg), ws, b, activation, None, out_scale)
+        return _serving_epilogue(_split_sum(parts, sxg), ws, b, activation, None, out_scale,
+                                 shortcut)
     acc = acc_of(0, channels)
     if accumulators:
         return acc
     if fixed is not None:
         return _requant_fixed(acc, *fixed)
-    return _serving_epilogue(acc.to(torch.float32), ws, b, activation, sx, out_scale)
+    return _serving_epilogue(acc.to(torch.float32), ws, b, activation, sx, out_scale, shortcut)
 
 
 def gemm_i8_ref(xq: torch.Tensor, wq: torch.Tensor, **epi) -> torch.Tensor:
@@ -660,10 +699,26 @@ def igemm_work(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: int, 
     return ops, n * h * w * c + o * kh * kw * c + m * o * out_bytes
 
 
+def _check_shortcut(name: str, shortcut: "torch.Tensor | None", out_shape: tuple[int, ...],
+                    epi: dict) -> None:
+    """A [shortcut] operand must have the output's shape, be fp32 or bf16,
+    and meet the fp32 serving epilogue (no ``out_scale``, accumulators or
+    fixed-point requant)."""
+    if shortcut is None:
+        return
+    if tuple(shortcut.shape) != tuple(out_shape):
+        raise ValueError(f"{name}: shortcut must be {tuple(out_shape)}, got "
+                         f"{tuple(shortcut.shape)}")
+    if shortcut.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: shortcut must be float32 or bfloat16, got {shortcut.dtype}")
+    if any(epi.get(k) is not None for k in ("out_scale", "fixed")) or epi.get("accumulators"):
+        raise ValueError(f"{name}: a shortcut operand takes the fp32 serving epilogue only")
+
+
 def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
            out_shape: tuple[int, ...], *, fixed=None, accumulators=False, ws=None, b=None,
            activation="linear", sx=None, out_scale=None, sxg=None, splits=None,
-           _mma: bool = False) -> torch.Tensor:
+           shortcut=None, _mma: bool = False) -> torch.Tensor:
     """Check the arguments of K3/K4 on CUDA tensors and launch the kernel
     that :func:`igemm_plan` picks.  ``xq`` is (N, H, W, C) int8 and ``wq``
     (O, KH, KW, C) int8.  ``_mma=True`` forces the ``mma.sync`` core, for
@@ -708,8 +763,10 @@ def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
         raise ValueError(f"{name}: int8 input (..., {c}) and int8 (O, KH, KW, {c}) weights "
                          f"expected, got {xq.dtype} {tuple(xq.shape)} and {wq.dtype} "
                          f"{tuple(wq.shape)}")
+    if shortcut is not None:
+        shortcut = _on_grid(shortcut)
     scalar = [t for t in (sx, out_scale) if t is not None and t.dim() == 0]
-    device, stream = _cuda_args(name, xq, wq, ws, b, sxg, *scalar,
+    device, stream = _cuda_args(name, xq, wq, ws, b, sxg, shortcut, *scalar,
                                 *[t for t in (sx, out_scale) if t is not None and t.dim() == 1])
     out = torch.empty(out_shape, dtype=out_dtype, device=xq.device)
     aligned = xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
@@ -724,11 +781,12 @@ def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
     m = out.numel() // o
     args = _IgemmArgs(
         ptr(xq), ptr(wq), ptr(out), ptr(sx) if sx is not None and sx.dim() == 0 else None,
-        ptr(sxg), ptr(ws), ptr(b), ptr(out_scale),
+        ptr(sxg), ptr(ws), ptr(b), ptr(out_scale), ptr(shortcut),
         n, h, w, c, out_shape[1] if len(out_shape) == 4 else 1,
         out_shape[2] if len(out_shape) == 4 else 1, o, kh, kw, stride, pad, m, len(goff) - 1,
         (ctypes.c_int * (MAX_SPLIT_GROUPS + 1))(*goff), mode, _ACT[activation],
-        int(out_scale is not None and out_scale.dim() == 1), pre, mul, sh)
+        int(out_scale is not None and out_scale.dim() == 1), pre, mul, sh,
+        int(shortcut is not None and shortcut.dtype == torch.bfloat16))
     _launch(key, getattr(load_library(), "yolo_" + key), ctypes.byref(args), arg, device, stream)
     return out
 
@@ -742,11 +800,14 @@ def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, _mma: bool = False, **epi) -> 
     else the serving epilogue (``ws``, ``b``, ``activation`` (default
     "linear"), and ``sx`` a 0-d input scale or a per-channel grid already
     folded into ``wq``, or ``sxg`` + ``splits`` for per-branch scales) ->
-    fp32, or int8 at ``out_scale``.  Scales are tensors on the device.
+    fp32, or int8 at ``out_scale``.  Scales are tensors on the device.  At
+    fp32 out, ``shortcut`` (M, N) fp32 or bf16 is a Darknet [shortcut]
+    operand added after the activation (:func:`_activate_add`).
     ``_mma`` (CUDA only) forces the ``mma.sync`` core, for A/B timing."""
     if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
         raise ValueError(f"int8_gemm: (M, K) and (N, K) expected, got {tuple(xq.shape)} and "
                          f"{tuple(wq.shape)}")
+    _check_shortcut("int8_gemm", epi.get("shortcut"), (xq.shape[0], wq.shape[0]), epi)
     if xq.device.type == "cpu":
         return gemm_i8_ref(xq, wq, **epi)
     (m, k), n = xq.shape, wq.shape[0]
@@ -758,18 +819,19 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int, _mma: b
               **epi) -> torch.Tensor:
     """K4: NHWC int8 ``xq`` (N, H, W, C) conv (O, KH, KW, C) int8 ``wq``,
     zero padding ``pad`` on each side -> NHWC (N, Ho, Wo, O), with the
-    epilogue of :func:`int8_gemm`."""
+    epilogue of :func:`int8_gemm` (a ``shortcut`` is (N, Ho, Wo, O))."""
     if xq.dim() != 4 or wq.dim() != 4 or xq.shape[3] != wq.shape[3]:
         raise ValueError(f"int8_conv: (N, H, W, C) and (O, KH, KW, C) expected, got "
                          f"{tuple(xq.shape)} and {tuple(wq.shape)}")
-    if xq.device.type == "cpu":
-        return int8_conv_ref(xq, wq, stride, pad, **epi)
     n, h, w, _ = xq.shape
     o, kh, kw, _ = wq.shape
     ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
     if ho < 1 or wo < 1:
         raise ValueError(f"int8_conv: empty output for {tuple(xq.shape)} with a {kh}x{kw} "
                          f"kernel, stride {stride}, pad {pad}")
+    _check_shortcut("int8_conv", epi.get("shortcut"), (n, ho, wo, o), epi)
+    if xq.device.type == "cpu":
+        return int8_conv_ref(xq, wq, stride, pad, **epi)
     return _igemm("int8_conv", xq, wq, stride, pad, (n, ho, wo, o), _mma=_mma, **epi)
 
 
@@ -967,16 +1029,73 @@ def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pa
     route, bn, cp = conv_bf16_plan(c, o, kh, kw, stride, pad)
     if cp != c:  # zero channels: the gather copies 8 channels at a time
         x, w = F.pad(x, (0, cp - c)), F.pad(w, (0, cp - c))
-    x, w = x.contiguous(), w.contiguous()
+    x, w = _on_grid(x), _on_grid(w)
     if shortcut is not None:
-        shortcut = shortcut.contiguous()
-    # a view with an offset may sit off the 16-byte grid the copies need
-    x, w, shortcut = (t.clone() if t is not None and t.data_ptr() % 16 else t
-                      for t in (x, w, shortcut))
+        shortcut = _on_grid(shortcut)
     device, stream = _cuda_args("conv_bf16", x, w, b, shortcut)
     out = torch.empty((n, ho, wo, o), dtype=torch.bfloat16, device=x.device)
     ptrs = tuple(None if t is None else t.data_ptr() for t in (x, w, b, shortcut, out))
     args = _conv_bf16_args(tuple(x.shape), tuple(w.shape), stride, pad, act, route, ptrs)
     _launch("conv_bf16", load_library().yolo_conv_bf16, ctypes.byref(args), bn,
             CONV_BF16_ROUTES[route], device, stream)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: the int8 input quantizer and the dynamic scale's max|x|
+# ---------------------------------------------------------------------------
+
+
+def quantize_i8_ref(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K6's quantizer (arguments: :func:`quantize_i8`):
+    ``x`` widened to fp32, divided by ``sx``, rounded half to even, clamped
+    to [-127, 127], cast to int8 (``pytorch_yolo_tpu/ops/quant.py:596``)."""
+    return torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
+
+
+def quantize_i8(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """K6: bf16 or fp32 ``x`` (..., C) -> int8 ``clamp(round(x / sx), -127,
+    127)``; ``sx`` an fp32 0-d scale or a (C,) per-channel vector (a split
+    concat's branch scales, each on its branch's channels).  One launch; a
+    view that is not contiguous or sits off the 16-byte grid is copied
+    first.  A CPU tensor takes :func:`quantize_i8_ref`; a CUDA tensor
+    launches the kernel or raises."""
+    if sx.dim() > 1 or (sx.dim() == 1 and (x.dim() == 0 or sx.shape[0] != x.shape[-1])):
+        raise ValueError(f"quantize_i8: sx must be 0-d or ({x.shape[-1] if x.dim() else 1},), "
+                         f"got {tuple(sx.shape)}")
+    if x.device.type == "cpu":
+        return quantize_i8_ref(x, sx)
+    if x.dtype not in (torch.float32, torch.bfloat16) or sx.dtype != torch.float32:
+        raise ValueError(f"quantize_i8: x must be float32 or bfloat16 and sx float32, got "
+                         f"{x.dtype} and {sx.dtype}")
+    x, sx = _on_grid(x), sx.contiguous()
+    device, stream = _cuda_args("quantize_i8", x, sx)
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel():
+        _launch("quantize_i8", load_library().yolo_quantize_i8, x.data_ptr(), x.element_size(),
+                sx.data_ptr(), sx.numel() if sx.dim() == 1 else 0, out.data_ptr(), x.numel(),
+                device, stream)
+    return out
+
+
+def absmax_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K6's reduction: ``max|x|`` as a 0-d fp32."""
+    return x.abs().amax().to(torch.float32)
+
+
+def absmax(x: torch.Tensor) -> torch.Tensor:
+    """K6's reduction: ``max|x|`` of a bf16 or fp32 tensor as a 0-d fp32 on
+    its device, exact (the max and the widening commute).  A view that is
+    not contiguous or sits off the 16-byte grid is copied first.  A CPU
+    tensor takes :func:`absmax_ref`; a CUDA tensor launches the kernel or
+    raises."""
+    if x.device.type == "cpu":
+        return absmax_ref(x)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"absmax: x must be float32 or bfloat16, got {x.dtype}")
+    x = _on_grid(x)
+    device, stream = _cuda_args("absmax", x)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    _launch("absmax", load_library().yolo_absmax, x.data_ptr(), x.element_size(), x.numel(),
+            out.data_ptr(), device, stream)
     return out

@@ -24,9 +24,13 @@ passes (:func:`bias_correct_params`, :func:`rank_quant_noise`) run the
 fp32 "highest" forward on the card unless the caller asks for the CPU; the
 last two run each quantized conv's int8 twin through K3/K4 there.
 
-The input quantizer stays plain torch (``clamp(round(x / sx), -127, 127)``
-in fp32), as the JAX package leaves it to XLA outside any kernel.
-``torch.round`` rounds half to even, as ``jnp.round`` does.
+The input quantizer ``clamp(round(x / sx), -127, 127)`` and the dynamic
+scale's ``max|x|``, which XLA fuses into each int8 conv on the TPU, are K6
+(``kernels.quantize_i8`` / ``kernels.absmax``): one launch a conv input,
+the bf16 or fp32 input widened in registers, a split concat's branches at
+their own scales through one per-channel vector.  On a CPU tensor they run
+their plain versions (``torch.round`` rounds half to even, as ``jnp.round``
+does).
 """
 
 from __future__ import annotations
@@ -449,15 +453,7 @@ def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
     fuses the add into it (one rounding).  Written out, it gives the same
     bits on every device: one bit of difference can flip an int8 rounding
     downstream."""
-    return scale_of_amax(dynamic_amax(x))
-
-
-def dynamic_amax(x: torch.Tensor) -> torch.Tensor:
-    """``max|x|`` of a batch (or of one shard of it) as a 0-d fp32 device
-    tensor, that of ``x`` cast to fp32 (rounding is monotone, so the max
-    and the cast commute).  The max is exact, so the max of the shards'
-    maxima is the batch's."""
-    return x.abs().amax().to(torch.float32)
+    return scale_of_amax(kernels.absmax(x))
 
 
 def scale_of_amax(m: torch.Tensor) -> torch.Tensor:
@@ -466,52 +462,56 @@ def scale_of_amax(m: torch.Tensor) -> torch.Tensor:
     return kernels.fma(m, torch.full_like(m, 1.0 / 127.0), torch.full_like(m, _QEPS))
 
 
-def quantize_input(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    """fp32 ``clamp(round(x / sx), -127, 127)`` as int8; ``sx`` a 0-d scale
-    or a per-channel vector over the last (channel) dim."""
-    return torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8)
+def split_scale_vector(sxg: torch.Tensor, splits: "tuple[int, ...]") -> torch.Tensor:
+    """The (C,) per-channel scale of a split-concat conv's input: channel c
+    of branch g carries ``sxg[g]``, so one K6 launch divides each element by
+    the same fp32 value as ``x[..., off:off + c] / sxg[g]`` does.  Built on
+    ``sxg``'s device from views of it (no copy from the host)."""
+    return torch.cat([sxg[g].expand(c) for g, c in enumerate(splits)])
 
 
 def quantized_conv(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
                    spec: ConvSpec, sx: "torch.Tensor | None" = None,
                    out_scale: "torch.Tensor | None" = None,
                    sxg: "torch.Tensor | None" = None,
-                   splits: "tuple[int, ...] | None" = None) -> torch.Tensor:
+                   splits: "tuple[int, ...] | None" = None,
+                   shortcut: "torch.Tensor | None" = None) -> torch.Tensor:
     """One W8A8 conv on an NHWC batch: quantize the input (dynamic
     ``max|x|/127`` when ``sx`` is None, else the static scale; an int8 ``x``
     is taken as already quantized at ``sx``), run the int8 kernel, and
     return NHWC fp32, or int8 at ``out_scale`` (an int8-resident chain).
+    A bf16 or fp32 input goes to K6 as it is (widened in registers).
 
-    ``sxg`` + ``splits`` quantize each concat branch at its own scale; the
-    kernel scales each branch's int32 sum by ``sxg[g]`` and adds them in
-    fp32.  1x1 stride-1 convs run on K3 (``int8_gemm``), all others on K4
-    (``int8_conv``).  All scales stay on the device."""
+    ``sxg`` + ``splits`` quantize each concat branch at its own scale (one
+    K6 launch at the per-channel :func:`split_scale_vector`); the kernel scales each branch's int32 sum by
+    ``sxg[g]`` and adds them in fp32.  ``shortcut`` (the output's shape,
+    fp32 or bf16; fp32 out only) is a Darknet [shortcut] operand the kernel
+    adds after the activation.  1x1 stride-1 convs run on K3
+    (``int8_gemm``), all others on K4 (``int8_conv``).  All scales stay on
+    the device."""
     epi = dict(ws=ws, b=b, activation=spec.activation, out_scale=out_scale)
+    if shortcut is not None:
+        epi["shortcut"] = shortcut
     if sxg is not None and splits is not None and x.dtype != torch.int8:
         if sum(splits) != x.shape[-1]:
             raise ValueError(f"concat splits {splits} do not cover the "
                              f"{x.shape[-1]} input channels")
-        xf = x.to(torch.float32)
-        xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-        off = 0
-        for g, c in enumerate(splits):
-            xq[..., off:off + c] = quantize_input(xf[..., off:off + c], sxg[g])
-            off += c
+        xq = kernels.quantize_i8(x, split_scale_vector(sxg, splits))
         epi.update(sxg=sxg, splits=tuple(splits))
     else:
         if x.dtype == torch.int8:
             if sx is None:
                 raise ValueError("int8-resident input requires a static scale")
-            xq = x
+            xq = x.contiguous()
         else:
-            xf = x.to(torch.float32)
             if sx is None:
-                sx = dynamic_scale(xf)
-            xq = quantize_input(xf, sx)
+                sx = dynamic_scale(x)
+            xq = kernels.quantize_i8(x, sx)
         epi.update(sx=sx)
-    xq = xq.contiguous()
     if spec.size == 1 and spec.stride == 1:
         n, h, w, c = xq.shape
+        if shortcut is not None:
+            epi["shortcut"] = shortcut.reshape(n * h * w, -1)
         y = kernels.int8_gemm(xq.reshape(n * h * w, c), wq.reshape(wq.shape[0], c), **epi)
         return y.reshape(n, h, w, -1)
     return kernels.int8_conv(xq, wq, spec.stride, spec.padding, **epi)

@@ -20,7 +20,9 @@ The int8 kernels K3/K4: int32 accumulators and int8 outputs exact; fp32
 outputs within 1e-6 relative (the kernels follow the plain versions'
 operation order, each multiply-add one explicit FMA as in the plain
 versions' ``fma``; only ``expf``/``log1pf``/``tanhf`` in mish and logistic
-may differ in the last ulps).
+may differ in the last ulps); with a [shortcut] operand, within 1e-6 of the
+larger of the output and the operand (the add may cancel most of a mish
+output that differs in its last ulp).  K6: int8 equal, ``max|x|`` bit-equal.
 """
 
 import numpy as np
@@ -32,7 +34,7 @@ from pytorch_yolo_tpu_torch.config import MaxPoolSpec
 from pytorch_yolo_tpu_torch.models.darknet import _maxpool
 from pytorch_yolo_tpu_torch.ops import kernels as tk
 from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch, letterbox_host
-from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale, quantize_input
+from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale, split_scale_vector
 from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 
 ANCHORS = ((81, 82), (135, 169), (344, 319))
@@ -273,7 +275,7 @@ INT8_CASES = {
 
 def int8_core_key(name):
     """The LAUNCHES key of the core that ``igemm_plan`` picks for a case."""
-    k, stride, shape, o, epi = INT8_CASES[name]
+    k, stride, shape, o, epi = (INT8_CASES.get(name) or SHORTCUT_CASES[name])[:5]
     c = shape[-1]
     splits = epi.get("splits", (c,))
     goff = [0, *np.cumsum(splits).tolist()]
@@ -282,11 +284,35 @@ def int8_core_key(name):
     return base if core == "wgmma" else base + "_mma"
 
 
-def int8_case(name, device="cpu"):
-    """(xq, wq, stride, pad, epilogue kwargs) of an INT8_CASES entry as
-    tensors on ``device``; the input scales put the fp32 outputs near unit
-    scale, and int8 outputs both round and clip."""
-    k, stride, shape, o, epi = INT8_CASES[name]
+# K3/K4 with a [shortcut] operand in the fp32 epilogue: name -> (kernel
+# size, stride, NHWC input shape, output channels, epilogue, operand dtype).
+# Both cores, leaky and mish, fp32 and bf16 operands, 256-column tiles, a
+# split conv, output rows that are not whole 16-byte pieces (O = 42, 18)
+# and the byte path.
+SHORTCUT_CASES = {
+    "gemm_dynamic_leaky_fp32": (1, 1, (2, 13, 13, 256), 128, {"sx": "dynamic", "act": "leaky"},
+                                "float32"),
+    "gemm_static_mish_bf16_bn256": (1, 1, (2, 26, 26, 128), 256,
+                                    {"sx": "static", "act": "mish"}, "bfloat16"),
+    "gemm_static_leaky_fp32_o18": (1, 1, (1, 20, 20, 64), 18, {"sx": "static", "act": "leaky"},
+                                   "float32"),
+    "conv3x3_static_leaky_bf16": (3, 1, (2, 26, 26, 64), 128, {"sx": "static", "act": "leaky"},
+                                  "bfloat16"),
+    "conv3x3_s2_mish_bf16_o42": (3, 2, (1, 27, 33, 48), 42, {"sx": "static", "act": "mish"},
+                                 "bfloat16"),
+    "conv3x3_split2_mish_fp32": (3, 1, (2, 13, 13, 384), 64, {"splits": (256, 128),
+                                                              "act": "mish"}, "float32"),
+    "gemm_c24_byte_path_leaky_bf16": (1, 1, (1, 16, 16, 24), 32,
+                                      {"sx": "static", "act": "leaky"}, "bfloat16"),
+}
+
+
+def int8_case(name, device="cpu", case=None):
+    """(xq, wq, stride, pad, epilogue kwargs) of an INT8_CASES entry (or of
+    ``case``, such an entry's tuple) as tensors on ``device``; the input
+    scales put the fp32 outputs near unit scale, and int8 outputs both
+    round and clip."""
+    k, stride, shape, o, epi = case or INT8_CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     c = shape[-1]
     t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(dt).to(device)  # noqa: E731
@@ -299,7 +325,7 @@ def int8_case(name, device="cpu"):
         sxg = t(rng.uniform(0.02, 0.04, len(epi["splits"])))
         parts, off = [], 0
         for g, cg in enumerate(epi["splits"]):
-            parts.append(quantize_input(xf[..., off:off + cg], sxg[g]))
+            parts.append(tk.quantize_i8(xf[..., off:off + cg], sxg[g]))
             off += cg
         xq, sx_val = torch.cat(parts, -1), 0.03
         kw.update(sxg=sxg, splits=epi["splits"])
@@ -307,7 +333,7 @@ def int8_case(name, device="cpu"):
         sx = {"dynamic": lambda: dynamic_scale(xf),
               "static": lambda: t(0.025),
               "vector": lambda: t(rng.uniform(0.01, 0.04, c))}[epi["sx"]]()
-        xq = quantize_input(xf, sx)
+        xq = tk.quantize_i8(xf, sx)
         sx_val = 1.0 if sx.dim() == 1 else float(sx)
         kw["sx"] = sx
     acc_std = np.sqrt(k * k * c) * 35.0 * 73.0  # |xq| ~ 35, |wq| ~ 73 rms
@@ -318,11 +344,26 @@ def int8_case(name, device="cpu"):
     return xq, wq, stride, k // 2, kw
 
 
+def shortcut_case(name, device="cpu"):
+    """A SHORTCUT_CASES entry: (xq, wq, stride, pad, epilogue kwargs with
+    its ``shortcut``), the operand normal at unit scale like the output."""
+    *case, sdtype = SHORTCUT_CASES[name]
+    xq, wq, stride, pad, kw = int8_case(name, device, tuple(case))
+    n, h, w, _ = xq.shape
+    ho, wo = (h + 2 * pad - wq.shape[1]) // stride + 1, (w + 2 * pad - wq.shape[2]) // stride + 1
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    sc = torch.from_numpy(rng.normal(0.0, 1.0, (n, ho, wo, wq.shape[0])).astype(np.float32))
+    kw["shortcut"] = sc.to(getattr(torch, sdtype)).to(device)
+    if wq.shape[1] == 1 and stride == 1:
+        kw["shortcut"] = kw["shortcut"].reshape(n * ho * wo, -1)
+    return xq, wq, stride, pad, kw
+
+
 def run_int8_case(name, xq, wq, stride, pad, kw, plain=False, mma=False):
-    """Run one INT8_CASES entry through K3/K4 (or their plain versions;
-    ``mma`` forces the ``mma.sync`` core)."""
+    """Run one INT8_CASES (or SHORTCUT_CASES) entry through K3/K4 (or their
+    plain versions; ``mma`` forces the ``mma.sync`` core)."""
     core = {} if plain else {"_mma": mma}
-    if INT8_CASES[name][0] == 1:
+    if wq.shape[1] == 1 and stride == 1:
         n, h, w, c = xq.shape
         fn = tk.gemm_i8_ref if plain else tk.int8_gemm
         return fn(xq.reshape(-1, c), wq.reshape(wq.shape[0], c), **core, **kw).reshape(
@@ -479,6 +520,178 @@ def test_cuda_int8_maxpool(cuda, size, stride, hw):
     assert ours.dtype == torch.int8
     np.testing.assert_array_equal(ours.cpu().numpy(),
                                   _maxpool(x.float(), spec).to(torch.int8).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("core", ["planned", "mma"])
+@pytest.mark.parametrize("name", list(SHORTCUT_CASES))
+def test_cuda_int8_shortcut_epilogue_matches_plain(cuda, name, core):
+    """K3/K4 adding a [shortcut] operand after the activation, on the core
+    ``igemm_plan`` picks and on the ``mma.sync`` core."""
+    xq, wq, stride, pad, kw = shortcut_case(name, cuda)
+    key = int8_core_key(name)
+    if core == "mma":
+        key = key.removesuffix("_mma") + "_mma"
+    before = dict(tk.LAUNCHES)
+    ours = run_int8_case(name, xq, wq, stride, pad, kw, mma=core == "mma")
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {**before, key: before[key] + 1}
+    ref = run_int8_case(name, xq, wq, stride, pad, kw, plain=True)
+    assert ours.dtype == ref.dtype == torch.float32 and ours.shape == ref.shape
+    sc = kw["shortcut"].float().reshape(ref.shape)
+    gap = (ours - ref).abs()
+    assert bool((gap <= 1e-6 * torch.maximum(ref.abs(), sc.abs())).all()), float(gap.max())
+    assert not torch.equal(ref, run_int8_case(name, xq, wq, stride, pad,
+                                              {**kw, "shortcut": None}, plain=True))
+
+
+# K6 cases: name -> (NHWC shape, dtype, scale, view).  scale: "scalar" (a
+# power of two), "vector" (per channel, powers of two and others) or a split
+# concat's branch widths; view: None, "offset" (contiguous, 4 bytes off the
+# 16-byte grid) or "slice" (the upper half of twice the channels, as a group
+# route gives).  Every case has exact ties at (k + 0.5) * s and values past
+# +-127.5 * s; the element counts of the C = 3 and C = 24 cases leave a
+# ragged tail past the last 16-element vector.
+QUANT_CASES = {
+    "fp32_scalar": ((2, 13, 13, 64), "float32", "scalar", None),
+    "bf16_scalar": ((2, 13, 13, 64), "bfloat16", "scalar", None),
+    "fp32_vector": ((2, 13, 13, 96), "float32", "vector", None),
+    "bf16_vector": ((2, 13, 13, 96), "bfloat16", "vector", None),
+    "fp32_split": ((2, 26, 26, 384), "float32", (128, 256), None),
+    "bf16_split3": ((1, 13, 13, 96), "bfloat16", (32, 48, 16), None),
+    "fp32_c3_ragged_tail": ((1, 5, 7, 3), "float32", "scalar", None),
+    "bf16_c24_vector_ragged_tail": ((3, 5, 5, 24), "bfloat16", "vector", None),
+    "fp32_offset_view": ((2, 9, 9, 40), "float32", "scalar", "offset"),
+    "bf16_channel_slice": ((2, 13, 13, 32), "bfloat16", "vector", "slice"),
+}
+
+
+def division_traps(s, n=7):
+    """Up to ``n`` fp32 values within 3 ulps of (k + 0.5) * s for which
+    round(x / s) and round(x * (1 / s)) differ: a quantizer that multiplies
+    by the reciprocal instead of dividing gets them wrong."""
+    s = np.float32(s)
+    base = ((np.arange(-130, 130) + 0.5) * np.float64(s)).astype(np.float32)
+    cand = (base.view(np.int32)[:, None] + np.arange(-3, 4, dtype=np.int32)).view(np.float32)
+    cand = cand.ravel()
+    return cand[np.rint(cand / s) != np.rint(cand * (np.float32(1) / s))][:n]
+
+
+def plant_division_traps(x, per_ch):
+    """Write each channel's :func:`division_traps` into the last rows of
+    the fp32 (..., C) array ``x``, for every channel whose scale is not a
+    power of two; returns how many were planted."""
+    rows = x.reshape(-1, x.shape[-1])
+    planted = 0
+    for c, sc in enumerate(per_ch):
+        if np.log2(sc) % 1:
+            t = division_traps(sc, min(7, rows.shape[0]))
+            rows[rows.shape[0] - len(t):, c] = t
+            planted += len(t)
+    return planted
+
+
+def quantize_case(name, device="cpu"):
+    """(x, sx) of a QUANT_CASES entry on ``device``; the fp32 cases carry
+    :func:`division_traps` where a scale is not a power of two."""
+    shape, dtype, scale, view = QUANT_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    c = shape[-1]
+    if scale == "scalar":
+        per_ch = np.full(c, 2.0 ** -5, np.float32)
+    elif scale == "vector":
+        per_ch = (2.0 ** rng.integers(-7, -3, c)).astype(np.float32)
+        per_ch[::3] = rng.uniform(0.01, 0.05, per_ch[::3].shape)
+    else:
+        sxg = np.array([2.0 ** -6, 0.0371, 2.0 ** -4][:len(scale)], np.float32)
+        per_ch = np.repeat(sxg, scale)
+    x = (rng.normal(0.0, 1.5, shape) * 64 * per_ch).reshape(-1, c)
+    tie = rng.uniform(size=x.shape) < 0.2
+    x[tie] = ((rng.integers(-130, 130, x.shape) + 0.5) * per_ch)[tie]
+    sat = rng.uniform(size=x.shape) < 0.05
+    x[sat] = (rng.choice([-1.0, 1.0], x.shape) * rng.uniform(127.5, 400.0, x.shape) * per_ch)[sat]
+    x = x.astype(np.float32)
+    if dtype == "float32":
+        plant_division_traps(x, per_ch)
+    x = torch.from_numpy(x.reshape(shape)).to(device, getattr(torch, dtype))
+    if view == "offset":
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=device)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
+    elif view == "slice":
+        x = torch.cat([torch.zeros_like(x), x], -1)[..., c:]
+    if scale == "scalar":
+        sx = torch.tensor(per_ch[0])
+    elif scale == "vector":
+        sx = torch.from_numpy(per_ch)
+    else:
+        sx = split_scale_vector(torch.from_numpy(sxg), scale)
+    return x, sx.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(QUANT_CASES))
+def test_cuda_quantize_i8_matches_plain(cuda, name):
+    """K6's quantizer against its plain version: int8 equal, one launch."""
+    x, sx = quantize_case(name, cuda)
+    if name == "fp32_offset_view":
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    if name == "bf16_channel_slice":
+        assert not x.is_contiguous()
+    before = dict(tk.LAUNCHES)
+    ours = tk.quantize_i8(x, sx)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {**before, "quantize_i8": before["quantize_i8"] + 1}
+    ref = tk.quantize_i8_ref(x, sx)
+    assert ours.dtype == torch.int8 and ours.shape == x.shape and ours.is_contiguous()
+    np.testing.assert_array_equal(ours.cpu().numpy(), ref.cpu().numpy())
+    q = (x.float() / sx).reshape(-1)
+    assert bool((q.frac().abs() == 0.5).any()) and bool((q.abs() > 127.5).any())
+    if name in ("fp32_vector", "fp32_split"):  # a reciprocal would round some elsewhere
+        assert not torch.equal(ref, torch.clamp(torch.round(x * (1.0 / sx)), -127, 127).to(
+            torch.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(QUANT_CASES))
+def test_cuda_absmax_matches_plain(cuda, name):
+    """K6's max|x| against its plain version, bit for bit, with the
+    largest magnitude negative; a channels_last NCHW view (not contiguous)
+    is copied first."""
+    x, _ = quantize_case(name, cuda)
+    peak = 2.0 * float(x.float().abs().amax())
+    x[(0,) * x.dim()] = -peak
+    if name == "fp32_scalar":
+        x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view
+    before = dict(tk.LAUNCHES)
+    ours = tk.absmax(x)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {**before, "absmax": before["absmax"] + 1}
+    assert ours.dtype == torch.float32 and ours.dim() == 0
+    assert ours.item() == tk.absmax_ref(x).item() == peak
+
+
+@pytest.mark.cuda
+def test_cuda_int8_glue_runs_k6(cuda):
+    """A w8a8 conv on the card quantizes through K6 alone: one
+    ``quantize_i8`` launch for a bf16 or fp32 input, one ``absmax`` more
+    for a dynamic scale, none for an int8-resident input."""
+    from pytorch_yolo_tpu_torch.config import ConvSpec
+    from pytorch_yolo_tpu_torch.ops.quant import quantized_conv
+
+    xq, wq, _, _, kw = shortcut_case("conv3x3_static_leaky_bf16", cuda)
+    spec = ConvSpec(index=1, in_channels=64, filters=128, size=3, stride=1, pad=1,
+                    batch_normalize=True, activation="leaky")
+    xf = torch.randn((2, 26, 26, 64), generator=torch.Generator().manual_seed(0)).to(cuda)
+    for x, sx, want in ((xf, None, (1, 1)), (xf.bfloat16(), kw["sx"], (1, 0)),
+                        (xq, kw["sx"], (0, 0))):
+        before = dict(tk.LAUNCHES)
+        y = quantized_conv(x, wq, kw["ws"], kw["b"], spec, sx=sx, shortcut=kw["shortcut"])
+        torch.cuda.synchronize()
+        assert (tk.LAUNCHES["quantize_i8"] - before["quantize_i8"],
+                tk.LAUNCHES["absmax"] - before["absmax"]) == want
+        assert tk.LAUNCHES["int8_conv"] == before["int8_conv"] + 1
+        assert y.dtype == torch.float32 and tuple(y.shape) == (2, 26, 26, 128)
 
 
 @pytest.mark.cuda

@@ -3,13 +3,14 @@
 
     python3 tools/profile_torch_step.py --mode int8sb     # or bf16
     python3 tools/profile_torch_step.py --mode int8sb --mma   # K3/K4 on mma.sync
-    python3 tools/profile_torch_step.py --kernels --root DIR  # K1, K2, K5 of DIR's port
+    python3 tools/profile_torch_step.py --kernels --root DIR  # K1-K5 of DIR's port
     python3 tools/profile_torch_step.py --k5 --batch 112 128 136  # K5 and cuDNN alone
 
 Runs the configuration of ``chip_smoke.py`` phase 6 (``bf16``: yolov3@416,
 bf16, batch 128, 480x640 uint8 frames on the card, every conv on K5) or
 phase 9 (``int8sb``:
-the same with ``quant="w8a8"``, static scales from 4 frames), 3 warm-up
+the same with ``quant="w8a8"``, static scales from 4 frames; ``int8dyn``
+with dynamic scales, one ``absmax`` a conv), 3 warm-up
 steps, then ``--steps`` steps under ``torch.profiler``.  Prints the median
 step time (CUDA events, without the profiler), the device time per step
 summed over all kernels, the share of the step the device was idle, and
@@ -22,7 +23,9 @@ port's K1 takes no bf16, the cast to fp32 and K1 on that), K1 on the fp32
 heads, K2 on the step's 128 x 300 candidates, on crowded boxes at 128 x 300
 and on a 1024-long suppression chain at batch 128, and K5 at batch 128 at
 every distinct yolov3@416 conv that does not take A by a 2-D TMA box and
-at its largest 1x1 (``K5_SHAPES``); each as ``ms`` (20
+at its largest 1x1 (``K5_SHAPES``), and K3/K4 at batch 128 with and
+without a [shortcut] operand beside the separate add it replaced
+(``SHORTCUT_SHAPES``, device time only); each as ``ms`` (20
 back-to-back eager calls between CUDA events, host time included) and
 ``device_ms`` (the same 20 calls replayed from one CUDA graph), with a
 digest of its output.  ``--k5`` times K5 alone at ``K5_SHAPES`` (or the
@@ -56,7 +59,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kernel-name substring -> group, first match wins (names as the profiler
 # demangles them)
-GROUPS = (("wgmma_kernel<false", "K3 int8 GEMM (wgmma)"),
+GROUPS = (("quantize_kernel", "K6 int8 input quantizer"), ("absmax_kernel", "K6 absmax"),
+          ("wgmma_kernel<false", "K3 int8 GEMM (wgmma)"),
           ("wgmma_kernel<true", "K4 int8 conv (wgmma)"),
           ("igemm_kernel<false", "K3 int8 GEMM (mma.sync)"),
           ("igemm_kernel<true", "K4 int8 conv (mma.sync)"),
@@ -169,7 +173,8 @@ def time_k5(kernels, dev, batch: int = 128, names=None, library: bool = False) -
 
 
 def time_kernels(det, frames, kernels, root: str) -> dict:
-    """K1 and K2 at the bf16 step's shapes, and K5 at its shapes (``--kernels``)."""
+    """K1 and K2 at the bf16 step's shapes, K5 at its shapes, and K3/K4
+    with a [shortcut] operand (``--kernels``)."""
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
 
     spec, dev = det.spec, frames.device
@@ -212,16 +217,61 @@ def time_kernels(det, frames, kernels, root: str) -> dict:
         digest = hashlib.sha1(fn().cpu().numpy().tobytes()).hexdigest()[:16]
         out[name] = {"ms": eager_ms(fn), "device_ms": graph_ms(fn), "digest": digest}
     out["k5"] = time_k5(kernels, dev)
+    out["k34_shortcut"] = time_shortcut(kernels, dev)
+    return out
+
+
+# K3/K4 at batch 128 where int8sb takes a [shortcut] into the epilogue
+# (yolov3@416's residual 3x3 convs) and at its 1x1 52² conv:
+# name -> (kernel size, stride, input side, input channels, output channels)
+SHORTCUT_SHAPES = {"1x1 52² 256->128": (1, 1, 52, 256, 128),
+                   "3x3 s1 52² 128->256": (3, 1, 52, 128, 256),
+                   "3x3 s1 26² 256->512": (3, 1, 26, 256, 512),
+                   "3x3 s1 13² 512->1024": (3, 1, 13, 512, 1024)}
+
+
+def time_shortcut(kernels, dev, batch: int = 128) -> dict:
+    """K3/K4 at :data:`SHORTCUT_SHAPES` (static scale, leaky, fp32 out),
+    each ``device_ms`` from one CUDA graph of 20 calls: without an operand
+    (``none``), with an fp32 and a bf16 [shortcut] operand where the port's
+    K3/K4 take one (``f32``, ``bf16``), and the add an unfused [shortcut]
+    runs after the conv (``add``: fp32 output + fp32 operand)."""
+    import inspect
+
+    takes_shortcut = "shortcut" in inspect.signature(kernels._igemm).parameters
+    gen = torch.Generator(dev).manual_seed(0)
+    out = {}
+    for name, (k, stride, side, c, o) in SHORTCUT_SHAPES.items():
+        xq = torch.randint(-127, 128, (batch, side, side, c), device=dev, generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (o, k, k, c), device=dev, generator=gen, dtype=torch.int8)
+        epi = dict(ws=torch.full((o,), 1e-5, device=dev), b=torch.zeros(o, device=dev),
+                   activation="leaky", sx=torch.tensor(0.03, device=dev))
+
+        def conv(**extra):
+            if k == 1:
+                return kernels.int8_gemm(xq.reshape(-1, c), wq.reshape(o, c), **epi, **extra)
+            return kernels.int8_conv(xq, wq, stride, k // 2, **epi, **extra)
+
+        y = conv()
+        s32 = torch.randn(y.shape, device=dev, generator=gen)
+        row = {"none": graph_ms(conv), "add": graph_ms(lambda: y + s32)}
+        if takes_shortcut:
+            s16 = s32.to(torch.bfloat16)
+            row["f32"] = graph_ms(lambda: conv(shortcut=s32))
+            row["bf16"] = graph_ms(lambda: conv(shortcut=s16))
+        out[name] = row
+        del xq, wq, y, s32
     return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("bf16", "int8sb"), default="int8sb")
+    ap.add_argument("--mode", choices=("bf16", "int8sb", "int8dyn"), default="int8sb")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--mma", action="store_true", help="force K3/K4 onto the mma.sync core")
     ap.add_argument("--kernels", action="store_true",
-                    help="time K1 and K2 at the bf16 step's shapes (sets --mode bf16)")
+                    help="time K1-K5 alone at the step's shapes (sets --mode bf16)")
     ap.add_argument("--k5", action="store_true",
                     help="time K5 and cuDNN alone at each --batch (no detector)")
     ap.add_argument("--batch", type=int, nargs="+", default=[128], help="--k5's batch sizes")
@@ -257,6 +307,8 @@ def main() -> None:
     if args.mode == "int8sb":
         calib = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
         kw = dict(quant="w8a8", quant_calib=calib, quant_recipe="none")
+    elif args.mode == "int8dyn":
+        kw = dict(quant="w8a8")
     det = Detector.load(cfg, device=dev, dtype=torch.bfloat16, precision="default", **kw)
     frames = torch.from_numpy(rng.integers(0, 256, (128, 480, 640, 3), dtype=np.uint8)).to(dev)
 
