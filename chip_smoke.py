@@ -44,11 +44,20 @@ Phases, one line each (a failure in any phase exits non-zero):
      bf16, leaky and mish, ragged output rows, a split conv, the byte path)
      on both cores, within 1e-6 of the larger of the output and the
      operand; then K6, the int8 input quantizer, against its plain version
-     (int8 equal: fp32 and bf16, a scalar, a per-channel and a split scale,
-     exact ties and saturation in every case, in fp32 values that a
-     multiply by the reciprocal would round the other way, ragged tails at
-     C = 3 and 24, an offset view and a channel slice) and its ``max|x|``
-     (bit-equal);
+     (int8 equal: fp32 and bf16, a scalar, a per-channel and a split scale
+     (the concat's channel slices, read in place), exact ties and
+     saturation in every case, in fp32 values that a multiply by the
+     reciprocal would round the other way, ragged tails at C = 3 and 24, an
+     offset view and a channel slice) and its ``max|x|`` (bit-equal); K6
+     over a route's sources (the read-through: 24 + 40, 128 + 256, 256 +
+     512 and 3 + 5 + 8 channels, each source fp32 or bf16, at split, shared
+     and dynamic scales): one launch, int8 equal, the dynamic scale over the
+     sources equal to the concat's; every bf16 bit pattern at five scales
+     (powers of two, 1/127-style and others) and every fp32 bit pattern (2^32, in chunks) at each scale, int8 equal
+     to the plain version (the count a multiply by the reciprocal would get
+     wrong printed); and the scale ``absmax`` writes equal to
+     ``scale_of_amax`` of the plain max for 1,200 values of the max (0,
+     subnormals, every power of two);
   8. yolov3-tiny@416 ``quant="w8a8"`` with fp32 glue (every non-head conv
      int8, the maxpool ladder int8-resident), static scales calibrated on
      the card from 4 frames (``quant_recipe="none"``), against the CPU
@@ -63,13 +72,21 @@ Phases, one line each (a failure in any phase exits non-zero):
      epilogue), the drift against phase 6's bf16 detections (printed, not
      gated); it fails if any of its int8 convs ran on the ``mma.sync`` core,
      or if ``torch.profiler`` finds an activation-sized ``aten::div``,
-     ``round``, ``clamp`` or an unfused shortcut ``add`` in its forward.
-     Then int8sb with dynamic scales (one ``absmax`` and one K6 launch a
-     conv), median ms/batch; K6 alone at (128, 52, 52, 256), the largest
-     input, fp32 and bf16, eager and device time, its plain version, its
+     ``round``, ``clamp``, an unfused shortcut ``add`` or a ``cat`` in its
+     forward (the concat routes 86 and 98 are read through by their conv's
+     K6).  Then int8sb with dynamic scales (one ``absmax``, which writes the
+     scale, and one K6 launch a conv), median ms/batch; it fails if the
+     dynamic forward runs a float64 op or a ``full_like`` (a
+     TorchDispatchMode watches it); the device operations of a static and
+     of a dynamic step (``torch.profiler``); K6 alone at (128, 52, 52,
+     256), the largest input, fp32 and bf16, eager and device time, the
+     first K6's device time (PERF.md §6) beside it, its plain version, its
      bound and ``torch.quantize_per_tensor`` (a yardstick: it rounds to
-     [-128, 127]), per channel beside ``torch.quantize_per_channel``, and
-     ``absmax`` beside ``torch.linalg.vector_norm(x, inf)``.  Then K3 and K4 at
+     [-128, 127]; device times in turns), per channel beside
+     ``torch.quantize_per_channel``, ``absmax`` with the scale beside
+     ``torch.linalg.vector_norm(x, inf)``, and the two route concats read
+     through against ``torch.cat`` + K6, in turns, and against the plain
+     version.  Then K3 and K4 at
      phase 7's four yolov3 shapes and the 26² 3x3 conv at batch 128: each
      against its plain version on both cores, without and with an fp32 and
      a bf16 [shortcut] operand (phase 7's gates); their times, the wgmma
@@ -323,10 +340,9 @@ def k6_case(name, device):
     """(x, sx) of a K6_CASES entry: 20 % exact ties at (k + 0.5) * s, 5 %
     past +-127.5 * s, and in fp32 :func:`division_traps` in the last rows
     of every channel whose scale is not a power of two; scales powers of
-    two and others; ``view`` "offset" (4 bytes off the 16-byte grid) or
-    "slice" (the upper half of the channels, as a group route gives)."""
-    from pytorch_yolo_tpu_torch.ops.quant import split_scale_vector
-
+    two and others (a split case: one 0-d scale a branch); ``view``
+    "offset" (4 bytes off the 16-byte grid) or "slice" (the upper half of
+    the channels, as a group route gives)."""
     shape, dtype, scale, view = K6_CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     c = shape[-1]
@@ -359,7 +375,113 @@ def k6_case(name, device):
         return x, torch.tensor(per_ch[0], device=device)
     if scale == "vector":
         return x, torch.from_numpy(per_ch).to(device)
-    return x, split_scale_vector(torch.from_numpy(sxg).to(device), scale)
+    return x, [torch.tensor(v, device=device) for v in sxg]
+
+
+def k6_inputs(name, x, sx):
+    """A K6_CASES input as K6 takes it (a split case's channel slices of the
+    concat, each read in place), and one scale a channel for comparisons."""
+    widths = K6_CASES[name][2]
+    if not isinstance(widths, tuple):
+        return x, sx
+    offs = np.cumsum((0,) + widths)
+    return ([x[..., o:o + c] for o, c in zip(offs, widths)],
+            torch.cat([s.reshape(1).expand(c) for s, c in zip(sx, widths)]))
+
+
+# phase 7: a route's sources handed to K6 (its read-through), each its own
+# tensor: name -> (leading shape, (width, dtype) a branch, scale: "split" one
+# a branch, "shared" one for all, "dynamic" from absmax over the branches)
+K6_BRANCH_CASES = {
+    "24 fp32 + 40 bf16, split": ((2, 13, 13), ((24, torch.float32), (40, torch.bfloat16)),
+                                 "split"),
+    "24 bf16 + 40 fp32, dynamic": ((2, 13, 13), ((24, torch.bfloat16), (40, torch.float32)),
+                                   "dynamic"),
+    "128 bf16 + 256 fp32, split": ((8, 52, 52), ((128, torch.bfloat16), (256, torch.float32)),
+                                   "split"),
+    "128 fp32 + 256 fp32, shared": ((8, 52, 52), ((128, torch.float32), (256, torch.float32)),
+                                    "shared"),
+    "256 fp32 + 512 bf16, dynamic": ((8, 26, 26), ((256, torch.float32), (512, torch.bfloat16)),
+                                     "dynamic"),
+    "256 fp32 + 512 fp32, split": ((8, 26, 26), ((256, torch.float32), (512, torch.float32)),
+                                   "split"),
+    "3 fp32 + 5 bf16 + 8 fp32, split": ((1, 7, 9), ((3, torch.float32), (5, torch.bfloat16),
+                                                    (8, torch.float32)), "split"),
+}
+
+
+def k6_branch_case(name, device):
+    """(sources, scale) of a K6_BRANCH_CASES entry: ties, saturated values
+    and, in fp32, :func:`division_traps` at each branch's scale; ``scale``
+    None for a dynamic case."""
+    lead, branches, mode = K6_BRANCH_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    sxg = np.array([0.0371, 2.0 ** -6, 0.0219][:len(branches)], np.float32)
+    if mode != "split":
+        sxg[:] = sxg[0]
+    xs = []
+    for (c, dtype), s in zip(branches, sxg):
+        x = (rng.normal(0.0, 1.5, (*lead, c)).astype(np.float32) * 64 * s).reshape(-1, c)
+        tie = rng.uniform(size=x.shape) < 0.2
+        x[tie] = ((rng.integers(-130, 130, x.shape) + 0.5) * s)[tie]
+        if dtype == torch.float32:
+            t = division_traps(s)
+            x[x.shape[0] - len(t):, :] = t[:, None]
+        xs.append(torch.from_numpy(x.reshape(*lead, c)).to(device=device, dtype=dtype))
+    if mode == "split":
+        return xs, [torch.tensor(v, device=device) for v in sxg]
+    return xs, torch.tensor(sxg[0], device=device) if mode == "shared" else None
+
+
+# phase 7's sweeps of K6's quotient over bit patterns: scales that are
+# powers of two, 1/127-style (a dynamic scale) and neither
+SWEEP_SCALES = (2.0 ** -7, 1.0 / 127.0, float(np.float32(5.3) / np.float32(127) + 1e-12),
+                0.0371, 3.75)
+SWEEP_CHUNK = 1 << 28  # fp32 patterns a launch
+
+
+def sweep_k6(kernels, dev) -> dict:
+    """K6 against its plain version over every bf16 bit pattern at each of
+    SWEEP_SCALES, and over every fp32 bit pattern (in chunks of
+    SWEEP_CHUNK) at each scale (NaN, inf, subnormals and all); also counts the patterns where a multiply by the
+    reciprocal (what a quantizer that does not divide computes) would give
+    another int8.  Fails on any difference."""
+    out = {"bf16_patterns": 1 << 16, "fp32_patterns": 1 << 32, "scales": list(SWEEP_SCALES),
+           "naive_differs": {}}
+    bf16 = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16)
+    bf16 = bf16.view(torch.bfloat16).reshape(256, 256)
+    t0 = time.perf_counter()
+    for s in SWEEP_SCALES:
+        sx = torch.tensor(s, dtype=torch.float32, device=dev)
+        ref = kernels.quantize_i8_ref(bf16, sx)
+        if not torch.equal(kernels.quantize_i8(bf16, sx), ref):
+            fail(f"K6 bf16 sweep at s = {s!r}: differs from the plain version")
+        naive = 0
+        for c0 in range(-(1 << 31), 1 << 31, SWEEP_CHUNK):
+            x = torch.arange(c0, c0 + SWEEP_CHUNK, dtype=torch.int64, device=dev).to(
+                torch.int32).view(torch.float32)
+            ref = kernels.quantize_i8_ref(x, sx)
+            ours = kernels.quantize_i8(x, sx)
+            if not torch.equal(ours, ref):
+                bad = (ours != ref).nonzero()[:4, 0]
+                fail(f"K6 fp32 sweep at s = {s!r}: {int((ours != ref).sum())} patterns differ, "
+                     f"e.g. {x[bad].tolist()} -> {ours[bad].tolist()} vs {ref[bad].tolist()}")
+            naive += int((kernels.quantize_i8_ref(x * (1.0 / sx), torch.ones_like(sx)) != ref)
+                         .sum())
+            del x, ref, ours
+        out["naive_differs"][repr(s)] = naive
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# phase 7: values of m for the scale that absmax writes: 0, every power of
+# two (subnormal ones too), random subnormals and values over the range
+def scale_sweep_values() -> np.ndarray:
+    rng = np.random.default_rng(3)
+    return np.concatenate([[0.0], 2.0 ** np.arange(-149, 128),
+                           rng.integers(1, 1 << 23, 100).astype(np.uint32).view(np.float32),
+                           np.exp(rng.uniform(-80, 80, 822))]).astype(np.float32)
 
 
 def run_int8(kernels, xq, wq, stride, pad, kw, plain=False, mma=False):
@@ -420,6 +542,46 @@ def int8_key(kernels, wq, stride, kw) -> str:
             goff.append(goff[-1] + g)
     core, _ = kernels.igemm_plan(c, goff, wq.shape[0], "splits" in kw, True)
     return name if core == "wgmma" else name + "_mma"
+
+
+# The first K6's device ms (the simple kernel before its Hopper redesign;
+# PERF.md §6, an H100 80GB HBM3 at 700 W), printed beside this run's
+K6_BEFORE = {"fp32": 0.1788, "bf16": 0.1050, "fp32 per channel": 0.2064, "absmax": 0.1179}
+
+
+def device_ops(step) -> int:
+    """Device operations (kernels, memsets, copies) one call of ``step``
+    enqueues, as torch.profiler lists them."""
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def wide_ops(fn) -> dict:
+    """The aten ops ``fn`` runs that touch a float64 tensor or fill one
+    with ``full_like``, by name (a TorchDispatchMode sees every op)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    seen: dict = {}
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            leaves = tree_leaves((args, kwargs, out))
+            if "full_like" in str(func) or any(isinstance(t, torch.Tensor)
+                                               and t.dtype == torch.float64 for t in leaves):
+                seen[str(func)] = seen.get(str(func), 0) + 1
+            return out
+
+    with Watch():
+        fn()
+    return seen
 
 
 def bound(ops: float, nbytes: float, peak_ops: float) -> tuple[float, str]:
@@ -1744,12 +1906,14 @@ def main() -> None:
     k6_err = k6_am_err = 0.0
     for name in K6_CASES:
         x, sx = k6_case(name, dev)
+        xs, sc = k6_inputs(name, x, sx)
         before = dict(kernels.LAUNCHES)
-        ours = kernels.quantize_i8(x, sx)
+        ours = kernels.quantize_i8(xs, sx)
         torch.cuda.synchronize()
         if kernels.LAUNCHES != {**before, "quantize_i8": before["quantize_i8"] + 1}:
             fail(f"K6 {name}: expected one quantize_i8 launch, counts {kernels.LAUNCHES}")
-        ref = kernels.quantize_i8_ref(x, sx)
+        ref = kernels.quantize_i8_ref(xs, sx)
+        sx = sc
         q = (x.float() / sx).reshape(-1)
         ties, sat = int((q.frac().abs() == 0.5).sum()), int((q.abs() > 127.5).sum())
         # elements a multiply by the reciprocal would quantize the other way
@@ -1772,6 +1936,51 @@ def main() -> None:
             f"past 127.5 s, {traps} a reciprocal would round otherwise); absmax bit-equal "
             f"({m.item():.6g})")
         del x, ours, ref, q
+
+    # K6 over a route's sources (the read-through): one launch, the int8 of
+    # the concatenation; a dynamic scale one absmax launch over the branches
+    for name in K6_BRANCH_CASES:
+        xs, sx = k6_branch_case(name, dev)
+        before = dict(kernels.LAUNCHES)
+        dyn = sx is None
+        if dyn:
+            sx = kernels.absmax(xs, scale=True)
+        ours = kernels.quantize_i8(xs, sx)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES != {**before, "quantize_i8": before["quantize_i8"] + 1,
+                                "absmax": before["absmax"] + dyn}:
+            fail(f"K6 {name}: expected one K6 launch (and one absmax for a dynamic scale), "
+                 f"counts {kernels.LAUNCHES}")
+        ref = kernels.quantize_i8_ref(xs, sx)
+        cat = torch.cat([t.float() for t in xs], -1)
+        err = float((ours.long() - ref.long()).abs().max())
+        k6_err = max(k6_err, err)
+        if err or ours.shape != cat.shape:
+            fail(f"K6 {name}: {tuple(ours.shape)}, max difference {err} from the plain version")
+        if dyn and not torch.equal(sx, kernels.absmax(cat, scale=True)):
+            fail(f"K6 {name}: the dynamic scale over the branches differs from the concat's")
+        say(f"phase 7 K6 {name} {tuple(cat.shape)}: ok, one launch over "
+            f"{len(xs)} sources, int8 equal to the plain version"
+            + (", the dynamic scale over the branches equal to the concat's" if dyn else ""))
+        del xs, ours, ref, cat
+
+    # the quotient's bits over every bf16 and every fp32 pattern, and the
+    # scale absmax writes against scale_of_amax of the plain max
+    sweep7 = sweep_k6(kernels, dev)
+    say(f"phase 7 K6 sweeps: every bf16 pattern and every fp32 pattern (2^32) at each of "
+        f"{len(SWEEP_SCALES)} scales: int8 equal to the plain version; a multiply by the "
+        f"reciprocal would differ on {sweep7['naive_differs']} fp32 patterns; "
+        f"{sweep7['seconds']:.1f} s")
+    from pytorch_yolo_tpu_torch.ops.quant import scale_of_amax
+
+    ms7 = scale_sweep_values()
+    for m in ms7:
+        x = torch.tensor([[m / 2, -m, m / 4]], dtype=torch.float32, device=dev)
+        got, want = kernels.absmax(x, scale=True), scale_of_amax(kernels.absmax_ref(x))
+        if not torch.equal(got, want):
+            fail(f"K6 dynamic scale at m = {m!r}: {got.item()!r} vs scale_of_amax {want.item()!r}")
+    say(f"phase 7 K6 dynamic scale: fma(m, 1/127, eps) written by absmax equals scale_of_amax "
+        f"for {len(ms7)} values of m (0, every power of two, subnormals)")
 
     # 8. int8 yolov3-tiny at fp32 glue: card against CPU.  Not 1.0: the fp32
     # head convs run in cuDNN on the card and in oneDNN on the CPU, and an
@@ -1830,6 +2039,7 @@ def main() -> None:
         fail(f"int8sb: expected one K5 launch for each of its {len(det.model.convs)} bf16 glue "
              f"convs a step: {launches9}")
     model9 = det.model
+    ops9 = device_ops(step9)
     n_quant = len(model9.qconvs) - len(model9._chains)  # conv inputs not int8-resident
     if launches9["quantize_i8"] != n_quant * (len(times9) + 3) or launches9["absmax"]:
         fail(f"int8sb: expected {n_quant} K6 launches a step (one a conv input that is not "
@@ -1852,14 +2062,21 @@ def main() -> None:
                if sh and all(isinstance(d, int) for d in sh)):
             big[evt.name] = big.get(evt.name, 0) + 1
     glue = {k: big.get(f"aten::{k}", 0) for k in ("div", "round", "clamp", "add", "abs",
-                                                   "_to_copy", "copy_")}
+                                                   "_to_copy", "copy_", "cat")}
     if glue["div"] or glue["round"] or glue["clamp"] or glue["add"] != len(unfused):
         fail(f"int8sb forward: activation-sized aten ops {glue}; expected no div, round or "
              f"clamp and {len(unfused)} adds (unfused shortcuts {unfused})")
+    routes = sorted(l.index for l in det.spec.layers
+                    if type(l).__name__ == "RouteSpec" and len(l.layers) > 1)
+    if glue["cat"] or sorted(model9._read_through) != routes:
+        fail(f"int8sb forward: {glue['cat']} activation-sized torch.cat; the concat routes "
+             f"{routes} must all be read through by their conv's K6 (read through: "
+             f"{sorted(model9._read_through)})")
     say(f"phase 9 int8sb forward under torch.profiler: activation-sized aten ops {glue} "
         f"(no div/round/clamp; {len(fused_q)} of {len(shortcuts)} [shortcut]s in K3/K4's "
         f"epilogue, {len(shortcuts) - len(fused_q) - len(unfused)} in K5's, unfused "
-        f"{unfused}); K6 launches {launches9['quantize_i8']} = {n_quant} a step")
+        f"{unfused}); K6 launches {launches9['quantize_i8']} = {n_quant} a step; the concat "
+        f"routes {routes} read through (no torch.cat)")
     del xin, prof
     check_result(res9, "int8sb")
     drift9 = detection_drift(bf16_dets, det._trim(res9, BATCH))
@@ -1885,9 +2102,21 @@ def main() -> None:
         fail(f"int8sb dynamic: expected {n9d} absmax and K6 launches: {launches9d}")
     check_result(res9d, "int8sb dynamic")
     ms9d = statistics.median(times9d)
+    ops9d = device_ops(lambda: det.raw_result(frames, size=SIZE, conf=CONF, iou=IOU,
+                                              max_det=MAX_DET))
+    with torch.no_grad():
+        xin = letterbox_batch(frames, SIZE)
+        wide = wide_ops(lambda: det.model(xin, _native_heads=True))
+    if wide:
+        fail(f"int8sb dynamic forward: float64 or full_like ops on the card: {wide}")
+    n_dyn = len(det.model._dynamic)
     say(f"phase 9 yolov3@{SIZE} int8sb with dynamic scales batch {BATCH}: median {ms9d:.3f} "
-        f"ms/batch (min {min(times9d):.3f}, max {max(times9d):.3f}); launches {launches9d}")
-    del det, res9d
+        f"ms/batch (min {min(times9d):.3f}, max {max(times9d):.3f}); launches {launches9d}; "
+        f"device operations a step (torch.profiler: kernels, memsets, copies): static "
+        f"{ops9}, dynamic {ops9d} ({n_dyn} dynamic convs: {(ops9d - ops9) / n_dyn:.2f} more "
+        f"a dynamic conv than a static step); no float64 or full_like op in the dynamic "
+        f"forward (the float64 emulation: ~1,700 a dynamic step, PERF.md §6)")
+    del det, res9d, xin
 
     # K6 alone at the largest int8sb input, (128, 52, 52, 256)
     x6 = torch.randn((BATCH, 52, 52, 256), device=dev,
@@ -1912,25 +2141,56 @@ def main() -> None:
             fail(f"K6 {tag} at {tuple(x.shape)}: kernel disagrees with its plain version")
         fn = lambda x=x, sx=sx: kernels.quantize_i8(x, sx)  # noqa: E731
         bms = x.numel() * (x.element_size() + 1) / PEAK_HBM_BYTES * 1e3  # read x, write int8
-        k6[tag] = dict(ms=time_ms(fn), device_ms=graph_ms(fn), bound_ms=bms, bound_by="bytes",
+        lib_ms = library(lib) if lib is not None else None
+        if tag == "fp32" and lib_ms is not None:  # K6 and quantize_per_tensor in turns
+            dev_ms, lib_dev_ms = in_turns(lib, fn, timer=graph_ms)
+        else:
+            dev_ms, lib_dev_ms = graph_ms(fn), None
+        k6[tag] = dict(ms=time_ms(fn), device_ms=dev_ms, bound_ms=bms, bound_by="bytes",
                        plain_ms=time_ms(lambda x=x, sx=sx: kernels.quantize_i8_ref(x, sx), 5, 1),
-                       library_ms=library(lib) if lib is not None else None)
+                       library_ms=lib_ms, library_device_ms=lib_dev_ms)
         say(f"phase 9 K6 quantize_i8 {tag} {tuple(x.shape)}: {k6[tag]['ms']:.4f} ms eager, "
-            f"{k6[tag]['device_ms']:.4f} ms device ({bms / k6[tag]['device_ms']:.1%} of "
-            f"{bms:.4f} ms, bytes); plain {k6[tag]['plain_ms']:.4f} ms; library "
-            f"{k6[tag]['library_ms']}; on {card}")
-    am = lambda: kernels.absmax(x6)  # noqa: E731
+            f"{dev_ms:.4f} ms device ({bms / dev_ms:.1%} of {bms:.4f} ms, bytes; the first "
+            f"K6 {K6_BEFORE[tag]} ms device, PERF.md §6); plain {k6[tag]['plain_ms']:.4f} ms; "
+            f"library {lib_ms} ms eager, {lib_dev_ms} ms device in turns with K6; on {card}")
+    am = lambda: kernels.absmax(x6, scale=True)  # noqa: E731  the dynamic scale's launch
     if kernels.absmax(x6).item() != kernels.absmax_ref(x6).item():
         fail("K6 absmax at (128, 52, 52, 256): kernel disagrees with its plain version")
     am_bound = x6.numel() * 4 / PEAK_HBM_BYTES * 1e3
     k6["absmax"] = dict(ms=time_ms(am), device_ms=graph_ms(am), bound_ms=am_bound,
-                        bound_by="bytes", plain_ms=time_ms(lambda: kernels.absmax_ref(x6), 5, 1),
+                        bound_by="bytes",
+                        plain_ms=time_ms(lambda: kernels.absmax_ref(x6, scale=True), 5, 1),
                         library_ms=library(lambda: torch.linalg.vector_norm(x6, float("inf"))))
-    say(f"phase 9 K6 absmax fp32 {tuple(x6.shape)}: {k6['absmax']['ms']:.4f} ms eager, "
+    say(f"phase 9 K6 absmax + scale fp32 {tuple(x6.shape)}: {k6['absmax']['ms']:.4f} ms eager, "
         f"{k6['absmax']['device_ms']:.4f} ms device ({am_bound / k6['absmax']['device_ms']:.1%} "
-        f"of {am_bound:.4f} ms, bytes); plain {k6['absmax']['plain_ms']:.4f} ms; "
+        f"of {am_bound:.4f} ms, bytes; the first K6's absmax {K6_BEFORE['absmax']} ms device, "
+        f"without the scale); plain {k6['absmax']['plain_ms']:.4f} ms; "
         f"torch.linalg.vector_norm(inf) {k6['absmax']['library_ms']}; on {card}")
     del x6, v6
+
+    # the two route concats of int8sb read through, against torch.cat + K6
+    # on the copy at the per-channel scale (the first K6's route), in turns,
+    # and against the plain version at this, the main path's, shape
+    for tag, side, widths in (("route 86", 26, (256, 512)), ("route 98", 52, (128, 256))):
+        xs = [torch.randn((BATCH, side, side, c), device=dev,
+                          generator=torch.Generator(dev).manual_seed(c)) for c in widths]
+        sxg = [torch.tensor(0.03 + 0.004 * g, device=dev) for g in range(len(xs))]
+        sv = torch.cat([s.reshape(1).expand(c) for s, c in zip(sxg, widths)])
+        through = lambda xs=xs, sxg=sxg: kernels.quantize_i8(xs, sxg)  # noqa: E731
+        copied = lambda xs=xs, sv=sv: kernels.quantize_i8(torch.cat(xs, -1), sv)  # noqa: E731
+        got = through()
+        if not torch.equal(got, copied()):
+            fail(f"K6 {tag}: the read-through differs from K6 on the concatenated copy")
+        if not torch.equal(got, kernels.quantize_i8_ref(xs, sxg)):
+            fail(f"K6 {tag}: the read-through differs from the plain version")
+        del got
+        bms = sum(t.numel() for t in xs) * 5 / PEAK_HBM_BYTES * 1e3
+        t_through, t_copied = in_turns(copied, through, timer=graph_ms)
+        k6[tag] = dict(device_ms=t_through, cat_then_k6_ms=t_copied, bound_ms=bms)
+        say(f"phase 9 K6 {tag} {BATCH}x{side}² {'+'.join(map(str, widths))} fp32 read through: "
+            f"{t_through:.4f} ms device ({bms / t_through:.1%} of {bms:.4f} ms, bytes) against "
+            f"torch.cat + K6 {t_copied:.4f} ms, in turns; on {card}")
+        del xs
 
     # K3 and K4 at batch 128: the wgmma core against the mma.sync core in
     # turns, beside the plain version, cuDNN bf16, torch._int_mm and the bound
@@ -2233,7 +2493,8 @@ def main() -> None:
          "ms": k6["fp32"]["ms"], "plain_ms": k6["fp32"]["plain_ms"],
          "bound_ms": k6["fp32"]["bound_ms"], "bound_by": "bytes",
          "library_ms": k6["fp32"]["library_ms"], "device_ms": k6["fp32"]["device_ms"],
-         "bf16": k6["bf16"], "per_channel": k6["fp32 per channel"]},
+         "bf16": k6["bf16"], "per_channel": k6["fp32 per channel"],
+         "route_86": k6["route 86"], "route_98": k6["route 98"]},
         {"name": "absmax", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/quantize_i8.cu",
          "replaces": "pytorch_yolo_tpu/ops/quant.py:595",

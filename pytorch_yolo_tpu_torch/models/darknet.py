@@ -32,7 +32,10 @@ the hand-written int8 kernels K3/K4 on the card, with int8-resident chains
 (a producer writes int8 at its consumer's static scale; maxpool and
 upsample pass int8 through) and per-branch scales for split-concat convs;
 every other int8 conv input is quantized by K6 (``ops.kernels.quantize_i8``,
-with ``absmax`` for a dynamic scale).
+with ``absmax`` writing a dynamic scale).  A multi-source [route] that only
+the next layer reads, when that layer is an int8 conv, hands its sources to
+the conv instead of concatenating them: K6 reads them and writes the int8
+concatenation (``_read_through``); a hook still sees the concatenated copy.
 A quantized conv returns fp32, so each fp conv casts its input to the
 module's dtype first, as the JAX ``_conv`` does.  ``quant="w8"`` dequantizes
 the int8 weights once (``wq * ws``) and runs the fp conv.
@@ -70,8 +73,8 @@ from ..config import (
     YoloSpec,
     head_strides,
 )
-from ..ops.kernels import absmax, conv_bf16
-from ..ops.quant import quantized_conv, scale_of_amax
+from ..ops.kernels import MAX_QUANT_BRANCHES, absmax, conv_bf16
+from ..ops.quant import quantized_conv
 
 
 def apply_activation(y: torch.Tensor, activation: str) -> torch.Tensor:
@@ -358,6 +361,13 @@ class Darknet(nn.Module):
         self._qconv_at = {int(k): q for k, q in self.qconvs.items()}
         self._chains = int8_resident_chains(spec, params) if quant == "w8a8" else {}
         self._split_groups = concat_split_groups(spec)
+        # multi-source routes whose output only the next layer, an int8 conv,
+        # reads: that conv's K6 reads the sources (no concatenated copy)
+        self._read_through = frozenset(
+            layer.index for layer in spec.layers
+            if isinstance(layer, RouteSpec) and 1 < len(layer.layers) <= MAX_QUANT_BRANCHES
+            and layer.groups == 1 and layer.index not in self._needed
+            and layer.index + 1 in self._qconv_at)
         # the quantized convs that take their input scale from the batch
         # (max|x| / 127 + eps): no static scale and no split scales
         self._dynamic = frozenset(i for i in self._qconv_at
@@ -411,15 +421,16 @@ class Darknet(nn.Module):
     def _quantized(self, x: torch.Tensor, layer: ConvSpec,
                    shared_sx: "torch.Tensor | None" = None,
                    shortcut: "torch.Tensor | None" = None) -> torch.Tensor:
-        """One W8A8 conv on the NCHW (channels_last) view; ``shared_sx`` is
-        the whole batch's dynamic scale for a conv without a static one;
-        ``shortcut`` (an NCHW view of the output's shape) the [shortcut]
-        operand its epilogue adds."""
+        """One W8A8 conv on the NCHW (channels_last) view, or on a route's
+        sources (a tuple of them, read through); ``shared_sx`` is the whole
+        batch's dynamic scale for a conv without a static one; ``shortcut``
+        (an NCHW view of the output's shape) the [shortcut] operand its
+        epilogue adds."""
         q = self._qconv_at[layer.index]
         out_idx = self._chains.get(layer.index)
         sx, sxg, splits = self._scale_args(layer.index)
         y = quantized_conv(
-            x.permute(0, 2, 3, 1), q.wq, q.ws, q.b, layer, sx=shared_sx if sx is None else sx,
+            _nhwc(x), q.wq, q.ws, q.b, layer, sx=shared_sx if sx is None else sx,
             out_scale=self._qconv_at[out_idx].sa if out_idx is not None else None,
             sxg=sxg, splits=splits,
             shortcut=None if shortcut is None else shortcut.permute(0, 2, 3, 1))
@@ -521,7 +532,13 @@ class Darknet(nn.Module):
                 srcs = [t[:, (t.shape[1] // layer.groups) * layer.group_id:
                           (t.shape[1] // layer.groups) * (layer.group_id + 1)]
                         for t in srcs]
-            x = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
+            if len(srcs) == 1:
+                x = srcs[0]
+            elif (layer.index in self._read_through and not w.hooked
+                  and self.layer_hook is None and all(t.dtype != torch.int8 for t in srcs)):
+                x = tuple(srcs)  # the next conv's K6 reads the sources
+            else:
+                x = torch.cat(srcs, dim=1)
         elif isinstance(layer, ShortcutSpec):
             if not w.fused:
                 x = w.cache[layer.index - 1] + w.cache[layer.from_layer]
@@ -558,17 +575,25 @@ class _Walk:
         self.native_heads = native_heads
 
 
+def _nhwc(x):
+    """The NHWC view of an NCHW (channels_last) activation, or of each of
+    a route's sources."""
+    if isinstance(x, tuple):
+        return tuple(t.permute(0, 2, 3, 1) for t in x)
+    return x.permute(0, 2, 3, 1)
+
+
 def _shared_scales(walks: "list[_Walk]") -> list[torch.Tensor]:
     """Each shard's copy of the whole batch's dynamic int8 scale at a
-    dynamic int8 conv, whose input is each walk's ``x``:
-    ``fma(max over shards of max|x_shard|, 1/127, eps)``, the expression
-    and the bits of ``ops.quant.dynamic_scale`` on the whole batch.  The
-    shards' 0-d maxima meet on the first shard's device and the scale goes
-    back to each, all on the devices' streams: no host sync."""
-    home = walks[0].x.device
-    sx = scale_of_amax(torch.stack([absmax(w.x.permute(0, 2, 3, 1)).to(home)
-                                   for w in walks]).amax())
-    return [sx.to(w.x.device) for w in walks]
+    dynamic int8 conv, whose input is each walk's ``x`` (a tensor or a
+    route's sources): ``fma(max over shards of max|x_shard|, 1/127, eps)``,
+    the expression and the bits of ``ops.quant.dynamic_scale`` on the whole
+    batch.  The shards' 0-d maxima are stacked on the first shard's device,
+    one K6 launch over the stack writes the scale, and it goes back to each
+    shard, all on the devices' streams: no host sync."""
+    devices = [(w.x[0] if isinstance(w.x, tuple) else w.x).device for w in walks]
+    sx = absmax(torch.stack([absmax(_nhwc(w.x)).to(devices[0]) for w in walks]), scale=True)
+    return [sx.to(d) for d in devices]
 
 
 def _walk_layers(models: "Sequence[Darknet]", xs: "Sequence[torch.Tensor]", conv_in, conv_out,

@@ -23,9 +23,11 @@
   detector.
 * **K6** :func:`quantize_i8` and :func:`absmax` (``csrc/quantize_i8.cu``):
   the int8 input quantizer ``clamp(round(x / sx), -127, 127)`` of a bf16 or
-  fp32 input at a scalar or per-channel scale, and the dynamic scale's
-  ``max|x|`` (XLA's fusion in ``pytorch_yolo_tpu/ops/quant.py:
-  quantized_conv``); every int8 conv input that is not int8-resident.
+  fp32 input at a scalar or per-channel scale, or of a route's sources
+  written as their concatenation (each at its own scale), and the dynamic
+  scale ``max|x| / 127 + eps``, written by the reduction itself (XLA's
+  fusion in ``pytorch_yolo_tpu/ops/quant.py: quantized_conv``); every int8
+  conv input that is not int8-resident.
 
 K3 and K4 run on the Hopper core ``csrc/int8_wgmma.cuh`` (wgmma, TMA, a
 warp-specialised ring, persistent blocks) whenever C and the group offsets
@@ -159,9 +161,8 @@ def load_library() -> ctypes.CDLL:
             lib.yolo_decode_score.argtypes = [ctypes.POINTER(_DecodeArgs), i, i, p]
             lib.yolo_nms_keep.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i, p]
             lib.yolo_conv_bf16.argtypes = [ctypes.POINTER(_ConvBf16Args), i, i, i, p]
-            n = ctypes.c_longlong
-            lib.yolo_quantize_i8.argtypes = [p, i, p, i, p, n, i, p]
-            lib.yolo_absmax.argtypes = [p, i, n, p, i, p]
+            lib.yolo_quantize_i8.argtypes = [ctypes.POINTER(_QuantArgs), i, p]
+            lib.yolo_absmax.argtypes = [ctypes.POINTER(_QuantArgs), i, p]
             for fn in (lib.yolo_decode_score, lib.yolo_nms_keep, lib.yolo_conv_bf16,
                        lib.yolo_quantize_i8, lib.yolo_absmax):
                 fn.restype = i
@@ -181,21 +182,24 @@ def _check_hopper(index: int) -> None:
                            "built for sm_90a (Hopper) only")
 
 
-def _cuda_args(name: str, *tensors: "torch.Tensor | None") -> tuple[int, int]:
-    """Check that every tensor is a contiguous tensor on one CUDA device;
-    returns (device index, current stream handle)."""
+def _cuda_device(name: str, *tensors: "torch.Tensor | None") -> tuple[int, int]:
+    """Check that every tensor lies on one CUDA device; returns (device
+    index, current stream handle)."""
     dev = tensors[0].device
     for t in tensors:
-        if t is None:
-            continue
-        if t.device != dev:
+        if t is not None and t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     _check_hopper(dev.index)
     return dev.index, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _cuda_args(name: str, *tensors: "torch.Tensor | None") -> tuple[int, int]:
+    """:func:`_cuda_device`, and every tensor contiguous."""
+    if any(t is not None and not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return _cuda_device(name, *tensors)
 
 
 def _on_grid(t: torch.Tensor) -> torch.Tensor:
@@ -1042,60 +1046,189 @@ def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pa
 
 
 # ---------------------------------------------------------------------------
-# K6: the int8 input quantizer and the dynamic scale's max|x|
+# K6: the int8 input quantizer and the dynamic scale
 # ---------------------------------------------------------------------------
 
+MAX_QUANT_BRANCHES = 8  # csrc/quantize_i8.cu: kMaxBranches
 
-def quantize_i8_ref(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+
+class _QuantBranch(ctypes.Structure):
+    """csrc/quantize_i8.cu: QuantBranch, field for field."""
+
+    _fields_ = ([("x", ctypes.c_void_p), ("scale", ctypes.c_void_p)]
+                + [(n, ctypes.c_longlong) for n in ("rows", "vecs", "first_tile")]
+                + [(n, ctypes.c_int) for n in ("channels", "row_stride", "out_offset",
+                                                "elem_bytes", "scale_vec", "mode")])
+
+
+class _QuantArgs(ctypes.Structure):
+    """csrc/quantize_i8.cu: QuantArgs, field for field."""
+
+    _fields_ = [("b", _QuantBranch * MAX_QUANT_BRANCHES), ("out", ctypes.c_void_p),
+                ("tiles", ctypes.c_longlong), ("branches", ctypes.c_int),
+                ("out_channels", ctypes.c_int)]
+
+
+def _branches(name: str, x) -> list:
+    """``x`` as a list of branches: a tensor, or the sources of a concat
+    along the last axis (1 to MAX_QUANT_BRANCHES of them)."""
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    if not 1 <= len(xs) <= MAX_QUANT_BRANCHES:
+        raise ValueError(f"{name}: 1..{MAX_QUANT_BRANCHES} branches, got {len(xs)}")
+    return xs
+
+
+def _branch_scales(xs: list, sx) -> list:
+    """One scale a branch: ``sx`` a 0-d scale for every branch, a (C,)
+    per-channel vector over the concatenation (each branch its slice), or a
+    sequence of one 0-d or (C_g,) scale a branch."""
+    widths = [t.shape[-1] for t in xs]
+    if isinstance(sx, (list, tuple)):
+        scales = list(sx)
+    elif sx.dim() == 0:
+        scales = [sx] * len(xs)
+    elif sx.dim() == 1 and sx.shape[0] == sum(widths):
+        offs = itertools.accumulate(widths, initial=0)
+        scales = [sx[o:o + c] for o, c in zip(offs, widths)]
+    else:
+        scales = None
+    if scales is None or len(scales) != len(xs) or any(
+            s.dim() > 1 or (s.dim() == 1 and s.shape[0] != c) for s, c in zip(scales, widths)):
+        shape = tuple(sx.shape) if isinstance(sx, torch.Tensor) else [tuple(s.shape) for s in sx]
+        raise ValueError(f"quantize_i8: sx must be 0-d, ({sum(widths)},) or one 0-d or (C_g,) "
+                         f"scale a branch of widths {widths}, got {shape}")
+    return scales
+
+
+def _rows_view(t: torch.Tensor) -> "tuple[torch.Tensor, int, int, int]":
+    """(t or a contiguous copy of it, rows, channels, row stride) of a
+    (..., C) branch: one whose rows of C unit-stride elements sit one stride
+    apart (a contiguous tensor, or a channel slice of one) is read in
+    place."""
+    c = t.shape[-1]
+    rows = t.numel() // c if c else 0
+    if t.is_contiguous() or (rows <= 1 and (c <= 1 or t.stride(-1) == 1)):
+        return t, rows, c, c
+    stride = expect = None
+    if c == 1 or t.stride(-1) == 1:
+        for d in range(t.dim() - 2, -1, -1):
+            if t.shape[d] == 1:
+                continue
+            if expect is None:
+                stride = expect = t.stride(d)
+            if t.stride(d) != expect:
+                stride = None
+                break
+            expect = t.stride(d) * t.shape[d]
+    if stride is not None and stride >= c:
+        return t, rows, c, stride
+    return t.contiguous(), rows, c, c
+
+
+def _quant_args(views: list, scales: "list | None", out: torch.Tensor,
+                out_channels: int) -> _QuantArgs:
+    """K6's launch arguments for branches ``views`` ((tensor, rows,
+    channels, row stride), as :func:`_rows_view` gives them), their scales
+    (None: ``absmax``) and the output.  Built
+    positionally: a launch a conv input, on the batch-1 host path too."""
+    branches, off = [], 0
+    for g, (t, rows, c, stride) in enumerate(views):
+        s = None if scales is None else scales[g]
+        branches.append(_QuantBranch(t.data_ptr(), None if s is None else s.data_ptr(), rows, 0,
+                                     0, c, stride, off, t.element_size(),
+                                     int(s is not None and s.dim() == 1), 0))
+        off += c
+    return _QuantArgs((_QuantBranch * MAX_QUANT_BRANCHES)(*branches), out.data_ptr(), 0,
+                      len(views), out_channels)
+
+
+def _k6_inputs(name: str, xs: list) -> None:
+    for t in xs:
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name}: branches must be float32 or bfloat16, got {t.dtype}")
+        if t.numel() >= 1 << 32 and not t.is_contiguous():
+            raise ValueError(f"{name}: a strided branch must hold fewer than 2^32 elements")
+
+
+def quantize_i8_ref(x, sx) -> torch.Tensor:
     """Plain torch version of K6's quantizer (arguments: :func:`quantize_i8`):
-    ``x`` widened to fp32, divided by ``sx``, rounded half to even, clamped
-    to [-127, 127], cast to int8 (``pytorch_yolo_tpu/ops/quant.py:596``)."""
-    return torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127).to(torch.int8)
+    each branch widened to fp32, divided by its scale, rounded half to even,
+    clamped to [-127, 127], cast to int8, and the branches concatenated
+    along the last axis (``pytorch_yolo_tpu/ops/quant.py:573-596``)."""
+    xs = _branches("quantize_i8", x)
+    parts = [torch.clamp(torch.round(t.to(torch.float32) / s), -127, 127).to(torch.int8)
+             for t, s in zip(xs, _branch_scales(xs, sx))]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
 
-def quantize_i8(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+def quantize_i8(x, sx) -> torch.Tensor:
     """K6: bf16 or fp32 ``x`` (..., C) -> int8 ``clamp(round(x / sx), -127,
-    127)``; ``sx`` an fp32 0-d scale or a (C,) per-channel vector (a split
-    concat's branch scales, each on its branch's channels).  One launch; a
-    view that is not contiguous or sits off the 16-byte grid is copied
-    first.  A CPU tensor takes :func:`quantize_i8_ref`; a CUDA tensor
-    launches the kernel or raises."""
-    if sx.dim() > 1 or (sx.dim() == 1 and (x.dim() == 0 or sx.shape[0] != x.shape[-1])):
-        raise ValueError(f"quantize_i8: sx must be 0-d or ({x.shape[-1] if x.dim() else 1},), "
-                         f"got {tuple(sx.shape)}")
-    if x.device.type == "cpu":
-        return quantize_i8_ref(x, sx)
-    if x.dtype not in (torch.float32, torch.bfloat16) or sx.dtype != torch.float32:
-        raise ValueError(f"quantize_i8: x must be float32 or bfloat16 and sx float32, got "
-                         f"{x.dtype} and {sx.dtype}")
-    x, sx = _on_grid(x), sx.contiguous()
-    device, stream = _cuda_args("quantize_i8", x, sx)
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    if x.numel():
-        _launch("quantize_i8", load_library().yolo_quantize_i8, x.data_ptr(), x.element_size(),
-                sx.data_ptr(), sx.numel() if sx.dim() == 1 else 0, out.data_ptr(), x.numel(),
-                device, stream)
+    127)``.  ``x`` may be the sources of a concat along the last axis (a
+    list of (..., C_g) branches, each bf16 or fp32, equal in their leading
+    dims): the int8 of their concatenation is written directly, with no
+    concatenated copy.  ``sx``: an fp32 0-d scale, a (C,) per-channel
+    vector, or one 0-d (or (C_g,)) scale a branch (a split concat's branch
+    scales).  One launch; a branch is read in place when its rows sit one
+    stride apart (a channel slice is), else copied first.  A CPU tensor
+    takes :func:`quantize_i8_ref`; a CUDA tensor launches the kernel or raises."""
+    xs = [x] if isinstance(x, torch.Tensor) else _branches("quantize_i8", x)
+    scales = ([sx] if len(xs) == 1 and isinstance(sx, torch.Tensor) and sx.dim() == 0
+              else _branch_scales(xs, sx))
+    lead = xs[0].shape[:-1]
+    if xs[0].dim() == 0 or any(t.dim() == 0 or t.shape[:-1] != lead for t in xs[1:]):
+        raise ValueError(f"quantize_i8: branches {[tuple(t.shape) for t in xs]} must share "
+                         "their leading dims")
+    if xs[0].device.type == "cpu":
+        return quantize_i8_ref(xs, scales)
+    _k6_inputs("quantize_i8", xs)
+    if any(s.dtype != torch.float32 for s in scales):
+        raise ValueError("quantize_i8: scales must be float32")
+    device, stream = _cuda_device("quantize_i8", *xs, *scales)
+    scales = [s.contiguous() for s in scales]
+    c = sum(t.shape[-1] for t in xs)
+    out = torch.empty((*lead, c), dtype=torch.int8, device=xs[0].device)
+    if out.numel():
+        args = _quant_args([_rows_view(t) for t in xs], scales, out, c)
+        _launch("quantize_i8", load_library().yolo_quantize_i8, ctypes.byref(args), device,
+                stream)
     return out
 
 
-def absmax_ref(x: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of K6's reduction: ``max|x|`` as a 0-d fp32."""
-    return x.abs().amax().to(torch.float32)
+def absmax_ref(x, scale: bool = False) -> torch.Tensor:
+    """Plain torch version of K6's reduction (arguments: :func:`absmax`):
+    ``max|x|`` over every branch as a 0-d fp32, or with ``scale`` the
+    dynamic scale built on it (``ops/quant.py: scale_of_amax``)."""
+    from .quant import scale_of_amax  # quant imports this module
+
+    xs = _branches("absmax", x)
+    m = torch.stack([t.abs().amax().to(torch.float32) for t in xs]).amax()
+    return scale_of_amax(m) if scale else m
 
 
-def absmax(x: torch.Tensor) -> torch.Tensor:
-    """K6's reduction: ``max|x|`` of a bf16 or fp32 tensor as a 0-d fp32 on
-    its device, exact (the max and the widening commute).  A view that is
-    not contiguous or sits off the 16-byte grid is copied first.  A CPU
-    tensor takes :func:`absmax_ref`; a CUDA tensor launches the kernel or
-    raises."""
-    if x.device.type == "cpu":
-        return absmax_ref(x)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"absmax: x must be float32 or bfloat16, got {x.dtype}")
-    x = _on_grid(x)
-    device, stream = _cuda_args("absmax", x)
-    out = torch.empty((), dtype=torch.float32, device=x.device)
-    _launch("absmax", load_library().yolo_absmax, x.data_ptr(), x.element_size(), x.numel(),
-            out.data_ptr(), device, stream)
-    return out
+def _absmax_views(xs: list) -> list:
+    """``absmax``'s branches as :func:`_quant_args` takes them: a tensor in
+    a dense layout (contiguous or channels_last) as one flat run of its
+    elements in memory order, any other as :func:`_rows_view` gives it."""
+    return [(t, t.numel(), 1, 1) if t.is_contiguous() or (
+        t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)) else _rows_view(t)
+        for t in xs]
+
+
+def absmax(x, scale: bool = False) -> torch.Tensor:
+    """K6's reduction: ``max|x|`` of a bf16 or fp32 tensor (or of the
+    branches of a concat, or of any tensors) as a 0-d fp32 on its device,
+    exact (the max and the widening commute); with ``scale`` the dynamic
+    int8 scale ``fma(max, 1/127, eps)`` instead, written by the same launch
+    (the bits of ``ops/quant.py: scale_of_amax``).  A tensor in a dense
+    layout (contiguous or channels_last) or a channel slice is read in
+    place.  A CPU tensor takes :func:`absmax_ref`; a CUDA tensor launches
+    the kernel or raises."""
+    xs = [x] if isinstance(x, torch.Tensor) else _branches("absmax", x)
+    if xs[0].device.type == "cpu":
+        return absmax_ref(xs, scale)
+    _k6_inputs("absmax", xs)
+    device, stream = _cuda_device("absmax", *xs)
+    out = torch.empty(3, dtype=torch.float32, device=xs[0].device)  # max, scale, ticket
+    args = _quant_args(_absmax_views(xs), None, out, 1)
+    _launch("absmax", load_library().yolo_absmax, ctypes.byref(args), device, stream)
+    return out[1] if scale else out[0]

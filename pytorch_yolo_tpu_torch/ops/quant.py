@@ -25,17 +25,19 @@ fp32 "highest" forward on the card unless the caller asks for the CPU; the
 last two run each quantized conv's int8 twin through K3/K4 there.
 
 The input quantizer ``clamp(round(x / sx), -127, 127)`` and the dynamic
-scale's ``max|x|``, which XLA fuses into each int8 conv on the TPU, are K6
-(``kernels.quantize_i8`` / ``kernels.absmax``): one launch a conv input,
-the bf16 or fp32 input widened in registers, a split concat's branches at
-their own scales through one per-channel vector.  On a CPU tensor they run
-their plain versions (``torch.round`` rounds half to even, as ``jnp.round``
-does).
+scale ``max|x| / 127 + eps``, which XLA fuses into each int8 conv on the
+TPU, are K6 (``kernels.quantize_i8`` / ``kernels.absmax``): one launch a
+conv input (and one more for a dynamic scale, which the reduction writes
+itself), the bf16 or fp32 input widened in registers, a concat's branches
+read from the route's sources where the forward hands them over (each at
+its own scale for a split concat).  On a CPU tensor they run their plain
+versions (``torch.round`` rounds half to even, as ``jnp.round`` does).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
 from typing import Container, Mapping
@@ -446,31 +448,26 @@ def int8_resident_chains(spec: ModelSpec, params: Mapping[int, Mapping]) -> "dic
     return chains
 
 
-def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
-    """The dynamic input scale ``max|x| / 127 + eps`` as a device scalar,
-    computed as the JAX package's compiled program computes it: XLA turns
-    the division by a constant into a multiply by its fp32 reciprocal and
-    fuses the add into it (one rounding).  Written out, it gives the same
-    bits on every device: one bit of difference can flip an int8 rounding
-    downstream."""
-    return scale_of_amax(kernels.absmax(x))
+def dynamic_scale(x) -> torch.Tensor:
+    """The dynamic input scale ``max|x| / 127 + eps`` of a tensor (or of a
+    route's sources, the branches of a concat) as a device scalar, computed
+    as the JAX package's compiled program computes it: XLA turns the
+    division by a constant into a multiply by its fp32 reciprocal and fuses
+    the add into it (one rounding).  Written out, it gives the same bits on
+    every device: one bit of difference can flip an int8 rounding
+    downstream.  On the card one K6 launch writes it (``kernels.absmax``);
+    on the CPU it is :func:`scale_of_amax` of the plain ``max|x|``."""
+    return kernels.absmax(x, scale=True)
 
 
 def scale_of_amax(m: torch.Tensor) -> torch.Tensor:
     """The dynamic scale from a 0-d ``max|x|``: ``fma(m, 1/127, eps)``, the
-    fp32 constants filled on its device (no host copy, no sync)."""
+    fp32 constants filled on its device (no host copy, no sync); K6's plain
+    version (``kernels.absmax_ref``)."""
     return kernels.fma(m, torch.full_like(m, 1.0 / 127.0), torch.full_like(m, _QEPS))
 
 
-def split_scale_vector(sxg: torch.Tensor, splits: "tuple[int, ...]") -> torch.Tensor:
-    """The (C,) per-channel scale of a split-concat conv's input: channel c
-    of branch g carries ``sxg[g]``, so one K6 launch divides each element by
-    the same fp32 value as ``x[..., off:off + c] / sxg[g]`` does.  Built on
-    ``sxg``'s device from views of it (no copy from the host)."""
-    return torch.cat([sxg[g].expand(c) for g, c in enumerate(splits)])
-
-
-def quantized_conv(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
+def quantized_conv(x, wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
                    spec: ConvSpec, sx: "torch.Tensor | None" = None,
                    out_scale: "torch.Tensor | None" = None,
                    sxg: "torch.Tensor | None" = None,
@@ -481,10 +478,14 @@ def quantized_conv(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, b: torch
     is taken as already quantized at ``sx``), run the int8 kernel, and
     return NHWC fp32, or int8 at ``out_scale`` (an int8-resident chain).
     A bf16 or fp32 input goes to K6 as it is (widened in registers).
+    ``x`` may also be a route's sources (a tuple of NHWC tensors, bf16 or
+    fp32): K6 reads them in place of their concatenation and writes its
+    int8 (one launch, no concatenated copy).
 
     ``sxg`` + ``splits`` quantize each concat branch at its own scale (one
-    K6 launch at the per-channel :func:`split_scale_vector`); the kernel scales each branch's int32 sum by
-    ``sxg[g]`` and adds them in fp32.  ``shortcut`` (the output's shape,
+    K6 launch over the branches: the sources, or channel slices of the
+    concat); the kernel scales each branch's int32 sum by ``sxg[g]`` and
+    adds them in fp32.  ``shortcut`` (the output's shape,
     fp32 or bf16; fp32 out only) is a Darknet [shortcut] operand the kernel
     adds after the activation.  1x1 stride-1 convs run on K3
     (``int8_gemm``), all others on K4 (``int8_conv``).  All scales stay on
@@ -492,14 +493,19 @@ def quantized_conv(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, b: torch
     epi = dict(ws=ws, b=b, activation=spec.activation, out_scale=out_scale)
     if shortcut is not None:
         epi["shortcut"] = shortcut
-    if sxg is not None and splits is not None and x.dtype != torch.int8:
-        if sum(splits) != x.shape[-1]:
-            raise ValueError(f"concat splits {splits} do not cover the "
-                             f"{x.shape[-1]} input channels")
-        xq = kernels.quantize_i8(x, split_scale_vector(sxg, splits))
+    sources = isinstance(x, (list, tuple))
+    if sxg is not None and splits is not None and (sources or x.dtype != torch.int8):
+        widths = tuple(t.shape[-1] for t in x) if sources else (x.shape[-1],)
+        if sum(splits) != sum(widths) or (sources and widths != tuple(splits)):
+            raise ValueError(f"concat splits {splits} do not cover the input channels "
+                             f"{widths}")
+        if not sources:
+            offs = itertools.accumulate(splits, initial=0)
+            x = [x[..., o:o + c] for o, c in zip(offs, splits)]
+        xq = kernels.quantize_i8(x, [sxg[g] for g in range(len(splits))])
         epi.update(sxg=sxg, splits=tuple(splits))
     else:
-        if x.dtype == torch.int8:
+        if not sources and x.dtype == torch.int8:
             if sx is None:
                 raise ValueError("int8-resident input requires a static scale")
             xq = x.contiguous()

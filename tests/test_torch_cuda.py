@@ -34,7 +34,7 @@ from pytorch_yolo_tpu_torch.config import MaxPoolSpec
 from pytorch_yolo_tpu_torch.models.darknet import _maxpool
 from pytorch_yolo_tpu_torch.ops import kernels as tk
 from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch, letterbox_host
-from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale, split_scale_vector
+from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale, scale_of_amax
 from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 
 ANCHORS = ((81, 82), (135, 169), (344, 319))
@@ -547,11 +547,12 @@ def test_cuda_int8_shortcut_epilogue_matches_plain(cuda, name, core):
 
 # K6 cases: name -> (NHWC shape, dtype, scale, view).  scale: "scalar" (a
 # power of two), "vector" (per channel, powers of two and others) or a split
-# concat's branch widths; view: None, "offset" (contiguous, 4 bytes off the
-# 16-byte grid) or "slice" (the upper half of twice the channels, as a group
-# route gives).  Every case has exact ties at (k + 0.5) * s and values past
-# +-127.5 * s; the element counts of the C = 3 and C = 24 cases leave a
-# ragged tail past the last 16-element vector.
+# concat's branch widths (the branches passed as channel slices of the
+# concat, each at its own scale); view: None, "offset" (contiguous, 4 bytes
+# off the 16-byte grid) or "slice" (the upper half of twice the channels, as
+# a group route gives).  Every case has exact ties at (k + 0.5) * s and
+# values past +-127.5 * s; the element counts of the C = 3 and C = 24 cases
+# leave a ragged tail past the last 16-element vector.
 QUANT_CASES = {
     "fp32_scalar": ((2, 13, 13, 64), "float32", "scalar", None),
     "bf16_scalar": ((2, 13, 13, 64), "bfloat16", "scalar", None),
@@ -593,7 +594,8 @@ def plant_division_traps(x, per_ch):
 
 def quantize_case(name, device="cpu"):
     """(x, sx) of a QUANT_CASES entry on ``device``; the fp32 cases carry
-    :func:`division_traps` where a scale is not a power of two."""
+    :func:`division_traps` where a scale is not a power of two.  A split
+    case's ``sx`` is a list of one 0-d scale a branch."""
     shape, dtype, scale, view = QUANT_CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     c = shape[-1]
@@ -625,8 +627,27 @@ def quantize_case(name, device="cpu"):
     elif scale == "vector":
         sx = torch.from_numpy(per_ch)
     else:
-        sx = split_scale_vector(torch.from_numpy(sxg), scale)
+        return x, [torch.tensor(v, device=device) for v in sxg]
     return x, sx.to(device)
+
+
+def channel_slices(name, x, sx):
+    """A QUANT_CASES input as K6 takes it: a split case's channel slices of
+    the concat (each read in place at its row stride), else ``x``."""
+    widths = QUANT_CASES[name][2]
+    if not isinstance(widths, tuple):
+        return x
+    offs = np.cumsum((0,) + widths)
+    return [x[..., o:o + c] for o, c in zip(offs, widths)]
+
+
+def channel_scale(name, sx):
+    """``sx`` as one scale a channel (a split case's branch scales repeated
+    over their widths), for comparisons on the whole tensor."""
+    widths = QUANT_CASES[name][2]
+    if not isinstance(widths, tuple):
+        return sx
+    return torch.cat([s.reshape(1).expand(c) for s, c in zip(sx, widths)])
 
 
 @pytest.mark.cuda
@@ -638,17 +659,20 @@ def test_cuda_quantize_i8_matches_plain(cuda, name):
         assert x.data_ptr() % 16 and x.is_contiguous()
     if name == "bf16_channel_slice":
         assert not x.is_contiguous()
+    xs = channel_slices(name, x, sx)
     before = dict(tk.LAUNCHES)
-    ours = tk.quantize_i8(x, sx)
+    ours = tk.quantize_i8(xs, sx)
     torch.cuda.synchronize()
     assert tk.LAUNCHES == {**before, "quantize_i8": before["quantize_i8"] + 1}
-    ref = tk.quantize_i8_ref(x, sx)
+    ref = tk.quantize_i8_ref(xs, sx)
     assert ours.dtype == torch.int8 and ours.shape == x.shape and ours.is_contiguous()
     np.testing.assert_array_equal(ours.cpu().numpy(), ref.cpu().numpy())
-    q = (x.float() / sx).reshape(-1)
+    sc = channel_scale(name, sx)
+    np.testing.assert_array_equal(ref.cpu().numpy(), tk.quantize_i8_ref(x, sc).cpu().numpy())
+    q = (x.float() / sc).reshape(-1)
     assert bool((q.frac().abs() == 0.5).any()) and bool((q.abs() > 127.5).any())
     if name in ("fp32_vector", "fp32_split"):  # a reciprocal would round some elsewhere
-        assert not torch.equal(ref, torch.clamp(torch.round(x * (1.0 / sx)), -127, 127).to(
+        assert not torch.equal(ref, torch.clamp(torch.round(x * (1.0 / sc)), -127, 127).to(
             torch.int8))
 
 
@@ -657,18 +681,123 @@ def test_cuda_quantize_i8_matches_plain(cuda, name):
 def test_cuda_absmax_matches_plain(cuda, name):
     """K6's max|x| against its plain version, bit for bit, with the
     largest magnitude negative; a channels_last NCHW view (not contiguous)
-    is copied first."""
-    x, _ = quantize_case(name, cuda)
+    is read in place, in its memory order; a split case's channel slices
+    are read as branches.  The scale the same launch writes equals
+    ``scale_of_amax`` of the plain max."""
+    x, sx = quantize_case(name, cuda)
     peak = 2.0 * float(x.float().abs().amax())
     x[(0,) * x.dim()] = -peak
+    xs = channel_slices(name, x, sx)
     if name == "fp32_scalar":
-        x = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view
+        xs = x.permute(0, 3, 1, 2)  # NHWC bytes, NCHW view
     before = dict(tk.LAUNCHES)
-    ours = tk.absmax(x)
+    ours = tk.absmax(xs)
+    scale = tk.absmax(xs, scale=True)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES == {**before, "absmax": before["absmax"] + 1}
+    assert tk.LAUNCHES == {**before, "absmax": before["absmax"] + 2}
     assert ours.dtype == torch.float32 and ours.dim() == 0
-    assert ours.item() == tk.absmax_ref(x).item() == peak
+    assert ours.item() == tk.absmax_ref(xs).item() == peak
+    assert torch.equal(scale, scale_of_amax(tk.absmax_ref(xs)))
+
+
+# a route's sources handed to K6 (the read-through): name -> (leading
+# shape, (width, dtype) a branch, scales: "shared" (one 0-d scale),
+# "split" (one a branch) or "dynamic" (the scale from absmax over the
+# branches)); ragged widths, mixed dtypes, yolov3's two concats
+BRANCH_CASES = {
+    "24+40_fp32_bf16_split": ((2, 13, 13), ((24, "float32"), (40, "bfloat16")), "split"),
+    "24+40_bf16_bf16_shared": ((2, 13, 13), ((24, "bfloat16"), (40, "bfloat16")), "shared"),
+    "128+256_bf16_fp32_split": ((2, 52, 52), ((128, "bfloat16"), (256, "float32")), "split"),
+    "256+512_fp32_fp32_dynamic": ((2, 26, 26), ((256, "float32"), (512, "float32")),
+                                  "dynamic"),
+    "3+5+8_fp32_bf16_fp32_split": ((1, 7, 9), ((3, "float32"), (5, "bfloat16"), (8, "float32")),
+                                   "split"),
+}
+
+
+def branch_case(name, device="cpu"):
+    """(sources, scales) of a BRANCH_CASES entry: each source its own
+    contiguous tensor, with ties, saturated values and, in fp32, division
+    traps at its branch's scale."""
+    lead, branches, mode = BRANCH_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    sxg = np.array([0.0371, 2.0 ** -6, 0.0219][:len(branches)], np.float32)
+    if mode != "split":
+        sxg[:] = sxg[0]
+    xs = []
+    for (c, dtype), s in zip(branches, sxg):
+        x = (rng.normal(0.0, 1.5, (*lead, c)) * 64 * s).reshape(-1, c)
+        tie = rng.uniform(size=x.shape) < 0.2
+        x[tie] = ((rng.integers(-130, 130, x.shape) + 0.5) * s)[tie]
+        sat = rng.uniform(size=x.shape) < 0.05
+        x[sat] = (rng.choice([-1.0, 1.0], x.shape) * rng.uniform(127.5, 400.0, x.shape) * s)[sat]
+        x = x.astype(np.float32)
+        if dtype == "float32":
+            plant_division_traps(x, np.full(c, s, np.float32))
+        xs.append(torch.from_numpy(x.reshape(*lead, c)).to(device, getattr(torch, dtype)))
+    if mode == "split":
+        return xs, [torch.tensor(s, device=device) for s in sxg]
+    if mode == "shared":
+        return xs, torch.tensor(sxg[0], device=device)
+    return xs, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BRANCH_CASES))
+def test_cuda_quantize_i8_branches_match_plain(cuda, name):
+    """K6 over a route's sources: one launch writes the int8 of their
+    concatenation, equal to the plain version's and to K6 on the
+    concatenated copy; a dynamic scale is one ``absmax`` launch over the
+    branches, equal to the one of the copy."""
+    xs, sx = branch_case(name, cuda)
+    before = dict(tk.LAUNCHES)
+    if sx is None:
+        sx = dynamic_scale(xs)
+    ours = tk.quantize_i8(xs, sx)
+    torch.cuda.synchronize()
+    dyn = int(BRANCH_CASES[name][2] == "dynamic")
+    assert tk.LAUNCHES == {**before, "quantize_i8": before["quantize_i8"] + 1,
+                           "absmax": before["absmax"] + dyn}
+    ref = tk.quantize_i8_ref(xs, sx)
+    np.testing.assert_array_equal(ours.cpu().numpy(), ref.cpu().numpy())
+    cat = torch.cat([t.float() for t in xs], -1)
+    if isinstance(sx, list):
+        sc = torch.cat([s.reshape(1).expand(t.shape[-1]) for s, t in zip(sx, xs)])
+    else:
+        sc = sx
+        assert torch.equal(dynamic_scale(cat), sx) or not dyn
+    assert torch.equal(tk.quantize_i8(cat, sc), ours)
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_i8_every_bf16_pattern(cuda):
+    """Every one of the 65,536 bf16 bit patterns (NaN and inf included),
+    as a route's two sources and whole, at scales that are powers of two,
+    1/127-style and neither: int8 equal to the plain version."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=cuda).to(torch.int16)
+    x = bits.view(torch.bfloat16).reshape(64, 4, 256)
+    for s in (2.0 ** -7, 1.0 / 127.0, 0.0371, 3.75, float(np.float32(5.3) / 127 + 1e-12)):
+        sx = torch.tensor(s, dtype=torch.float32, device=cuda)
+        ref = tk.quantize_i8_ref(x, sx)
+        assert torch.equal(tk.quantize_i8(x, sx), ref)
+        halves = [x[..., :128].contiguous(), x[..., 128:].contiguous()]
+        assert torch.equal(tk.quantize_i8(halves, sx), ref)
+
+
+@pytest.mark.cuda
+def test_cuda_dynamic_scale_matches_plain(cuda):
+    """The scale ``absmax`` writes, ``fma(m, 1/127, eps)``, against
+    ``scale_of_amax`` of the plain max for 1,200 values of m: 0, every
+    subnormal power of two and some subnormals, the powers of two, and
+    values spread over the normal range."""
+    rng = np.random.default_rng(3)
+    ms = np.concatenate([[0.0], 2.0 ** np.arange(-149, 128),
+                         rng.integers(1, 1 << 23, 100).astype(np.uint32).view(np.float32),
+                         np.exp(rng.uniform(-80, 80, 822))]).astype(np.float32)
+    assert len(ms) >= 1200
+    for m in ms:
+        x = torch.tensor([[m / 2, -m, m / 4]], dtype=torch.float32, device=cuda)
+        assert torch.equal(tk.absmax(x, scale=True), scale_of_amax(tk.absmax_ref(x))), m
 
 
 @pytest.mark.cuda

@@ -47,6 +47,7 @@ from pytorch_yolo_tpu.models import darknet as jdn
 from pytorch_yolo_tpu.ops import quant as jq
 from pytorch_yolo_tpu_torch import config as tcfg
 from pytorch_yolo_tpu_torch.models import darknet as tdn
+from pytorch_yolo_tpu_torch.parallel import sharding as tshard
 from pytorch_yolo_tpu_torch.ops import kernels as tk
 from pytorch_yolo_tpu_torch.ops import quant as tq
 from pytorch_yolo_tpu_torch.weights import params_from_jax
@@ -94,19 +95,46 @@ def quantize_input(dtype, scale, seed=0):
     return xt, xj, np.asarray(sx, np.float32), per_ch
 
 
-@pytest.mark.parametrize("scale", ["scalar", "vector", "split"])
+@pytest.mark.parametrize("scale", ["scalar", "vector", "split", "sources", "mixed_sources"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantize_i8_plain_matches_jax(dtype, scale):
+    """``split``: the concat's channel slices at their branch scales;
+    ``sources``: a route's sources handed over as they are (the forward's
+    read-through), ``mixed_sources`` every other one in the other dtype, as
+    fp32 int8-conv outputs meet bf16 glue; both against JAX's slices of its
+    concatenation."""
+    if scale.endswith("sources"):
+        xt, _, sx, per_ch = quantize_input(dtype, "split")
+        other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+        offs = np.cumsum((0,) + SPLITS)
+        srcs = [xt[..., o:o + c].contiguous().to(other if scale == "mixed_sources" and g % 2
+                                                 else dtype)
+                for g, (o, c) in enumerate(zip(offs, SPLITS))]
+        xj = jnp.concatenate([jnp.asarray(t.float().numpy()).astype(
+            jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32) for t in srcs], -1)
+        assert xj.dtype == (jnp.float32 if scale == "mixed_sources" or dtype == torch.float32
+                            else jnp.bfloat16)
+        ref = np.concatenate([np.asarray(jax.jit(_jax_quantize)(xj[..., o:o + c],
+                                                               jnp.asarray(sx[g])))
+                              for g, (o, c) in enumerate(zip(offs, SPLITS))], -1)
+        ours = tk.quantize_i8(srcs, [torch.tensor(v) for v in sx])
+        assert ours.dtype == torch.int8 and tuple(ours.shape) == ref.shape
+        np.testing.assert_array_equal(ours.numpy(), ref)
+        wide = torch.cat([t.float() for t in srcs], -1)  # one scale: the same as the copy's
+        np.testing.assert_array_equal(tk.quantize_i8(srcs, torch.tensor(sx[1])).numpy(),
+                                      tk.quantize_i8(wide, torch.tensor(sx[1])).numpy())
+        assert (np.abs(ref) == 127).mean() > 0.1
+        return
     xt, xj, sx, per_ch = quantize_input(dtype, scale)
-    if scale == "split":  # the JAX slice loop against one launch at the split vector
+    if scale == "split":  # the JAX slice loop against one launch over the slices
         ref, off = [], 0
         for g, c in enumerate(SPLITS):
             ref.append(jax.jit(_jax_quantize)(xj[..., off:off + c], jnp.asarray(sx[g])))
             off += c
         ref = np.concatenate([np.asarray(r) for r in ref], -1)
-        sv = tq.split_scale_vector(torch.from_numpy(sx), SPLITS)
-        np.testing.assert_array_equal(sv.numpy(), np.repeat(sx, SPLITS))
-        ours = tk.quantize_i8(xt, sv)
+        offs = np.cumsum((0,) + SPLITS)  # the concat's channel slices, one launch
+        ours = tk.quantize_i8([xt[..., o:o + c] for o, c in zip(offs, SPLITS)],
+                              [torch.tensor(v) for v in sx])
     else:
         ref = np.asarray(jax.jit(_jax_quantize)(xj, jnp.asarray(sx)))
         ours = tk.quantize_i8(xt, torch.from_numpy(sx))
@@ -140,6 +168,32 @@ def test_absmax_plain_matches_jax(dtype):
     assert float(ref) == 41.25
     scale = jax.jit(lambda a: jnp.max(jnp.abs(a.astype(jnp.float32))) / 127.0 + jq._QEPS)(xj)
     np.testing.assert_array_equal(tq.dynamic_scale(xt).numpy(), np.asarray(scale))
+    # over a route's sources (the read-through): the max and the scale of
+    # their concatenation, from the reduction's own call
+    srcs = [xt[..., :16].contiguous(), xt[..., 16:].to(torch.float32)]
+    np.testing.assert_array_equal(tk.absmax(srcs).numpy(), ref)
+    np.testing.assert_array_equal(tk.absmax(srcs, scale=True).numpy(), np.asarray(scale))
+    np.testing.assert_array_equal(tq.dynamic_scale(srcs).numpy(), np.asarray(scale))
+
+
+def test_dynamic_scale_matches_jax():
+    """The fused scale ``absmax(x, scale=True)`` (the plain version here:
+    ``scale_of_amax``, an emulated fp32 FMA) against JAX's
+    ``jnp.max(jnp.abs(x)) / 127.0 + _QEPS`` as XLA compiles it, bit for
+    bit, for 1,200 values of the max: 0, every power of two (the subnormal
+    ones too), random subnormals, and values over the normal range; and
+    XLA's fp32 constants are those of ``csrc/quantize_i8.cu`` (kInv127,
+    kEps)."""
+    rng = np.random.default_rng(3)
+    ms = np.concatenate([[0.0], 2.0 ** np.arange(-149, 128),
+                         rng.integers(1, 1 << 23, 100).astype(np.uint32).view(np.float32),
+                         np.exp(rng.uniform(-80, 80, 822))]).astype(np.float32)
+    rows = np.stack([ms / 2, -ms, ms / 4], -1)
+    ref = np.asarray(jax.jit(jax.vmap(lambda r: jnp.max(jnp.abs(r)) / 127.0 + jq._QEPS))(rows))
+    ours = np.array([tk.absmax(torch.from_numpy(r), scale=True).numpy() for r in rows])
+    np.testing.assert_array_equal(ours, ref)
+    assert float(np.float32(1.0 / 127.0)).hex() == "0x1.0204080000000p-7"  # kInv127
+    assert float(np.float32(jq._QEPS)).hex() == "0x1.1979980000000p-40"    # kEps
 
 
 def _epilogue_pieces(act, seed):
@@ -258,3 +312,196 @@ def test_int8_forward_fused_shortcuts_matches_jax(cfg, mode):
     gap = np.abs(fused6 - unfused6)
     limit = np.spacing(np.abs(p)) + np.spacing(np.maximum(np.abs(fused6), np.abs(unfused6)))
     assert (gap <= limit).all() and (gap > 0).mean() < 0.5
+
+
+# A [route] of two sources (an upsampled 1x1 conv and the first conv's
+# output, 8 + 16 channels) that only the next conv reads: the w8a8 forward
+# hands the sources to that conv's K6 (``Darknet._read_through``)
+ROUTE_CFG = """
+[net]
+width=64
+height=64
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=24
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=8
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[upsample]
+stride=2
+
+[route]
+layers=-1, 0
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=24
+activation=linear
+
+[yolo]
+mask=0,1,2
+anchors=10,13, 16,30, 33,23
+classes=3
+num=3
+"""
+
+
+def _float_cats(monkeypatch):
+    """Count the ``torch.cat`` calls on floating tensors (a route's
+    concatenated copy; the plain quantizer's cat of int8 parts is not one)."""
+    calls = []
+    cat = torch.cat
+
+    def counting(tensors, *args, **kwargs):
+        if any(t.is_floating_point() for t in tensors):
+            calls.append(tuple(t.shape for t in tensors))
+        return cat(tensors, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "cat", counting)
+    return calls
+
+
+@pytest.mark.parametrize("model,mode", [("yolov3-tiny", "static"), ("yolov3-tiny", "dynamic"),
+                                        ("route", "split"), ("route", "dynamic_mesh")])
+def test_int8_forward_reads_route_concats_matches_jax(model, mode, monkeypatch):
+    """The w8a8 forward with its concat routes read through by the next
+    conv's K6 (the plain versions here) against JAX's
+    ``build_forward(quant="w8a8")``, bit for bit, with no ``torch.cat`` of
+    the route's sources; with a layer hook the route is concatenated again
+    and the heads are the same.  yolov3-tiny (route 20) at static and
+    dynamic scales; ``ROUTE_CFG`` with every conv int8 at per-branch static
+    scales (``sag``), and with dynamic scales on a 2-entry CPU mesh (each
+    shard's max over the sources, the whole batch's scale: the heads of
+    one device and of JAX)."""
+    if model == "yolov3-tiny":
+        text = open("cfg/yolov3-tiny.cfg", encoding="utf-8").read()
+        skip, size, route = (), 96, 20
+    else:
+        text, skip, size, route = ROUTE_CFG, (), 64, 4
+    jspec = jcfg.build_spec(jcfg.parse_cfg_text(text))
+    tspec = tcfg.build_spec(tcfg.parse_cfg_text(text))
+    jp = jw.fold_batchnorm(jspec, jw.random_raw_params(jspec, seed=3))
+    jp = {k: {kk: np.asarray(vv) for kk, vv in v.items()} for k, v in jp.items()}
+    x = np.random.default_rng(8).uniform(0, 1, (4 if mode.endswith("mesh") else 2, size, size,
+                                                3)).astype(np.float32)
+    act = None
+    if mode == "static":
+        act = jq.collect_act_scales(jspec, jax.tree_util.tree_map(jnp.asarray, jp), x)
+    elif mode == "split":
+        rng = np.random.default_rng(4)
+        groups = tq.concat_split_groups(tspec)
+        assert groups == {5: (8, 16)}
+        act = {i: ([float(v) for v in rng.uniform(0.01, 0.05, len(groups[i]))]
+                   if i in groups else float(rng.uniform(0.01, 0.05))) for i in jp}
+    qp = jq.quantize_params(jspec, jp, skip, act)
+    net = tdn.Darknet(tspec, tq.quantize_params(tspec, params_from_jax(jp), skip, act),
+                      quant="w8a8")
+    assert net._read_through == {route}
+    ref = jax.jit(jdn.build_forward(jspec, quant="w8a8"))(
+        jax.tree_util.tree_map(jnp.asarray, qp), jnp.asarray(x))
+
+    cats = _float_cats(monkeypatch)
+    if mode.endswith("mesh"):
+        mesh = tshard.make_batch_mesh(["cpu", "cpu"])
+        shards = tshard.shard_batch(x, mesh)
+        per_shard = tdn.Darknet.forward_mesh([net, net], shards)
+        assert cats == []
+        heads = [torch.cat(h) for h in zip(*per_shard)]
+        cats.clear()
+    else:
+        heads = net(torch.from_numpy(x))
+    assert cats == []
+    for o, r in zip(heads, ref):
+        assert o.dtype == torch.float32 and tuple(o.shape) == r.shape
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    if mode.endswith("mesh"):  # the mesh's heads are one device's
+        for o, one in zip(heads, net(torch.from_numpy(x))):
+            assert torch.equal(o, one)
+
+    net.layer_hook = lambda i, t: None  # a reader of the route: the copy comes back
+    hooked = net(torch.from_numpy(x))
+    net.layer_hook = None
+    assert len(cats) == 1
+    for o, h in zip(heads, hooked):
+        assert torch.equal(o, h)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "channel_slices", "sources", "vector",
+                                  "strided_copy"])
+def test_quant_args_describe_branches(case):
+    """The launch arguments K6's wrapper builds (``kernels._rows_view``,
+    ``_quant_args``), which only the card runs: each branch's pointer, rows,
+    channels, row stride, output channel offset, element size and scale;
+    a channel slice is read in place at its parent's row stride, a view
+    whose rows do not sit one stride apart is copied; ``absmax``'s dense
+    branches are one flat run whatever their memory order."""
+    x = torch.arange(2 * 3 * 5 * 48, dtype=torch.float32).reshape(2, 3, 5, 48)
+    s = torch.tensor([0.5, 0.25, 0.125])
+    out = torch.empty((2, 3, 5, 48), dtype=torch.int8)
+    if case == "contiguous":
+        xs, scales = [x], [s[0]]
+    elif case == "channel_slices":
+        xs, scales = [x[..., :16], x[..., 16:40], x[..., 40:]], [s[0], s[1], s[2]]
+    elif case == "sources":
+        xs, scales = [x[..., :16].contiguous(), x[..., 16:].to(torch.bfloat16)], [s[0], s[1]]
+    elif case == "vector":
+        xs = [x[..., :16], x[..., 16:]]
+        scales = tk._branch_scales(xs, torch.linspace(0.1, 0.2, 48))
+    else:
+        xs, scales = [x[:, :, 1:, :]], [s[0]]  # rows two strides apart: copied
+    views = [tk._rows_view(t) for t in xs]
+    args = tk._quant_args(views, scales, out, 48)
+    assert args.branches == len(xs) and args.out_channels == 48
+    assert args.out == out.data_ptr()
+    off = 0
+    for g, (t, (v, rows, c, stride)) in enumerate(zip(xs, views)):
+        b = args.b[g]
+        assert (b.rows, b.channels, b.out_offset, b.elem_bytes) == (
+            t.numel() // t.shape[-1], t.shape[-1], off, t.element_size())
+        assert b.scale == scales[g].data_ptr()
+        assert b.scale_vec == int(scales[g].dim() == 1)
+        if case in ("channel_slices", "vector"):
+            assert v is t and b.x == t.data_ptr() and b.row_stride == 48
+        elif case == "strided_copy":
+            assert v is not t and v.is_contiguous() and b.row_stride == c == 48
+        else:
+            assert b.x == t.data_ptr() and b.row_stride == c
+        off += c
+    if case == "vector":  # each branch its slice of the per-channel vector
+        assert args.b[1].scale - args.b[0].scale == 16 * 4
+    nchw = x.permute(0, 3, 1, 2)  # a channels_last NCHW view: absmax reads it flat
+    flat, sliced = tk._absmax_views([nchw, x[..., 16:]])
+    assert flat[0] is nchw and flat[1:] == (x.numel(), 1, 1)
+    assert sliced[0].data_ptr() == x[..., 16:].data_ptr() and sliced[1:] == (30, 32, 48)
+    with pytest.raises(ValueError, match="sx must be"):
+        tk._branch_scales([x[..., :16], x[..., 16:]], torch.ones(47))

@@ -5,6 +5,7 @@
     python3 tools/profile_torch_step.py --mode int8sb --mma   # K3/K4 on mma.sync
     python3 tools/profile_torch_step.py --kernels --root DIR  # K1-K5 of DIR's port
     python3 tools/profile_torch_step.py --k5 --batch 112 128 136  # K5 and cuDNN alone
+    python3 tools/profile_torch_step.py --k6 --root DIR       # K6 alone
 
 Runs the configuration of ``chip_smoke.py`` phase 6 (``bf16``: yolov3@416,
 bf16, batch 128, 480x640 uint8 frames on the card, every conv on K5) or
@@ -13,8 +14,9 @@ the same with ``quant="w8a8"``, static scales from 4 frames; ``int8dyn``
 with dynamic scales, one ``absmax`` a conv), 3 warm-up
 steps, then ``--steps`` steps under ``torch.profiler``.  Prints the median
 step time (CUDA events, without the profiler), the device time per step
-summed over all kernels, the share of the step the device was idle, and
-the kernels grouped by what they do, largest first.  ``--mma`` forces K3
+summed over all kernels, the share of the step the device was idle, the
+device operations (kernels, memsets, copies) a step, and the kernels
+grouped by what they do, largest first.  ``--mma`` forces K3
 and K4 onto the ``mma.sync`` core, for an A/B against the wgmma core.
 
 ``--kernels`` times K1 and K2 alone at the bf16 step's shapes instead and
@@ -32,7 +34,12 @@ digest of its output.  ``--k5`` times K5 alone at ``K5_SHAPES`` (or the
 ``--shape`` names given) at each ``--batch``, with no detector, its
 ``device_ms`` beside the cuDNN bf16 conv + bias + leaky it replaced
 (``library_device_ms``), each from a CUDA graph in turns (K5, cuDNN,
-cuDNN, K5); one JSON line a batch.  ``--root`` imports the port from another checkout
+cuDNN, K5); one JSON line a batch.  ``--k6`` times K6 alone at batch 128
+(``K6_CASES``: yolov3@416's largest int8sb input in fp32, bf16 and per
+channel, its two route concats read through, and ``absmax`` with the
+scale), each ``device_ms`` from one CUDA graph, beside
+``torch.quantize_per_tensor`` (a yardstick: it multiplies by a reciprocal
+and rounds to [-128, 127]); one JSON line.  ``--root`` imports the port from another checkout
 (with ``--mode``, its step), so that one call can run parent, change,
 change, parent:
 
@@ -59,7 +66,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kernel-name substring -> group, first match wins (names as the profiler
 # demangles them)
-GROUPS = (("quantize_kernel", "K6 int8 input quantizer"), ("absmax_kernel", "K6 absmax"),
+GROUPS = (("k6_tile_kernel<false", "K6 int8 input quantizer"),
+          ("k6_tile_kernel<true", "K6 absmax"),
+          ("quantize_kernel", "K6 int8 input quantizer"),  # the first K6's names
+          ("absmax_kernel", "K6 absmax"),
           ("wgmma_kernel<false", "K3 int8 GEMM (wgmma)"),
           ("wgmma_kernel<true", "K4 int8 conv (wgmma)"),
           ("igemm_kernel<false", "K3 int8 GEMM (mma.sync)"),
@@ -265,6 +275,60 @@ def time_shortcut(kernels, dev, batch: int = 128) -> dict:
     return out
 
 
+# K6 at batch 128: name -> (NHWC shapes of the branches, their dtypes,
+# scale): yolov3@416 int8sb's largest input, and its two route concats
+# (layers 86 and 98: the sources of the conv after each, read through)
+K6_CASES = {"fp32 (128, 52, 52, 256)": (((52, 256),), ("float32",), "scalar"),
+            "bf16 (128, 52, 52, 256)": (((52, 256),), ("bfloat16",), "scalar"),
+            "fp32 per channel (128, 52, 52, 256)": (((52, 256),), ("float32",), "vector"),
+            "route 86: 26² 256 + 512 fp32": (((26, 256), (26, 512)), ("float32", "float32"),
+                                             "split"),
+            "route 98: 52² 128 + 256 fp32": (((52, 128), (52, 256)), ("float32", "float32"),
+                                             "split")}
+
+
+def time_k6(kernels, dev, batch: int = 128) -> dict:
+    """K6 alone at :data:`K6_CASES` and ``absmax`` (with the scale, where
+    the checkout writes it) at the largest input: ``device_ms``, the bytes
+    bound, a digest of the output; the cat + K6 that a checkout without the
+    read-through runs on a concat."""
+    branches = hasattr(kernels, "MAX_QUANT_BRANCHES")  # the read-through and the scale
+    gen = torch.Generator(dev).manual_seed(0)
+    out = {}
+    for name, (shapes, dtypes, scale) in K6_CASES.items():
+        xs = [torch.randn((batch, h, h, c), device=dev, generator=gen).to(getattr(torch, dt))
+              for (h, c), dt in zip(shapes, dtypes)]
+        c = sum(t.shape[-1] for t in xs)
+        if scale == "vector":
+            sx = torch.rand(c, device=dev, generator=gen) * 0.04 + 0.01
+        elif scale == "split":
+            sx = [torch.tensor(0.03 + 0.005 * g, device=dev) for g in range(len(xs))]
+        else:
+            sx = torch.tensor(0.03, device=dev)
+        nbytes = sum(t.numel() * (t.element_size() + 1) for t in xs)
+        row = {"bound_ms": nbytes / 3.35e12 * 1e3}
+        if len(xs) > 1:  # the concatenated copy and one launch over it
+            sv = torch.cat([s.reshape(1).expand(t.shape[-1]) for s, t in zip(sx, xs)])
+            row["cat_then_k6"] = graph_ms(lambda: kernels.quantize_i8(torch.cat(xs, -1), sv))
+        if len(xs) == 1 or branches:
+            arg = xs if len(xs) > 1 else xs[0]
+            fn = lambda: kernels.quantize_i8(arg, sx)  # noqa: E731
+            digest = hashlib.sha1(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+            row["kernel"] = {"device_ms": graph_ms(fn), "digest": digest}
+        if scale == "scalar" and dtypes == ("float32",):
+            x6 = xs[0]
+            row["quantize_per_tensor"] = graph_ms(
+                lambda: torch.quantize_per_tensor(x6, 0.03, 0, torch.qint8))
+        out[name] = row
+        del xs
+    x = torch.randn((batch, 52, 52, 256), device=dev, generator=gen)
+    am = {"bound_ms": x.numel() * 4 / 3.35e12 * 1e3}
+    am["kernel"] = graph_ms(lambda: kernels.absmax(x, scale=True) if branches
+                            else kernels.absmax(x))
+    out["absmax fp32 (128, 52, 52, 256)"] = am
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("bf16", "int8sb", "int8dyn"), default="int8sb")
@@ -274,6 +338,8 @@ def main() -> None:
                     help="time K1-K5 alone at the step's shapes (sets --mode bf16)")
     ap.add_argument("--k5", action="store_true",
                     help="time K5 and cuDNN alone at each --batch (no detector)")
+    ap.add_argument("--k6", action="store_true",
+                    help="time K6 alone at K6_CASES (no detector)")
     ap.add_argument("--batch", type=int, nargs="+", default=[128], help="--k5's batch sizes")
     ap.add_argument("--shape", action="append", choices=tuple(K5_SHAPES),
                     help="--k5's shapes (default: all of K5_SHAPES)")
@@ -291,6 +357,12 @@ def main() -> None:
                               "card": torch.cuda.get_device_name(0),
                               "k5": time_k5(kernels, torch.device("cuda", 0), batch, args.shape,
                                             library=True)}, ensure_ascii=False), flush=True)
+        return
+
+    if args.k6:
+        print(json.dumps({"root": args.root, "card": torch.cuda.get_device_name(0),
+                          **time_k6(kernels, torch.device("cuda", 0))}, ensure_ascii=False),
+              flush=True)
         return
 
     if args.kernels:
@@ -340,12 +412,15 @@ def main() -> None:
     window = start.elapsed_time(end)
     by_group: dict = collections.defaultdict(lambda: [0.0, 0])
     others: dict = collections.defaultdict(float)
-    total = 0.0
+    total, ops = 0.0, 0
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
-        if evt.device_type != torch.autograd.DeviceType.CUDA or not us:
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ops += evt.count
+        if not us:
             continue
         if group_of(evt.key) == "other":
             others[evt.key[:90]] += us / 1e3 / args.steps
@@ -357,7 +432,8 @@ def main() -> None:
     print(f"{args.mode}{' (mma.sync)' if args.mma else ''} on {card}: median step "
           f"{statistics.median(times):.3f} ms over 10 (min {min(times):.3f}); device time "
           f"{total:.2f} ms per step of a {window / args.steps:.2f} ms profiled step, idle "
-          f"{max(0.0, 1 - total / (window / args.steps)):.1%}")
+          f"{max(0.0, 1 - total / (window / args.steps)):.1%}; {ops / args.steps:.0f} device "
+          "operations a step")
     for name, (ms, count) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
         print(f"  {name:30s} {ms:8.3f} ms  {ms / total:6.1%}  ({count} launches)")
     for name, ms in sorted(others.items(), key=lambda kv: -kv[1])[:6]:
