@@ -7,10 +7,12 @@ Phases, one line each (a failure in any phase exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the CUDA kernels from ``pytorch_yolo_tpu_torch/csrc``;
   3. K1 decode+score against its plain torch version on the card, at the
-     yolov3@416 head shapes (batch 8) plus a [region] softmax head and a
-     4-anchor new_coords head; the three yolov3 heads in bf16 in one
-     launch, equal bit for bit to K1 on their fp32 widening; a misaligned
-     head, which must raise; a class tie (the lowest index wins);
+     yolov3@416 head shapes (batch 8) plus a [region] softmax head, a
+     4-anchor new_coords head and yolov4@608's three scale_x_y heads; the
+     three yolov3 heads in bf16 in one launch, equal bit for bit to K1 on
+     their fp32 widening; yolov4's three heads in bf16 in one launch; a
+     misaligned head, which must raise; a class tie (the lowest index
+     wins);
   4. K2 NMS keep mask against its plain version, batch 8: K = 300 crowded
      boxes with ties and mixed classes, a chain where each box overlaps
      only its successor (K = 300 and 1024), and crowded boxes at K = 1024
@@ -120,10 +122,12 @@ Phases, one line each (a failure in any phase exits non-zero):
  13. K5 (bf16 implicit-GEMM conv) against its plain version (an fp32 conv
      of the same bf16 operands, TF32 off, + fp32 bias, activation, one
      rounding) on the real activations of every distinct conv shape of
-     yolov3@416 at batch 8 (the bf16 live forward's conv inputs), each
-     activation and a fused shortcut: >= 99.9 % of outputs bit-equal and
-     the rest within one bf16 step or the order error of an fp32 sum
-     (2^-20 of sum |x w| + |b|); then K5 at batch 128 at every distinct
+     yolov3@416 at batch 8 and of yolov4@608 at batch 4 (the bf16 live
+     forwards' conv inputs), each activation and a fused shortcut: >= 99.9 %
+     of outputs bit-equal and the rest within one bf16 step or the order
+     error of an fp32 sum (2^-20 of sum |x w| + |b|); K5 with mish against
+     leaky at yolov4's 608² stride-2 conv, batch 64, device time in turns;
+     then K5 at batch 128 at every distinct
      yolov3@416 conv shape whose A does not come by a 2-D TMA box (11:
      the im2col, gather and packed routes) and at the largest 1x1 (52²
      256->128), eager and device time, beside its plain version, the
@@ -188,8 +192,34 @@ Phases, one line each (a failure in any phase exits non-zero):
      each at set agreement 1.0 with meshless; (d) bf16 ms/batch at batch
      128, meshless and mesh in turns (a reading, not a gate); (e) 17a over
      every card where there is more than one, else one line saying so.
-     The current device is what it was before the phase.
+     The current device is what it was before the phase;
+ 18. yolov4@608 (the published cfg's size), live weights: (a)
+     ``Detector.load("yolov4", synthetic="live")`` fp32 / "highest" on the
+     card equal to the detector on the same equalized weights, and against
+     the CPU on 2 frames (set agreement >= 0.995, the worst matched box
+     printed; CUDA's and the CPU's mish differ in their last ulps); (b)
+     bf16 at batch 64 (23.7 M pixels a step), phase 6's frames and method:
+     median ms/batch and img/s, one K5 launch for each of the 110 convs
+     and one K1 and one K2 a step, the top ``torch.profiler`` rows by
+     kernel, and SPP's three stride-1 maxpools timed alone; (d) bf16 at
+     batch 128 once: every field of the result bit-equal to the two batch-64
+     halves (layer 0's output is 3.03 GB), peak memory printed; (c) int8sb
+     (w8a8, bf16 glue, the default early skip: 89 int8 convs, 21 on K5,
+     static scales from 4 frames at 608): as (b), plus one K3/K4 launch an
+     int8 conv (none on ``mma.sync``), one K6 a conv input that is not
+     int8-resident, no activation-sized ``div``/``round``/``clamp``, no
+     unfused [shortcut] ``add``, and no ``cat`` of a route before an int8
+     conv (SPP's route 113 read through by one four-source K6), the drift
+     against (b) printed; (e) drift of bf16 and int8sb "auto" against fp32
+     on 4 frames: no degenerate row;
+ 19. yolov4-tiny@416, live weights: fp32 card vs CPU on 4 frames (set
+     agreement 1.0); bf16 (21 K5 launches a step) and int8sb (the ladder:
+     early skip 0, 19 int8 convs, the RGB stem on ``mma.sync``, the int8
+     maxpool chain, split routes read as channel slices by K6) at batch 128:
+     ms/batch, launches, profiler rows; int8sb on the card against the CPU
+     serving the card's ``quant_state()`` (>= 0.995).
 
+Each phase's wall seconds are printed on one line before the report.
 The line before the second-to-last is the kernels' JSON report (``ms``
 eager time, as every kernel's figure since the port began; ``device_ms``
 the CUDA-graph device time of the same calls); the
@@ -197,7 +227,7 @@ second-to-last is the card as nvidia-smi names it; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
 Synthetic He-init weights (seed 0) in phases 3-9, live (equalized) ones
-in 10-17; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17).
+in 10-19; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17).
 """
 
 from __future__ import annotations
@@ -230,6 +260,10 @@ PEAK_INT8_OPS = 1.979e15
 PEAK_BF16_OPS = 989e12
 PEAK_FP32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# phases 18-19: yolov4 at the published cfg's 608 (batch 64: 23.7 M pixels a
+# step, about yolov3@416's batch 128), yolov4-tiny at 416 and batch 128
+V4, V4_SIZE, V4_BATCH, V4_TINY = "yolov4", 608, 64, "yolov4-tiny"
+LAPS: list = []  # (phase, perf_counter at its start)
 
 
 def fail(msg: str) -> None:
@@ -407,6 +441,10 @@ K6_BRANCH_CASES = {
                                    "split"),
     "3 fp32 + 5 bf16 + 8 fp32, split": ((1, 7, 9), ((3, torch.float32), (5, torch.bfloat16),
                                                     (8, torch.float32)), "split"),
+    # yolov4's SPP route 113: four 512-channel sources at 19² (608)
+    "4 x 512 fp32 (SPP), shared": ((8, 19, 19), ((512, torch.float32),) * 4, "shared"),
+    "512 bf16 + 3 x 512 fp32 (SPP), split": ((8, 19, 19), ((512, torch.bfloat16),)
+                                             + ((512, torch.float32),) * 3, "split"),
 }
 
 
@@ -416,7 +454,7 @@ def k6_branch_case(name, device):
     None for a dynamic case."""
     lead, branches, mode = K6_BRANCH_CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
-    sxg = np.array([0.0371, 2.0 ** -6, 0.0219][:len(branches)], np.float32)
+    sxg = np.array([0.0371, 2.0 ** -6, 0.0219, 0.0293][:len(branches)], np.float32)
     if mode != "split":
         sxg[:] = sxg[0]
     xs = []
@@ -650,8 +688,8 @@ def pipeline_ms(step) -> tuple[list[float], object]:
     return times, res
 
 
-def check_result(res, what: str) -> None:
-    if tuple(res.boxes.shape) != (BATCH, MAX_DET, 4) or not bool(res.valid.any()):
+def check_result(res, what: str, batch: int = BATCH) -> None:
+    if tuple(res.boxes.shape) != (batch, MAX_DET, 4) or not bool(res.valid.any()):
         fail(f"{what} result has shape {tuple(res.boxes.shape)} and "
              f"{int(res.valid.sum())} valid rows")
     if not bool(torch.isfinite(res.boxes[res.valid]).all()):
@@ -749,68 +787,51 @@ def k5_agreement(ours, ref, x, w, b, stride, pad, shortcut=None) -> tuple[float,
     return equal, steps, float(gap.max())
 
 
-def phase13_k5(kernels, v3, live, frames, dev, card) -> dict:
+def phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live) -> dict:
     """K5 against its plain version on every distinct conv of yolov3@416 at
-    batch 8 (real activations), each activation and a fused shortcut; then
-    its times at batch 128 at every distinct shape off the 2-D TMA route
-    and at the largest 1x1."""
+    batch 8 and of yolov4@608 at batch 4 (real activations), each
+    activation and a fused shortcut; K5 with mish against leaky at
+    yolov4's 608² stride-2 conv; then its times at batch 128 at every
+    distinct yolov3 shape off the 2-D TMA route and at the largest 1x1."""
     from pytorch_yolo_tpu_torch import Detector
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
 
     det = Detector(v3, live, device=dev, dtype=torch.bfloat16, precision="default")
-    keys: dict = {}
+    g = SIZE // 8  # 52 at 416
     per_step: dict = {}  # (input HWC, weight shape, stride) -> convs of that shape in a step
-
-    def hook(i, t):
-        c = det.model.convs[str(i)]
-        key = (tuple(t.shape), tuple(c.weight.shape), c.stride, c.padding, c.activation)
-        shape = (tuple(t.shape[1:]), tuple(c.weight.shape), c.stride)
-        per_step[shape] = per_step.get(shape, 0) + 1
-        if key in keys:
-            return None
-        keys[key] = i
-        return t.to(torch.bfloat16).contiguous()
-
-    with torch.no_grad():
-        _, inputs = det.model(letterbox_batch(frames[:8], SIZE), collect_conv_in_stats=hook)
-    worst = {"equal": 1.0, "steps": 0, "abs": 0.0}
-    cases = []
-    for key, i in keys.items():
-        c = det.model.convs[str(i)]
-        acts = [c.activation]
-        if key[0] == (8, SIZE // 8, SIZE // 8, 128) and key[1] == (256, 3, 3, 128):
-            acts = ["leaky", "mish", "relu", "logistic", "linear"]
-        for act in acts:
-            cases.append((f"conv {i} {key[0]} * {key[1]} s{c.stride} {act}", inputs[i], c, act,
-                          None))
-    fused = min(det.model._fused)
-    c = det.model.convs[str(fused)]
-    x = inputs.get(fused)
-    if x is None:  # the first conv of its shape is another layer: take that layer's input
-        k = next(k for k, j in keys.items() if k[1] == tuple(c.weight.shape)
-                 and k[2:4] == (c.stride, c.padding))
-        x = inputs[keys[k]]
-    sc_shape = (x.shape[0], (x.shape[1] + 2 * c.padding - c.weight.shape[1]) // c.stride + 1,
-                (x.shape[2] + 2 * c.padding - c.weight.shape[2]) // c.stride + 1, c.weight.shape[0])
-    sc = torch.randn(sc_shape, device=dev).to(torch.bfloat16)
-    cases.append((f"conv {fused} + shortcut", x, c, c.activation, sc))
-    for name, x, c, act, sc in cases:
-        before = kernels.LAUNCHES["conv_bf16"]
-        ours = kernels.conv_bf16(x, c.weight, c.bias, c.stride, c.padding, act, sc)
-        torch.cuda.synchronize()
-        if kernels.LAUNCHES["conv_bf16"] != before + 1:
-            fail(f"K5 {name}: expected one launch, counts {kernels.LAUNCHES}")
-        ref = kernels.conv_bf16_ref(x, c.weight, c.bias, c.stride, c.padding, act, sc)
-        equal, steps, err = k5_agreement(ours, ref, x, c.weight, c.bias, c.stride, c.padding, sc)
-        worst = {"equal": min(worst["equal"], equal), "steps": max(worst["steps"], steps),
-                 "abs": max(worst["abs"], err)}
-        if ours.shape != ref.shape or equal < 0.999 or steps > 1:
-            fail(f"K5 {name}: {equal:.5%} bit-equal, {steps} bf16 steps beyond the sum's order "
-                 f"error (gate >= 99.9 %, <= 1)")
-        say(f"phase 13 K5 {name}: ok, {equal:.4%} bit-equal, <= {steps} bf16 step beyond the "
-            f"order error, max abs err {err:.3g}")
-    say(f"phase 13 K5: {len(cases)} cases (every distinct conv of yolov3@{SIZE} batch 8), worst "
+    worst, n3, keys, inputs = k5_cases(kernels, det, letterbox_batch(frames[:8], SIZE),
+                                       f"yolov3@{SIZE}", ((8, g, g, 128), (256, 3, 3, 128)),
+                                       per_step)
+    say(f"phase 13 K5: {n3} cases (every distinct conv of yolov3@{SIZE} batch 8), worst "
         f"{worst['equal']:.4%} bit-equal, {worst['steps']} step")
+    det4 = Detector(v4, v4_live, device=dev, dtype=torch.bfloat16, precision="default")
+    worst4, n4, _, _ = k5_cases(kernels, det4, letterbox_batch(frames[:4], V4_SIZE),
+                                f"yolov4@{V4_SIZE}")
+    say(f"phase 13 K5: {n4} cases (every distinct conv of yolov4@{V4_SIZE} batch 4), worst "
+        f"{worst4['equal']:.4%} bit-equal, {worst4['steps']} step")
+    worst = {k: (min if k == "equal" else max)(worst[k], worst4[k]) for k in worst}
+    del det4
+    # mish's epilogue (expf, log1pf, tanhf an output) against leaky's at
+    # yolov4's 608² stride-2 conv (small K), batch 64, in turns
+    c1 = next(l for l in v4.layers if type(l).__name__ == "ConvSpec" and l.stride == 2)
+    gen = torch.Generator(dev).manual_seed(13)
+    x1 = torch.randn((V4_BATCH, V4_SIZE, V4_SIZE, c1.in_channels), device=dev,
+                     generator=gen).to(torch.bfloat16)
+    w1 = (torch.randn((c1.filters, 3, 3, c1.in_channels), device=dev, generator=gen)
+          * (2.0 / (9 * c1.in_channels)) ** 0.5).to(torch.bfloat16)
+    b1 = torch.randn(c1.filters, device=dev, generator=gen) * 0.5
+    mish_ms, leaky_ms = in_turns(lambda: kernels.conv_bf16(x1, w1, b1, 2, 1, "leaky"),
+                                 lambda: kernels.conv_bf16(x1, w1, b1, 2, 1, "mish"),
+                                 timer=graph_ms)
+    ops1, bytes1 = kernels.conv_bf16_work(tuple(x1.shape), tuple(w1.shape), 2, 1)
+    b_ms, b_by = bound(ops1, bytes1, PEAK_BF16_OPS)
+    mish_leaky = dict(layer=c1.index, mish_ms=mish_ms, leaky_ms=leaky_ms, bound_ms=b_ms,
+                      bound_by=b_by)
+    say(f"phase 13 K5 yolov4 conv {c1.index} 3x3 s2 {V4_SIZE}²->{V4_SIZE // 2}² "
+        f"{c1.in_channels}->{c1.filters} batch {V4_BATCH}: mish {mish_ms:.4f} ms device, leaky "
+        f"{leaky_ms:.4f} ms device, in turns ({mish_ms / leaky_ms - 1:+.1%}); bound "
+        f"{b_ms:.4f} ms ({b_by}); on {card}")
+    del x1, w1
 
     # K5 at batch 128 at every distinct conv shape of yolov3@416 whose A does
     # not come by a 2-D TMA box (im2col, gather and packed routes), and at
@@ -872,7 +893,7 @@ def phase13_k5(kernels, v3, live, frames, dev, card) -> dict:
         del x, xc
     say(f"phase 13 timings: {json.dumps(timed, ensure_ascii=False)}")
     del det, inputs
-    return dict(timed=timed, worst=worst, cases=len(cases))
+    return dict(timed=timed, worst=worst, cases=n3 + n4, mish_leaky=mish_leaky)
 
 
 def phase14_k2_large(kernels, v3, live, frames, dev, rng, card) -> dict:
@@ -1561,6 +1582,572 @@ def phase17_mesh(kernels, v3, live, tiny_spec, tiny_live, frames, dev, card) -> 
     return out
 
 
+def lap(tag: str) -> None:
+    """Mark the start of a phase: its wall time runs to the next mark."""
+    LAPS.append((tag, time.perf_counter()))
+
+
+def phase_seconds() -> dict:
+    """Wall seconds of each phase, from the marks of :func:`lap`."""
+    ends = [t for _, t in LAPS[1:]] + [time.perf_counter()]
+    return {tag: round(end - t, 2) for (tag, t), end in zip(LAPS, ends)}
+
+
+def profile_rows(step, top: int = 8) -> dict:
+    """One call of ``step`` under torch.profiler, after one it records
+    nothing of (without that warm-up, a process that has profiled before
+    lost the window's first kernels): device ms by kernel (the ``top``
+    largest, names cut to 90 characters), the device operations (kernels,
+    memsets, copies) and their total device ms."""
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    done: list = []  # the recorded step's events, read when its trace is ready
+    with torch.profiler.profile(activities=acts, schedule=torch.profiler.schedule(
+            wait=0, warmup=1, active=1), on_trace_ready=lambda p: done.append(
+                p.key_averages())) as prof:
+        for _ in range(2):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    rows, ops = [], 0
+    for evt in done[0]:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.key.startswith("ProfilerStep")):  # the step's own span
+            continue
+        ops += evt.count
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        rows.append((us / 1e3, evt.count, evt.key[:90]))
+    rows.sort(reverse=True)
+    return dict(device_ms=sum(r[0] for r in rows), operations=ops,
+                top=[dict(ms=round(ms, 4), launches=n, kernel=k) for ms, n, k in rows[:top]])
+
+
+def big_cats(fn) -> int:
+    """The ``aten::cat`` calls ``fn`` runs whose output is an activation-
+    sized float tensor, a route's copy (a TorchDispatchMode sees the
+    tensors; the profiler records no shapes for a tensor list)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func is torch.ops.aten.cat.default and out.is_floating_point()
+                    and out.numel() >= 1 << 16):
+                calls.append(tuple(out.shape))
+            return out
+
+    with Watch():
+        fn()
+    return len(calls)
+
+
+def int8_forward_ops(det, xin, what: str) -> dict:
+    """The aten ops of an int8 detector's forward on activation-sized
+    tensors (``torch.profiler`` with record_shapes; the ``cat``s by
+    :func:`big_cats`): it fails on a ``div``,
+    ``round`` or ``clamp`` (K6 quantizes, K3/K4 requantize), on an ``add``
+    that is not an unfused [shortcut], on a [shortcut] after an int8 conv
+    that is not in its epilogue, and on a ``cat`` of a multi-source route
+    whose next layer is an int8 conv (its K6 reads the sources)."""
+    model = det.model
+    layers = det.spec.layers
+    shortcuts = [l.index - 1 for l in layers if type(l).__name__ == "ShortcutSpec"]
+    fused_q = sorted(i for i in model._fused if i in model._qconv_at)
+    if fused_q != sorted(i for i in shortcuts if i in model._qconv_at):
+        fail(f"{what}: the [shortcut]s after int8 convs {shortcuts} are not all fused: "
+             f"{fused_q}")
+    unfused = [i for i in shortcuts if i not in model._fused]
+    with torch.no_grad():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                    record_shapes=True) as prof:
+            model(xin, _native_heads=True)
+    big: dict = {}
+    for evt in prof.events():
+        if any(int(np.prod(sh)) >= 1 << 16 for sh in (evt.input_shapes or [])
+               if sh and all(isinstance(d, int) for d in sh)):
+            big[evt.name] = big.get(evt.name, 0) + 1
+    glue = {k: big.get(f"aten::{k}", 0) for k in ("div", "round", "clamp", "add", "abs",
+                                                   "_to_copy", "copy_")}
+    with torch.no_grad():
+        glue["cat"] = big_cats(lambda: model(xin, _native_heads=True))
+    if glue["div"] or glue["round"] or glue["clamp"] or glue["add"] != len(unfused):
+        fail(f"{what} forward: activation-sized aten ops {glue}; expected no div, round or "
+             f"clamp and {len(unfused)} adds (unfused shortcuts {unfused})")
+    routes = sorted(l.index for l in layers
+                    if type(l).__name__ == "RouteSpec" and len(l.layers) > 1)
+    into_int8 = [r for r in routes if r + 1 in model._qconv_at]
+    if sorted(model._read_through) != into_int8 or glue["cat"] != len(routes) - len(into_int8):
+        fail(f"{what} forward: {glue['cat']} activation-sized torch.cat for the concat routes "
+             f"{routes}; those before an int8 conv {into_int8} must all be read through by its "
+             f"K6 (read through: {sorted(model._read_through)})")
+    return dict(glue=glue, shortcuts=shortcuts, fused_q=fused_q, unfused=unfused, routes=routes,
+                read_through=into_int8)
+
+
+def path_int8_vs_plain(kernels, fn, what: str) -> dict:
+    """Every K3/K4/K6 call of ``fn`` (one int8 forward), each held against
+    its plain version on the same inputs as it returns: the kernel's real
+    inputs and output at the path's shapes.  K6 and an int8 output must be
+    equal (0 int8 steps), an fp32 output within 1e-6 of the larger of |out|
+    and |[shortcut] operand|, as phase 7.  Returns, for each wrapper, its
+    calls, worst error and the configurations it saw (shapes, branches,
+    split groups, activation, [shortcut], strided branches)."""
+    plain = {"int8_gemm": lambda xq, wq, _mma=False, **epi: kernels.gemm_i8_ref(xq, wq, **epi),
+             "int8_conv": lambda xq, wq, stride, pad, _mma=False, **epi: kernels.int8_conv_ref(
+                 xq, wq, stride, pad, **epi),
+             "quantize_i8": kernels.quantize_i8_ref}
+    real = {name: getattr(kernels, name) for name in plain}
+    seen = {name: {"calls": 0, "max_err": 0.0, "configs": set()} for name in plain}
+
+    def spy(name):
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            ref = plain[name](*args, **kw)
+            if name == "quantize_i8":
+                xs = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
+                config = (tuple(xs[0].shape[:-1]), tuple((t.shape[-1], str(t.dtype)[6:],
+                                                          t.is_contiguous()) for t in xs))
+                lim = torch.zeros((), device=out.device)
+            else:
+                sc = kw.get("shortcut")
+                config = (tuple(args[0].shape), tuple(args[1].shape), tuple(args[2:4]),
+                          kw.get("activation"), kw.get("splits"),
+                          None if sc is None else str(sc.dtype)[6:], str(ref.dtype)[6:])
+                lim = (torch.zeros((), device=out.device) if ref.dtype != torch.float32
+                       else 1e-6 * (ref.abs() if sc is None else torch.maximum(
+                           ref.abs(), sc.float().reshape(ref.shape).abs())))
+            if out.dtype != ref.dtype or out.shape != ref.shape:
+                fail(f"{what}: {name} {config} gives {out.dtype} {tuple(out.shape)}, its plain "
+                     f"version {ref.dtype} {tuple(ref.shape)}")
+            gap = abs_diff(out.float(), ref.float())  # int8 widened: its steps
+            if not bool((gap <= lim).all()):
+                fail(f"{what}: {name} {config} disagrees with its plain version on the path's "
+                     f"inputs (max abs err {float(gap.max()):.3g})")
+            s = seen[name]
+            s["calls"] += 1
+            s["max_err"] = max(s["max_err"], float(gap.max()))
+            s["configs"].add(config)
+            return out
+        return call
+
+    try:
+        for name in plain:
+            setattr(kernels, name, spy(name))
+        with torch.no_grad():
+            fn()
+    finally:
+        for name, f in real.items():
+            setattr(kernels, name, f)
+    return seen
+
+
+def worst_match(ref, ours, match_px: float = 8.0) -> float:
+    """The largest box difference (px) of a detection of ``ours`` from its
+    nearest detection of ``ref`` within ``match_px``, over all images."""
+    worst = 0.0
+    for a, b in zip(ref, ours):
+        if len(a) and len(b):
+            d = np.abs(b.boxes[:, None, :] - a.boxes[None, :, :]).max(-1).min(1)
+            d = d[d <= match_px]
+            if d.size:
+                worst = max(worst, float(d.max()))
+    return worst
+
+
+def k5_cases(kernels, det, x, tag: str, all_acts=None, per_step=None) -> tuple:
+    """K5 against its plain version on every distinct conv of bf16
+    detector ``det`` on the letterboxed batch ``x`` (each conv's real
+    input, taken by a stats hook), with its own activation (every
+    activation at the shape ``all_acts``, an (input shape, weight shape)
+    key), and the first conv that takes a [shortcut] with a random
+    operand.  Returns the worst case (equal share, steps, abs error), the
+    number of cases, and each distinct conv's first layer and input;
+    ``per_step`` (a dict) counts the convs of each (input HWC, weight
+    shape, stride) a step."""
+    keys: dict = {}
+
+    def hook(i, t):
+        c = det.model.convs[str(i)]
+        key = (tuple(t.shape), tuple(c.weight.shape), c.stride, c.padding, c.activation)
+        if per_step is not None:
+            shape = (tuple(t.shape[1:]), tuple(c.weight.shape), c.stride)
+            per_step[shape] = per_step.get(shape, 0) + 1
+        if key in keys:
+            return None
+        keys[key] = i
+        return t.to(torch.bfloat16).contiguous()
+
+    with torch.no_grad():
+        _, inputs = det.model(x, collect_conv_in_stats=hook)
+    cases = []
+    for key, i in keys.items():
+        c = det.model.convs[str(i)]
+        acts = ["leaky", "mish", "relu", "logistic", "linear"] if key[:2] == all_acts else [
+            c.activation]
+        for act in acts:
+            cases.append((f"{tag} conv {i} {key[0]} * {key[1]} s{c.stride} {act}", inputs[i], c,
+                          act, None))
+    fused = min(det.model._fused)
+    c = det.model.convs[str(fused)]
+    xf = inputs.get(fused)
+    if xf is None:  # the first conv of its shape is another layer: take that layer's input
+        k = next(k for k, j in keys.items() if k[1] == tuple(c.weight.shape)
+                 and k[2:4] == (c.stride, c.padding))
+        xf = inputs[keys[k]]
+    sc_shape = (xf.shape[0], (xf.shape[1] + 2 * c.padding - c.weight.shape[1]) // c.stride + 1,
+                (xf.shape[2] + 2 * c.padding - c.weight.shape[2]) // c.stride + 1,
+                c.weight.shape[0])
+    sc = torch.randn(sc_shape, device=xf.device).to(torch.bfloat16)
+    cases.append((f"{tag} conv {fused} {c.activation} + shortcut", xf, c, c.activation, sc))
+    worst = {"equal": 1.0, "steps": 0, "abs": 0.0}
+    for name, xc, c, act, sc in cases:
+        before = kernels.LAUNCHES["conv_bf16"]
+        ours = kernels.conv_bf16(xc, c.weight, c.bias, c.stride, c.padding, act, sc)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["conv_bf16"] != before + 1:
+            fail(f"K5 {name}: expected one launch, counts {kernels.LAUNCHES}")
+        ref = kernels.conv_bf16_ref(xc, c.weight, c.bias, c.stride, c.padding, act, sc)
+        equal, steps, err = k5_agreement(ours, ref, xc, c.weight, c.bias, c.stride, c.padding,
+                                         sc)
+        worst = {"equal": min(worst["equal"], equal), "steps": max(worst["steps"], steps),
+                 "abs": max(worst["abs"], err)}
+        if ours.shape != ref.shape or equal < 0.999 or steps > 1:
+            fail(f"K5 {name}: {equal:.5%} bit-equal, {steps} bf16 steps beyond the sum's order "
+                 f"error (gate >= 99.9 %, <= 1)")
+        say(f"phase 13 K5 {name}: ok, {equal:.4%} bit-equal, <= {steps} bf16 step beyond the "
+            f"order error, max abs err {err:.3g}")
+        del ours, ref
+    return worst, len(cases), keys, inputs
+
+
+def phase18_yolov4(kernels, spec, live, info, frames, calib, dev, card) -> dict:
+    """yolov4@608 at full width on its live weights ``live`` (``info``: the
+    equalizer's report): (a) fp32 card vs CPU; (b) bf16 and (c) int8sb at
+    batch 64, ms/batch, launches and profiler rows; (d) bf16 at batch 128
+    bit-equal to its two halves; (e) drift of bf16 and int8sb "auto"
+    against fp32."""
+    from pytorch_yolo_tpu_torch import Detector
+    from pytorch_yolo_tpu_torch.config import MaxPoolSpec
+    from pytorch_yolo_tpu_torch.models.darknet import _maxpool
+    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+    from pytorch_yolo_tpu_torch.utils.drift import detection_drift, measure_mode_drift
+
+    bf16 = dict(dtype=torch.bfloat16, precision="default")
+    out: dict = {}
+    # (a) fp32 "highest", card vs CPU; the zoo entry point equalizes again
+    frames2 = frames[:2].cpu().numpy()
+    det_ref = Detector(spec, live, device=dev, precision="highest")
+    det_load = Detector.load(V4, device=dev, precision="highest", synthetic="live")
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    gpu = det_load.detect_batch(frames2, size=V4_SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
+    torch.cuda.synchronize()
+    launches_a = dict(kernels.LAUNCHES)
+    if not (launches_a["decode_score"] == 1 and launches_a["nms_keep"] == 1):
+        fail(f"yolov4 fp32 detect_batch: expected one K1 and one K2 launch: {launches_a}")
+    same = detection_drift(det_ref.detect_batch(frames2, size=V4_SIZE, conf=0.5, iou=IOU,
+                                                max_det=MAX_DET), gpu)
+    if not (same.ref_dets > 0 and same.set_agreement == 1.0):
+        fail(f'Detector.load("{V4}", synthetic="live") differs from the equalized weights: '
+             f"{same.row()}")
+    del det_load
+    t0 = time.perf_counter()
+    cpu = Detector(spec, live, device="cpu", precision="highest").detect_batch(
+        frames2, size=V4_SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
+    cpu_s = time.perf_counter() - t0
+    st = detection_drift(cpu, gpu)
+    if not (st.ref_dets > 0 and st.set_agreement >= 0.995):
+        fail(f"yolov4@{V4_SIZE} live fp32 card vs CPU: {st.row()}")
+    if not all(np.isfinite(d.boxes).all() and d.boxes.shape[1:] == (4,) for d in gpu):
+        fail("yolov4 fp32 detections are not finite (M, 4) boxes")
+    out["fp32_card_vs_cpu"] = dict(agree=st.set_agreement, worst_px=worst_match(cpu, gpu),
+                                   dets=st.ref_dets)
+    say(f"phase 18a yolov4@{V4_SIZE} live weights: equalizer {info['sweeps']} sweeps (largest "
+        f"|log std| {info['max_log_std']:.4f}) in {info['seconds']:.1f} s on the card; fp32 "
+        f"highest, 2 frames, card vs CPU: set agreement {st.set_agreement:.4f} (>= 0.995), "
+        f"worst matched box {out['fp32_card_vs_cpu']['worst_px']:.4g} px; {st.row()}; the "
+        f"CPU took {cpu_s:.1f} s; launches {launches_a}")
+    del gpu, cpu
+
+    # (b) bf16, batch 64: every conv on K5
+    half = frames[:V4_BATCH]
+    det = Detector(spec, live, device=dev, **bf16)
+
+    def step():
+        return det.raw_result(half, size=V4_SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
+
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    times, res = pipeline_ms(step)
+    launches = dict(kernels.LAUNCHES)
+    steps = len(times) + 3
+    if not (launches["decode_score"] == steps and launches["nms_keep"] == steps):
+        fail(f"yolov4 bf16: expected one K1 and one K2 launch in each of {steps} steps: "
+             f"{launches}")
+    if launches["conv_bf16"] != len(det.model.convs) * steps or len(det.model.convs) != 110:
+        fail(f"yolov4 bf16: expected one K5 launch for each of 110 convs in each of {steps} "
+             f"steps ({len(det.model.convs)} convs): {launches}")
+    check_result(res, "yolov4 bf16", V4_BATCH)
+    bf16_dets = det._trim(res, V4_BATCH)
+    ms = statistics.median(times)
+    prof = profile_rows(step)
+    # the SPP block's three stride-1 maxpools (F.max_pool2d, as the JAX
+    # package computes them outside Pallas) at their input, bf16
+    spp_in = torch.randn((V4_BATCH, 512, V4_SIZE // 32, V4_SIZE // 32), device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    spp = {}
+    for layer in spec.layers:
+        if isinstance(layer, MaxPoolSpec) and layer.stride == 1 and layer.size > 1:
+            pool = lambda layer=layer: _maxpool(spp_in, layer)  # noqa: E731
+            spp[f"layer {layer.index} {layer.size}x{layer.size}"] = graph_ms(pool)
+    out["bf16"] = dict(ms=ms, img_s=V4_BATCH / ms * 1e3, min=min(times), max=max(times),
+                       launches=launches, profile=prof, spp_device_ms=spp)
+    say(f"phase 18b yolov4@{V4_SIZE} bf16 batch {V4_BATCH} pipeline: median {ms:.3f} ms/batch, "
+        f"{V4_BATCH / ms * 1e3:.1f} img/s (min {min(times):.3f}, max {max(times):.3f} ms; "
+        f"{int(res.valid.sum())} kept) on {card}; launches {launches}")
+    say(f"phase 18b yolov4 bf16 step under torch.profiler: {prof['device_ms']:.3f} ms of "
+        f"{prof['operations']} device operations; top kernels {json.dumps(prof['top'])}; SPP "
+        f"maxpools (bf16, {tuple(spp_in.shape)}, device ms) {json.dumps(spp)}")
+    del spp_in
+
+    # (d) bf16 at batch 128 once: bit-equal to the two batch-64 halves
+    torch.cuda.reset_peak_memory_stats(dev)
+    whole = det.raw_result(frames, size=V4_SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    second = det.raw_result(frames[V4_BATCH:], size=V4_SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
+    check_result(whole, "yolov4 bf16 batch 128", 2 * V4_BATCH)
+    differ = [f for f in whole._fields
+              if not torch.equal(getattr(whole, f), torch.cat([getattr(res, f),
+                                                               getattr(second, f)]))]
+    if differ:
+        fail(f"yolov4 bf16 batch {2 * V4_BATCH}: {differ} differ from the two batch-"
+             f"{V4_BATCH} halves")
+    out["batch128"] = dict(bit_equal=True, peak_gb=peak / 1e9)
+    say(f"phase 18d yolov4@{V4_SIZE} bf16 batch {2 * V4_BATCH} once: every field bit-equal to "
+        f"the two batch-{V4_BATCH} halves; layer 0's output "
+        f"{2 * V4_BATCH * V4_SIZE ** 2 * 64 / 1e9:.2f} GB; peak memory {peak / 1e9:.2f} GB")
+    del whole, second, res, det
+
+    # (c) int8sb, batch 64: static scales from 4 frames calibrated at 608
+    t0 = time.perf_counter()
+    det = Detector(spec, live, device=dev, quant="w8a8", quant_calib=calib,
+                   quant_calib_size=V4_SIZE, quant_recipe="none", **bf16)
+    cal_s = time.perf_counter() - t0
+    model = det.model
+
+    def step8():
+        return det.raw_result(half, size=V4_SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
+
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    times8, res8 = pipeline_ms(step8)
+    launches8 = dict(kernels.LAUNCHES)
+    n_int8 = launches8["int8_gemm"] + launches8["int8_conv"]
+    n_quant = len(model.qconvs) - len(model._chains)
+    if launches8["int8_gemm_mma"] or launches8["int8_conv_mma"]:
+        fail(f"yolov4 int8sb: an int8 conv ran on the mma.sync core: {launches8}")
+    if not (launches8["decode_score"] == steps and launches8["nms_keep"] == steps):
+        fail(f"yolov4 int8sb: expected one K1 and one K2 launch a step: {launches8}")
+    if (n_int8 != len(model.qconvs) * steps or launches8["conv_bf16"] != len(model.convs) * steps
+            or launches8["quantize_i8"] != n_quant * steps or launches8["absmax"]):
+        fail(f"yolov4 int8sb: expected {len(model.qconvs)} K3/K4, {len(model.convs)} K5 and "
+             f"{n_quant} K6 launches a step and no absmax: {launches8}")
+    with torch.no_grad():
+        ops8 = int8_forward_ops(det, letterbox_batch(half, V4_SIZE), "yolov4 int8sb")
+    if 113 not in ops8["read_through"]:
+        fail(f"yolov4 int8sb: SPP route 113 is not read through: {ops8['read_through']}")
+    xin = letterbox_batch(half, V4_SIZE)
+    path8 = path_int8_vs_plain(kernels, lambda: model(xin, _native_heads=True), "yolov4 int8sb")
+    del xin
+    spp_k6 = sorted(c for c in path8["quantize_i8"]["configs"] if len(c[1]) == 4)
+    if (path8["int8_gemm"]["calls"] + path8["int8_conv"]["calls"] != len(model.qconvs)
+            or path8["quantize_i8"]["calls"] != n_quant or not spp_k6):
+        calls = {k: v["calls"] for k, v in path8.items()}
+        fail(f"yolov4 int8sb: the forward held against the plain versions made {calls} "
+             f"calls ({len(model.qconvs)} K3/K4, {n_quant} K6 expected), route 113's "
+             f"four-source K6 {spp_k6}")
+    # quant_split_concat: each route source at its own scale, so that conv
+    # 114 sums four split groups (MAX_SPLIT_GROUPS) over route 113's K6
+    det_sg = Detector(spec, live, device=dev, quant="w8a8", quant_calib=calib,
+                      quant_calib_size=V4_SIZE, quant_recipe="none", quant_split_concat=True,
+                      **bf16)
+    xin = letterbox_batch(half, V4_SIZE)
+    path_sg = path_int8_vs_plain(kernels, lambda: det_sg.model(xin, _native_heads=True),
+                                 "yolov4 int8sb split-concat")
+    del xin, det_sg
+    conv114 = sorted(c for c in path_sg["int8_gemm"]["configs"]
+                     if c[4] is not None and len(c[4]) == kernels.MAX_SPLIT_GROUPS)
+    spp_sg = sorted(c for c in path_sg["quantize_i8"]["configs"] if len(c[1]) == 4)
+    if not conv114 or not spp_sg:
+        fail(f"yolov4 int8sb split-concat: no K3 call on four split groups ({conv114}) or no "
+             f"four-source K6 ({spp_sg})")
+    check_result(res8, "yolov4 int8sb", V4_BATCH)
+    drift8 = detection_drift(bf16_dets, det._trim(res8, V4_BATCH))
+    ms8 = statistics.median(times8)
+    prof8 = profile_rows(step8)
+    out["int8sb"] = dict(ms=ms8, img_s=V4_BATCH / ms8 * 1e3, min=min(times8), max=max(times8),
+                         launches=launches8, profile=prof8, int8_convs=len(model.qconvs),
+                         bf16_convs=len(model.convs), chains=len(model._chains),
+                         drift_vs_bf16=drift8.set_agreement, calibrate_s=cal_s,
+                         aten=ops8["glue"],
+                         vs_plain={k: dict(calls=v["calls"], configs=len(v["configs"]),
+                                           max_err=v["max_err"]) for k, v in path8.items()},
+                         split_concat_vs_plain={k: dict(calls=v["calls"], max_err=v["max_err"])
+                                                for k, v in path_sg.items()})
+    say(f"phase 18c yolov4@{V4_SIZE} int8sb (w8a8, bf16 glue, {len(model.qconvs)} int8 convs, "
+        f"{len(model.convs)} on K5, {len(model._chains)} int8-resident links, static scales "
+        f"from 4 frames at {V4_SIZE}) batch {V4_BATCH} pipeline: median {ms8:.3f} ms/batch, "
+        f"{V4_BATCH / ms8 * 1e3:.1f} img/s (min {min(times8):.3f}, max {max(times8):.3f} ms; "
+        f"load+calibrate {cal_s:.1f} s) on {card}; bf16 {ms:.3f} ms/batch; launches {launches8}")
+    say(f"phase 18c yolov4 int8sb forward under torch.profiler: activation-sized aten ops "
+        f"{ops8['glue']} (no div/round/clamp; {len(ops8['fused_q'])} of "
+        f"{len(ops8['shortcuts'])} [shortcut]s in K3/K4's epilogue, the rest in K5's; unfused "
+        f"{ops8['unfused']}); routes {ops8['routes']}, read through by K6 {ops8['read_through']} "
+        f"(route 113: SPP's four sources, one K6 launch)")
+    say(f"phase 18c yolov4 int8sb step under torch.profiler: {prof8['device_ms']:.3f} ms of "
+        f"{prof8['operations']} device operations; top kernels {json.dumps(prof8['top'])}")
+    say(f"phase 18c yolov4 int8sb forward at batch {V4_BATCH}, every K3/K4/K6 call held "
+        f"against its plain version on its real inputs: "
+        + "; ".join(f"{k} {v['calls']} calls, {len(v['configs'])} configurations, max abs err "
+                    f"{v['max_err']:.3g}" for k, v in path8.items())
+        + f" (int8 and K6 equal, fp32 within 1e-6 of max(|out|, |operand|)); route 113 K6 "
+        f"{spp_k6[0]} int8 equal; mish K3/K4 configurations "
+        f"{sum(c[3] == 'mish' for k in ('int8_gemm', 'int8_conv') for c in path8[k]['configs'])}")
+    say(f"phase 18c yolov4 int8sb with quant_split_concat at batch {V4_BATCH}, held the same "
+        f"way: " + "; ".join(f"{k} {v['calls']} calls, max abs err {v['max_err']:.3g}"
+                             for k, v in path_sg.items())
+        + f"; conv 114 K3 on {kernels.MAX_SPLIT_GROUPS} split groups {conv114}; route 113 K6 "
+        f"at four scales {spp_sg[0]}")
+    say(f"phase 18c drift int8sb vs bf16 (live weights, not gated): {drift8.row()}")
+    del det, res8, model
+
+    # (e) live drift of bf16 and int8sb "auto" against fp32, 4 frames
+    img_rng = np.random.default_rng(0)
+    drift_imgs = [img_rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
+    calib_live = [np.random.default_rng(100 + i).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                  for i in range(4)]
+    rows = {}
+    for name, kw in (("bf16", bf16),
+                     ("int8sb auto", dict(quant="w8a8", quant_calib=calib_live,
+                                          quant_calib_size=V4_SIZE, **bf16))):
+        det = Detector(spec, live, device=dev, **kw)
+        st = measure_mode_drift(det_ref, det, drift_imgs, size=V4_SIZE)
+        if st.degenerate:
+            fail(f"yolov4 drift {name}: degenerate regime: {st.row()}")
+        rows[name] = dict(agree=st.set_agreement, box_p99=st.box_p99_px, score_p99=st.score_p99,
+                          recipe=det.quant_state().get("recipe") if det.quant else None)
+        say(f"phase 18e drift yolov4@{V4_SIZE} live, {name} vs fp32 highest: {st.row()}")
+        del det
+    out["drift"] = rows
+    del det_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
+    """yolov4-tiny@416: live fp32 card vs CPU; bf16 and int8sb (the ladder:
+    early skip 0, split routes, the int8 maxpool chain) at batch 128; int8sb
+    card vs the CPU serving the card's quant_state()."""
+    from pytorch_yolo_tpu_torch import Detector
+    from pytorch_yolo_tpu_torch.models.zoo import model_spec
+    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+    from pytorch_yolo_tpu_torch.utils.drift import detection_drift
+    from pytorch_yolo_tpu_torch.weights import (equalize_raw_params, fold_batchnorm,
+                                                random_raw_params)
+
+    spec = model_spec(V4_TINY)
+    bf16 = dict(dtype=torch.bfloat16, precision="default")
+    live = fold_batchnorm(spec, equalize_raw_params(spec, random_raw_params(spec), device=dev))
+    out: dict = {}
+    gpu = Detector(spec, live, device=dev, precision="highest").detect_batch(
+        frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
+    cpu = Detector(spec, live, device="cpu", precision="highest").detect_batch(
+        frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
+    st = detection_drift(cpu, gpu)
+    if not (st.ref_dets > 0 and st.set_agreement == 1.0):
+        fail(f"yolov4-tiny@{SIZE} live fp32 card vs CPU: {st.row()}")
+    out["fp32_card_vs_cpu"] = st.set_agreement
+    say(f"phase 19 yolov4-tiny@{SIZE} live fp32 highest, 4 frames, card vs CPU: {st.row()}; "
+        f"worst matched box {worst_match(cpu, gpu):.4g} px")
+
+    def run(det, what):
+        def step():
+            return det.raw_result(frames, size=SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
+
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        times, res = pipeline_ms(step)
+        launches = dict(kernels.LAUNCHES)
+        steps = len(times) + 3
+        model = det.model
+        mma = sum(1 for q in model.qconvs.values() if q.wq.shape[-1] % 16)  # the RGB stem
+        want = dict(decode_score=steps, nms_keep=steps, conv_bf16=len(model.convs) * steps,
+                    quantize_i8=(len(model.qconvs) - len(model._chains)) * steps, absmax=0)
+        n_int8 = sum(launches[k] for k in ("int8_gemm", "int8_conv", "int8_gemm_mma",
+                                           "int8_conv_mma"))
+        if (any(launches[k] != v for k, v in want.items())
+                or n_int8 != len(model.qconvs) * steps
+                or launches["int8_gemm_mma"] + launches["int8_conv_mma"] != mma * steps):
+            fail(f"yolov4-tiny {what}: launches {launches}, expected {want}, "
+                 f"{len(model.qconvs)} K3/K4 a step ({mma} on mma.sync: C % 16 != 0)")
+        check_result(res, f"yolov4-tiny {what}")
+        ms = statistics.median(times)
+        prof = profile_rows(step)
+        say(f"phase 19 yolov4-tiny@{SIZE} {what} batch {BATCH} pipeline: median {ms:.3f} "
+            f"ms/batch, {BATCH / ms * 1e3:.1f} img/s (min {min(times):.3f}, max "
+            f"{max(times):.3f}) on {card}; launches {launches}; under torch.profiler "
+            f"{prof['device_ms']:.3f} ms of {prof['operations']} device operations, top "
+            f"kernels {json.dumps(prof['top'][:6])}")
+        return dict(ms=ms, img_s=BATCH / ms * 1e3, launches=launches, profile=prof)
+
+    out["bf16"] = run(Detector(spec, live, device=dev, **bf16), "bf16")
+    if out["bf16"]["launches"]["conv_bf16"] != 21 * 23:
+        fail(f"yolov4-tiny bf16: expected 21 K5 launches a step: {out['bf16']['launches']}")
+    det8 = Detector(spec, live, device=dev, quant="w8a8", quant_calib=calib,
+                    quant_calib_size=SIZE, quant_recipe="none", **bf16)
+    out["int8sb"] = run(det8, "int8sb")
+    with torch.no_grad():
+        ops = int8_forward_ops(det8, letterbox_batch(frames, SIZE), "yolov4-tiny int8sb")
+    splits = [l.index for l in spec.layers
+              if type(l).__name__ == "RouteSpec" and l.groups > 1]
+    xin = letterbox_batch(frames, SIZE)
+    path8 = path_int8_vs_plain(kernels, lambda: det8.model(xin, _native_heads=True),
+                               "yolov4-tiny int8sb")
+    del xin
+    calls = {k: v["calls"] for k, v in path8.items()}
+    n_quant = len(det8.model.qconvs) - len(det8.model._chains)
+    if (calls["int8_gemm"] + calls["int8_conv"] != len(det8.model.qconvs)
+            or calls["quantize_i8"] != n_quant):
+        fail(f"yolov4-tiny int8sb: the forward held against the plain versions made {calls} "
+             f"calls ({len(det8.model.qconvs)} K3/K4, {n_quant} K6 expected)")
+    strided = sorted(c for c in path8["quantize_i8"]["configs"] if not all(b[2] for b in c[1]))
+    say(f"phase 19 yolov4-tiny int8sb forward at batch {BATCH}, every K3/K4/K6 call held "
+        f"against its plain version on its real inputs: "
+        + "; ".join(f"{k} {v['calls']} calls, {len(v['configs'])} configurations, max abs err "
+                    f"{v['max_err']:.3g}" for k, v in path8.items())
+        + f"; K6 on strided branches (split routes' channel slices) {strided}")
+    say(f"phase 19 yolov4-tiny int8sb: {len(det8.model.qconvs)} int8 convs, int8-resident "
+        f"links {det8.model._chains}, split routes {splits} (channel slices read in place by "
+        f"K6), concat routes {ops['routes']} read through {ops['read_through']}; "
+        f"activation-sized aten ops {ops['glue']}")
+    state = json.loads(json.dumps(det8.quant_state()))
+    det_cpu = Detector(spec, live, device="cpu", quant="w8a8", quant_act_scales=state["scales"],
+                       quant_skip_layers=frozenset(state["skip"]), **bf16)
+    gpu = det8.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
+    st = detection_drift(det_cpu.detect_batch(frames4, size=SIZE, conf=0.5, iou=IOU,
+                                              max_det=MAX_DET), gpu)
+    if not (st.ref_dets > 0 and st.set_agreement >= 0.995):
+        fail(f"yolov4-tiny int8sb card vs CPU on the card's state: {st.row()}")
+    out["int8sb_card_vs_cpu"] = st.set_agreement
+    say(f"phase 19 yolov4-tiny@{SIZE} live int8sb card vs the CPU serving the card's "
+        f"quant_state(): set agreement {st.set_agreement:.4f} (>= 0.995); {st.row()}")
+    del det8, det_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -1570,6 +2157,7 @@ def main() -> None:
     sys.path.insert(0, root)  # the checkout's package, not an installed one
     from pytorch_yolo_tpu_torch import Detector
     from pytorch_yolo_tpu_torch.config import head_strides, load_model_spec
+    from pytorch_yolo_tpu_torch.models.zoo import model_spec
     from pytorch_yolo_tpu_torch.ops import kernels
     from pytorch_yolo_tpu_torch.ops.decode import head_decode_args
     from pytorch_yolo_tpu_torch.ops.nms import fixpoint_rounds, iou_matrix
@@ -1581,6 +2169,7 @@ def main() -> None:
     rng = np.random.default_rng(0)
 
     # 1. the card
+    lap("1")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "--id=0"], capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip()
@@ -1589,12 +2178,14 @@ def main() -> None:
         f"| {kind} x{torch.cuda.device_count()}")
 
     # 2. build
+    lap("2")
     t0 = time.perf_counter()
     kernels.build(force=True)
     kernels.load_library()
     say(f"phase 2 build: {time.perf_counter() - t0:.2f} s ({kernels.LIBRARY})")
 
     # 3. K1 against its plain version
+    lap("3")
     v3 = load_model_spec(cfg)
     heads_v3 = [(f"yolov3 {SIZE // s}x{SIZE // s}", (8, SIZE // s, SIZE // s, 255), h, s, False)
                 for h, s in zip(v3.yolo_layers, head_strides(v3))]
@@ -1604,6 +2195,11 @@ def main() -> None:
               head_strides(v2)[0], False),
              ("yolov4-p5 4-anchor new_coords 52x52", (8, 52, 52, 340), p5.yolo_layers[0],
               head_strides(p5)[0], True)]
+    v4 = model_spec(V4)
+    heads_v4 = [(f"yolov4 {V4_SIZE // s}x{V4_SIZE // s} scale_x_y {h.scale_x_y}",
+                 (8, V4_SIZE // s, V4_SIZE // s, 255), h, s, False)
+                for h, s in zip(v4.yolo_layers, head_strides(v4))]
+    extra += heads_v4
     k1_err = 0.0
     for name, shape, head, stride, pre in heads_v3 + extra:
         anchors, cls_act, sxy, nc = head_decode_args(head, stride)
@@ -1637,6 +2233,21 @@ def main() -> None:
         fail("K1 bf16 yolov3 heads: rows differ from K1's on their fp32 widening")
     say(f"phase 3 K1 yolov3 bf16 heads, batch 8, one launch: ok, max abs err {err:.3g}, equal "
         "to K1 on the fp32 widening")
+    heads4 = tuple(torch.from_numpy(rng.normal(0, 2, shape).astype(np.float32))
+                   .to(torch.bfloat16).to(dev) for _, shape, _, _, _ in heads_v4)
+    before = dict(kernels.LAUNCHES)
+    ours = kernels.decode_score_all(heads4, v4)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES != {**before, "decode_score": before["decode_score"] + 1}:
+        fail(f"K1 on yolov4's three bf16 heads: expected one launch, counts {kernels.LAUNCHES}")
+    err = max_err(ours, plain_rows(kernels, heads4, v4))
+    if not rows_close(ours, plain_rows(kernels, heads4, v4)):
+        fail(f"K1 bf16 yolov4 heads at {V4_SIZE}: kernel disagrees with its plain version ({err})")
+    k1_err = max(k1_err, err)
+    say(f"phase 3 K1 yolov4@{V4_SIZE} bf16 heads (scale_x_y "
+        f"{[h.scale_x_y for h in v4.yolo_layers]}), batch 8, one launch: ok, max abs err "
+        f"{err:.3g}")
+    del heads4, ours
     odd = torch.zeros(heads_bf16[0].numel() + 1, dtype=torch.bfloat16, device=dev)
     try:
         kernels.decode_score_head(odd[1:].view(heads_bf16[0].shape), v3.yolo_layers[0].anchors,
@@ -1653,6 +2264,7 @@ def main() -> None:
     say("phase 3 K1 class tie: ok (lowest index wins)")
 
     # 4. K2 against its plain version
+    lap("4")
     k2_err = 0.0
     for case, k in (("crowded", MAX_DET), ("chain", MAX_DET), ("chain", 1024), ("crowded", 1024)):
         for class_wise in (True, False):
@@ -1671,6 +2283,7 @@ def main() -> None:
                 f"to the plain version's ({int(ours.sum())} kept of {int(valid.sum())} valid)")
 
     # 5. the slice at fp32 on the card against the CPU
+    lap("5")
     frames4 = rng.integers(0, 256, size=(4, 480, 640, 3), dtype=np.uint8)
     det_gpu = Detector.load(cfg, device=dev, precision="highest")
     det_cpu = Detector.load(cfg, device="cpu", precision="highest")
@@ -1690,6 +2303,7 @@ def main() -> None:
         f"launches {launches5}")
 
     # 6. bench serving configuration: bf16, batch 128, frames on the device
+    lap("6")
     del det_gpu, det_cpu
     det = Detector.load(cfg, device=dev, dtype=torch.bfloat16, precision="default")
     frames = torch.from_numpy(rng.integers(0, 256, size=(BATCH, 480, 640, 3),
@@ -1818,6 +2432,7 @@ def main() -> None:
     del det, heads, heads32, rows, chain, crowd
 
     # 7. K3 and K4 against their plain versions
+    lap("7")
     errs = {"int8_gemm": 0.0, "int8_conv": 0.0}
     probe = [("probe (4096,1024)x(1024,512)", 1, 1, (1, 1, 4096, 1024), 512, "fixed"),
              ("probe (32768,256)x(256,128)", 1, 1, (1, 1, 32768, 256), 128, "fixed")]
@@ -1846,7 +2461,12 @@ def main() -> None:
             ("int8 out O=40", 3, 1, (1, 13, 13, 64), 40, {"sx": "static", "act": "leaky",
                                                           "out": "scalar"}),
             ("byte path C=3", 3, 1, (2, 32, 32, 3), 16, "acc"),
-            ("byte path K=24", 1, 1, (1, 16, 16, 24), 32, {"sx": "static", "act": "leaky"})]
+            ("byte path K=24", 1, 1, (1, 16, 16, 24), 32, {"sx": "static", "act": "leaky"}),
+            # four split groups (MAX_SPLIT_GROUPS): yolov4's conv 114 at 19² (608)
+            ("split x4 19² 2048->512 mish", 1, 1, (8, 19, 19, 2048), 512,
+             {"splits": (512,) * 4, "act": "mish"}),
+            ("split x4 19² 2048->512 leaky int8 out", 1, 1, (8, 19, 19, 2048), 512,
+             {"splits": (512,) * 4, "act": "leaky", "out": "vector"})]
     cases = probe + [(f"{name} {m if isinstance(m, str) else m}", *v3_shapes[name], m)
                      for name in v3_shapes for m in modes[name]] + edge
     cores = {"wgmma": 0, "mma": 0}
@@ -1896,7 +2516,9 @@ def main() -> None:
         ("split (128, 256) leaky, fp32 operand", 1, 1, (2, 26, 26, 384), 128,
          {"splits": (128, 256), "act": "leaky"}, torch.float32),
         ("byte path K=24 mish, bf16 operand", 1, 1, (1, 16, 16, 24), 32,
-         {"sx": "static", "act": "mish"}, torch.bfloat16)]
+         {"sx": "static", "act": "mish"}, torch.bfloat16),
+        ("split x4 19² 2048->512 mish, bf16 operand", 1, 1, (2, 19, 19, 2048), 512,
+         {"splits": (512,) * 4, "act": "mish"}, torch.bfloat16)]
     for name, k, stride, shape, o, mode, sdt in sc_cases:
         xq, wq, st, pad, kw = int8_case(rng, k, stride, shape, o, mode, dev)
         check_shortcut(kernels, errs, "phase 7", name, xq, wq, st, pad, kw, sdt)
@@ -1985,6 +2607,7 @@ def main() -> None:
     # 8. int8 yolov3-tiny at fp32 glue: card against CPU.  Not 1.0: the fp32
     # head convs run in cuDNN on the card and in oneDNN on the CPU, and an
     # ulp of difference before a requant can move an int8 value by one step.
+    lap("8")
     tiny = os.path.join(root, "cfg", "yolov3-tiny.cfg")
     calib = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
     det_gpu = Detector.load(tiny, device=dev, quant="w8a8", quant_calib=calib,
@@ -2013,6 +2636,7 @@ def main() -> None:
     del det_gpu, det_cpu
 
     # 9. int8sb at full width: yolov3@416, w8a8, bf16 glue, batch 128
+    lap("9")
     t0 = time.perf_counter()
     det = Detector.load(cfg, device=dev, dtype=torch.bfloat16, precision="default",
                         quant="w8a8", quant_calib=calib, quant_recipe="none")
@@ -2044,40 +2668,20 @@ def main() -> None:
     if launches9["quantize_i8"] != n_quant * (len(times9) + 3) or launches9["absmax"]:
         fail(f"int8sb: expected {n_quant} K6 launches a step (one a conv input that is not "
              f"int8-resident) and no absmax (static scales): {launches9}")
-    shortcuts = [l.index - 1 for l in det.spec.layers if type(l).__name__ == "ShortcutSpec"]
-    fused_q = sorted(i for i in model9._fused if i in model9._qconv_at)
-    if fused_q != sorted(i for i in shortcuts if i in model9._qconv_at):
-        fail(f"int8sb: the [shortcut]s after int8 convs {shortcuts} are not all fused: "
-             f"{fused_q}")
-    unfused = [i for i in shortcuts if i not in model9._fused]
-    # the forward's aten ops on activation-sized tensors
     with torch.no_grad():
         xin = letterbox_batch(frames, SIZE)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
-                                    record_shapes=True) as prof:
-            model9(xin, _native_heads=True)
-    big: dict = {}
-    for evt in prof.events():
-        if any(int(np.prod(sh)) >= 1 << 16 for sh in (evt.input_shapes or [])
-               if sh and all(isinstance(d, int) for d in sh)):
-            big[evt.name] = big.get(evt.name, 0) + 1
-    glue = {k: big.get(f"aten::{k}", 0) for k in ("div", "round", "clamp", "add", "abs",
-                                                   "_to_copy", "copy_", "cat")}
-    if glue["div"] or glue["round"] or glue["clamp"] or glue["add"] != len(unfused):
-        fail(f"int8sb forward: activation-sized aten ops {glue}; expected no div, round or "
-             f"clamp and {len(unfused)} adds (unfused shortcuts {unfused})")
-    routes = sorted(l.index for l in det.spec.layers
-                    if type(l).__name__ == "RouteSpec" and len(l.layers) > 1)
-    if glue["cat"] or sorted(model9._read_through) != routes:
-        fail(f"int8sb forward: {glue['cat']} activation-sized torch.cat; the concat routes "
-             f"{routes} must all be read through by their conv's K6 (read through: "
-             f"{sorted(model9._read_through)})")
+        ops9f = int8_forward_ops(det, xin, "int8sb")
+    glue, fused_q, shortcuts, unfused, routes = (ops9f[k] for k in (
+        "glue", "fused_q", "shortcuts", "unfused", "routes"))
+    if routes != ops9f["read_through"]:
+        fail(f"int8sb: the concat routes {routes} must all be read through by their conv's K6 "
+             f"(read through: {ops9f['read_through']})")
     say(f"phase 9 int8sb forward under torch.profiler: activation-sized aten ops {glue} "
         f"(no div/round/clamp; {len(fused_q)} of {len(shortcuts)} [shortcut]s in K3/K4's "
         f"epilogue, {len(shortcuts) - len(fused_q) - len(unfused)} in K5's, unfused "
         f"{unfused}); K6 launches {launches9['quantize_i8']} = {n_quant} a step; the concat "
         f"routes {routes} read through (no torch.cat)")
-    del xin, prof
+    del xin
     check_result(res9, "int8sb")
     drift9 = detection_drift(bf16_dets, det._trim(res9, BATCH))
     ms9 = statistics.median(times9)
@@ -2245,6 +2849,7 @@ def main() -> None:
     say(f"phase 9 timings: {json.dumps(timed, ensure_ascii=False)}")
 
     # 10. live weights: the equalizer on the card, fp32 card vs CPU
+    lap("10")
     from pytorch_yolo_tpu_torch.utils.drift import measure_mode_drift
     from pytorch_yolo_tpu_torch.weights import (equalize_raw_params, fold_batchnorm,
                                                 random_raw_params)
@@ -2277,6 +2882,7 @@ def main() -> None:
     del det_load, det_cpu
 
     # 11. drift on the card against fp32 "highest", live weights
+    lap("11")
     img_rng = np.random.default_rng(0)
     drift_imgs = [img_rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
     calib_live = [np.random.default_rng(100 + i).integers(0, 256, (480, 640, 3), dtype=np.uint8)
@@ -2353,6 +2959,7 @@ def main() -> None:
     del det_gpu, det_cpu, det_ref
 
     # 12. A/B at batch 128 on the live weights: the s2d stem, the recipe, K2
+    lap("12")
     def pipeline_median(det_ab) -> float:
         times_ab, _ = pipeline_ms(lambda: det_ab.raw_result(frames, size=SIZE, conf=CONF, iou=IOU,
                                                             max_det=MAX_DET))
@@ -2430,17 +3037,34 @@ def main() -> None:
     del det12, heads, rows
     torch.cuda.empty_cache()
 
-    # 13-15. K5 at every conv shape, K2 past K = 1024, the prepared path
-    k5 = phase13_k5(kernels, v3, live, frames, dev, card)
+    # 13-19. K5 at every conv shape, K2 past K = 1024, the prepared path, the
+    # command line, the mesh, yolov4@608 and yolov4-tiny@416; yolov4's live
+    # weights (the equalizer on the card) serve phases 13 and 18
+    lap("13")
+    t0 = time.perf_counter()
+    info4: dict = {}
+    v4_live = fold_batchnorm(v4, equalize_raw_params(v4, random_raw_params(v4), device=dev,
+                                                     info=info4))
+    info4["seconds"] = time.perf_counter() - t0
+    k5 = phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live)
     torch.cuda.empty_cache()
+    lap("14")
     k2_large = phase14_k2_large(kernels, v3, live, frames, dev, rng, card)
     torch.cuda.empty_cache()
+    lap("15")
     prepared = phase15_prepared(kernels, v3, live, tiny_spec, tiny_live, calib_live, dev, card)
     torch.cuda.empty_cache()
+    lap("16")
     cli16 = phase16_cli(kernels, v3, cfg, live_raw, dev, card, root, ms,
                         rows11["bf16 natural stem"]["agree"])
     torch.cuda.empty_cache()
+    lap("17")
     mesh17 = phase17_mesh(kernels, v3, live, tiny_spec, tiny_live, frames, dev, card)
+    torch.cuda.empty_cache()
+    lap("18")
+    v4_18 = phase18_yolov4(kernels, v4, v4_live, info4, frames, calib, dev, card)
+    lap("19")
+    tiny19 = phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card)
     k5_main = k5["timed"][f"3x3 s1 {SIZE // 8}² 128->256"]
 
     report = {"kernels": [
@@ -2485,7 +3109,8 @@ def main() -> None:
          "device_ms": k5_main["device_ms"],
          "shapes": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms", "bound_ms",
                                              "plan", "launches_per_step")}
-                    for k, v in k5["timed"].items()}},
+                    for k, v in k5["timed"].items()},
+         "yolov4_mish_vs_leaky": k5["mish_leaky"]},
         {"name": "quantize_i8", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/quantize_i8.cu",
          "replaces": "pytorch_yolo_tpu/ops/quant.py:596",
@@ -2506,6 +3131,9 @@ def main() -> None:
     say(f"phase 15 timings: {json.dumps(prepared)}")
     say(f"phase 16 timings: {json.dumps(cli16)}")
     say(f"phase 17 timings: {json.dumps(mesh17)}")
+    say(f"phase 18 timings: {json.dumps(v4_18)}")
+    say(f"phase 19 timings: {json.dumps(tiny19)}")
+    say(f"phase wall seconds: {json.dumps(phase_seconds())}")
     say(json.dumps(report))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -64,6 +64,7 @@ import torch.nn.functional as F
 
 from ..config import ModelSpec, head_strides
 from .decode import head_decode_args
+from .xla_mish import mish_factor
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f) for f in
@@ -538,6 +539,7 @@ MAX_SPLIT_GROUPS = 4  # csrc/int8_igemm.cuh: kMaxGroups
 _ACT = {"linear": 0, "leaky": 1, "mish": 2, "relu": 3, "logistic": 4}
 _EPI_ACC, _EPI_FIXED, _EPI_F32, _EPI_I8 = 0, 1, 2, 3
 _HOMOGENEOUS = ("leaky", "relu", "linear")  # act(y / s) == act(y) / s for s > 0
+_FLT_MIN = torch.finfo(torch.float32).tiny  # fp32's smallest normal
 
 
 class _IgemmArgs(ctypes.Structure):
@@ -561,21 +563,56 @@ def _requant_fixed(acc: torch.Tensor, pre: int, m: int, sh: int) -> torch.Tensor
     return torch.clamp(y, -127, 127).to(torch.int8)
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """fp32 ``a * b + c`` rounded once, as CUDA's ``__fmaf_rn`` and as the
-    JAX package's compiled epilogue (XLA contracts its multiply-adds).  The
-    product is exact in float64 (24 + 24 bits); the float64 sum is rounded
-    to odd (TwoSum gives its error), which makes the final rounding to fp32
-    the correct one (Boldo & Melquiond, "Emulation of FMA and correctly
-    rounded sums", 2008)."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
+def _round_odd(p: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The float64 sum ``s = p + c`` rounded to odd (TwoSum gives its
+    error)."""
     t = s - p
     err = (p - (s - t)) + (c - t)
     even = (s.view(torch.int64) & 1) == 0
     away = torch.where(err > 0, torch.inf, -torch.inf).to(s)
-    return torch.where((err != 0) & even, torch.nextafter(s, away), s).float()
+    return torch.where((err != 0) & even, torch.nextafter(s, away), s)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a * b + c`` rounded once, as CUDA's ``__fmaf_rn`` and as the
+    JAX package's compiled epilogue (XLA contracts its multiply-adds); the
+    arguments broadcast.  The product is exact in float64 (24 + 24 bits),
+    and the float64 sum rounded to odd makes the final rounding to fp32 the
+    correct one (Boldo & Melquiond, "Emulation of FMA and correctly
+    rounded sums", 2008).  Rounding the plain float64 sum instead is wrong
+    only where it landed on a midpoint of the fp32 grid (its 29 low bits
+    10...0), or below fp32's normal range where that grid is coarser: on
+    the CPU only those few elements are rounded to odd (on a device,
+    picking them would wait for it, so every element is)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    if s.device.type != "cpu":
+        return _round_odd(p, c, s).float()
+    out = s.float()
+    redo = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | (s.abs() < _FLT_MIN)
+    if bool(redo.any()):
+        out[redo] = _round_odd(p.expand_as(s)[redo], c.expand_as(s)[redo], s[redo]).float()
+    return out
+
+
+def _mish_factor(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, tanh(softplus(y))) of the epilogue's mish: on the CPU with the
+    bits of the JAX package's compiled epilogue (``ops/xla_mish.py``), on
+    the card with torch's CUDA math, which the kernels share."""
+    if y.device.type == "cpu":
+        return mish_factor(y)
+    return y, torch.tanh(torch.log1p(torch.exp(-torch.abs(y))) + torch.clamp(y, min=0.0))
+
+
+def _activate(y: torch.Tensor, activation: str) -> torch.Tensor:
+    """The epilogue's activation of the fp32 pre-activation ``y``."""
+    from ..models.darknet import apply_activation  # darknet imports this module
+
+    if activation == "mish":
+        y, t = _mish_factor(y)
+        return y * t
+    return apply_activation(y, activation)
 
 
 def _activate_add(y: torch.Tensor, activation: str, s: torch.Tensor) -> torch.Tensor:
@@ -585,13 +622,10 @@ def _activate_add(y: torch.Tensor, activation: str, s: torch.Tensor) -> torch.Te
     epilogue: mish's last product ``y * tanh(sp)`` is contracted into the
     add (one rounding, :func:`fma`); every other activation's result is
     rounded, then added (``tests/test_torch_quantize_i8.py`` pins both)."""
-    from ..models.darknet import apply_activation  # darknet imports this module
-
     s = s.to(torch.float32)
     if activation == "mish":
-        sp = torch.log1p(torch.exp(-torch.abs(y))) + torch.clamp(y, min=0.0)
-        return fma(y, torch.tanh(sp), s)
-    return apply_activation(y, activation) + s
+        return fma(*_mish_factor(y), s)
+    return _activate(y, activation) + s
 
 
 def _serving_epilogue(v: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, activation: str,
@@ -604,17 +638,15 @@ def _serving_epilogue(v: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, activa
     relu and linear divide first and activate after, the others activate at
     the true scale, then divide).  ``sum * deq + bias`` is one fused
     multiply-add, as XLA compiles it."""
-    from ..models.darknet import apply_activation  # darknet imports this module
-
     deq = ws if sx is None or sx.dim() == 1 else sx * ws
     if out_scale is None:
         if shortcut is not None:
             return _activate_add(fma(v, deq, b), activation, shortcut)
-        return apply_activation(fma(v, deq, b), activation)
+        return _activate(fma(v, deq, b), activation)
     if activation in _HOMOGENEOUS:
-        y = apply_activation(fma(v, deq / out_scale, b / out_scale), activation)
+        y = _activate(fma(v, deq / out_scale, b / out_scale), activation)
     else:
-        y = apply_activation(fma(v, deq, b), activation) / out_scale
+        y = _activate(fma(v, deq, b), activation) / out_scale
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
 
 

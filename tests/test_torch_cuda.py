@@ -161,6 +161,9 @@ CONV_BF16_CASES = {
     "3x3 s1 13² 512->1024 leaky": (2, 13, 13, 512, 1024, 3, 1, "leaky", "normal", False),
     "3x3 s2 13²->7² 256->512 leaky": (1, 13, 13, 256, 512, 3, 2, "leaky", "normal", False),
     "3x3 s1 26² 32->64 leaky": (1, 26, 26, 32, 64, 3, 1, "leaky", "normal", False),  # C = 32
+    # yolov4@608's conv 11 (mish, 304² -> 152²) with a [shortcut] operand
+    "3x3 s2 304²->152² 64->128 mish + shortcut": (1, 304, 304, 64, 128, 3, 2, "mish", "normal",
+                                                  True),
 }
 
 
@@ -270,6 +273,9 @@ INT8_CASES = {
     "gemm_int8_out_o72_not_16_vector": (1, 1, (1, 13, 13, 128), 72,
                                         {"sx": "static", "act": "logistic", "out": "vector"}),
     "gemm_k24_byte_path_leaky": (1, 1, (1, 16, 16, 24), 32, {"sx": "static", "act": "leaky"}),
+    # yolov4's conv 114 after the SPP route: four 512-channel split groups
+    "gemm_split4_mish_spp_19sq_2048_512": (1, 1, (1, 19, 19, 2048), 512,
+                                           {"splits": (512, 512, 512, 512), "act": "mish"}),
 }
 
 
@@ -564,6 +570,8 @@ QUANT_CASES = {
     "bf16_c24_vector_ragged_tail": ((3, 5, 5, 24), "bfloat16", "vector", None),
     "fp32_offset_view": ((2, 9, 9, 40), "float32", "scalar", "offset"),
     "bf16_channel_slice": ((2, 13, 13, 32), "bfloat16", "vector", "slice"),
+    # yolov4-tiny's split route 3: the second half of conv 2's 64 channels
+    "fp32_split_route_slice": ((2, 104, 104, 32), "float32", "scalar", "slice"),
 }
 
 
@@ -657,7 +665,7 @@ def test_cuda_quantize_i8_matches_plain(cuda, name):
     x, sx = quantize_case(name, cuda)
     if name == "fp32_offset_view":
         assert x.data_ptr() % 16 and x.is_contiguous()
-    if name == "bf16_channel_slice":
+    if QUANT_CASES[name][3] == "slice":
         assert not x.is_contiguous()
     xs = channel_slices(name, x, sx)
     before = dict(tk.LAUNCHES)
@@ -712,6 +720,8 @@ BRANCH_CASES = {
                                   "dynamic"),
     "3+5+8_fp32_bf16_fp32_split": ((1, 7, 9), ((3, "float32"), (5, "bfloat16"), (8, "float32")),
                                    "split"),
+    # yolov4's SPP route 113: the three maxpools and conv 107, 512 channels each
+    "4x512_fp32_spp_shared": ((2, 19, 19), ((512, "float32"),) * 4, "shared"),
 }
 
 
@@ -721,7 +731,7 @@ def branch_case(name, device="cpu"):
     traps at its branch's scale."""
     lead, branches, mode = BRANCH_CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
-    sxg = np.array([0.0371, 2.0 ** -6, 0.0219][:len(branches)], np.float32)
+    sxg = np.array([0.0371, 2.0 ** -6, 0.0219, 0.0293][:len(branches)], np.float32)
     if mode != "split":
         sxg[:] = sxg[0]
     xs = []

@@ -381,14 +381,18 @@ def test_quantized_conv_matches_jax(name):
 def test_fma_rounds_once():
     """The plain versions' fused multiply-add rounds once, where a float64
     product-and-sum rounded to fp32 would round twice: (1 + 2^-12)^2 is a
-    midpoint between two fp32 values, and 2^-80 decides the side."""
-    a = torch.tensor([1 + 2**-12] * 2 + [3.0, -1.5])
-    b = torch.tensor([1 + 2**-12] * 2 + [0.1, 7.0])
-    c = torch.tensor([2.0**-80, -2.0**-80, 1e-12, 2.0**-60])
+    midpoint between two fp32 values, and 2^-80 decides the side.  The last
+    case lands on a midpoint of fp32's subnormal grid: (2^22 + 1.5) 2^-149
+    less 2^-196, which float64 rounds onto the midpoint."""
+    a = torch.tensor([1 + 2**-12] * 2 + [3.0, -1.5, (1 + 2**-23) * 2.0**-75])
+    b = torch.tensor([1 + 2**-12] * 2 + [0.1, 7.0, (1 - 2**-23) * 2.0**-75])
+    c = torch.tensor([2.0**-80, -2.0**-80, 1e-12, 2.0**-60, 2.0**-127 + 2.0**-149])
     np.testing.assert_array_equal(tk.fma(a, b, c).numpy(),
                                   np.float32([1 + 2**-11 + 2**-23, 1 + 2**-11,
-                                              np.float32(3.0) * np.float32(0.1), -10.5]))
-    assert float((a[:1].double() * b[:1].double() + c[:1].double()).float()) == 1 + 2**-11
+                                              np.float32(3.0) * np.float32(0.1), -10.5,
+                                              2.0**-127 + 2.0**-149]))
+    twice = (a.double() * b.double() + c.double()).float()
+    assert float(twice[0]) == 1 + 2**-11 and float(twice[4]) == 2.0**-127 + 2.0**-148
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +400,7 @@ def test_fma_rounds_once():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["yolov3-tiny", "yolov3"])
+@pytest.mark.parametrize("name", ["yolov3-tiny", "yolov3", "yolov4", "yolov4-tiny"])
 @pytest.mark.parametrize("static", [False, True])
 def test_resident_chains_match_jax(name, static):
     jspec, tspec = specs(name)

@@ -15,13 +15,14 @@ Tolerances, each with its reason:
     and values that a multiply by the reciprocal would round the other way)
     and ``max|x|``: 0 — an IEEE division, round half to even and a clamp,
     or an exact max, on both sides;
-  * the epilogue with a shortcut operand: 0 for leaky, relu and linear.
-    XLA:CPU contracts mish's last product ``y * tanh(sp)`` into the add
-    (one rounding) and rounds every other activation before it; the test
-    pins both on JAX's own pieces with the port's ``fma``, and that is what
-    the kernels and their plain version compute.  The port's mish and
-    logistic themselves differ from XLA's ``exp``/``log1p``/``tanh`` in the
-    last ulps (``tests/test_torch_quant.py``): rtol = atol = 1e-5 there;
+  * the epilogue with a shortcut operand: 0 for leaky, relu, linear and
+    mish.  XLA:CPU contracts mish's last product ``y * tanh(sp)`` into the
+    add (one rounding) and rounds every other activation before it; the
+    test pins both on JAX's own pieces with the port's ``fma``, and that is
+    what the kernels and their plain version compute.  On the CPU the plain
+    version's mish factor is XLA's, bit for bit (``ops/xla_mish.py``); its
+    logistic differs from XLA's ``exp`` in the last ulps: rtol = atol =
+    1e-5 there;
   * the int8 forward of ``SHORTCUT_CFG`` (a leaky and a mish conv before
     its two [shortcut]s, the head conv fp32) with static and dynamic
     scales: the leaky [shortcut]'s output bit-equal to JAX's, the mish
@@ -50,6 +51,7 @@ from pytorch_yolo_tpu_torch.models import darknet as tdn
 from pytorch_yolo_tpu_torch.parallel import sharding as tshard
 from pytorch_yolo_tpu_torch.ops import kernels as tk
 from pytorch_yolo_tpu_torch.ops import quant as tq
+from pytorch_yolo_tpu_torch.ops.xla_mish import mish_factor
 from pytorch_yolo_tpu_torch.weights import params_from_jax
 from tests.test_torch_conv_bf16 import SHORTCUT_CFG
 from tests.test_torch_cuda import plant_division_traps
@@ -218,7 +220,7 @@ def test_shortcut_epilogue_matches_xla_fusion(act, sdtype):
     assert ref.dtype == np.float32  # fp32 + bf16 promotes to fp32, as in torch
     ours = tk._serving_epilogue(torch.from_numpy(acc).float(), torch.tensor(deq), torch.tensor(b),
                                 act, None, None, st).numpy()
-    if act in ("leaky", "relu", "linear"):
+    if act != "logistic":
         np.testing.assert_array_equal(ours, ref)
     else:
         np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
@@ -234,8 +236,9 @@ def test_shortcut_epilogue_matches_xla_fusion(act, sdtype):
         contracted = tk.fma(torch.from_numpy(pre), torch.from_numpy(th), torch.from_numpy(sw))
         np.testing.assert_array_equal(contracted.numpy(), ref)  # one rounding
         assert ((pre * th) + sw != ref).any()  # rounding the product first differs
-        th_t = torch.tanh(torch.log1p(torch.exp(-pre_t.abs())) + pre_t.clamp(min=0.0))
-        np.testing.assert_array_equal(ours, tk.fma(pre_t, th_t, torch.from_numpy(sw)).numpy())
+        y_t, th_t = mish_factor(pre_t)
+        np.testing.assert_array_equal(th_t.numpy(), th)  # XLA's tanh(softplus(y)), bit for bit
+        np.testing.assert_array_equal(ours, tk.fma(y_t, th_t, torch.from_numpy(sw)).numpy())
     else:
         y = np.asarray(jax.jit(lambda a: jdn.apply_activation(a, act))(pre))
         np.testing.assert_array_equal(y + sw, ref)  # rounded, then added

@@ -2,6 +2,7 @@
 """Device time of one serving step of the PyTorch port, by kernel.
 
     python3 tools/profile_torch_step.py --mode int8sb     # or bf16
+    python3 tools/profile_torch_step.py --mode bf16 --model yolov4 --size 608 --batch 64
     python3 tools/profile_torch_step.py --mode int8sb --mma   # K3/K4 on mma.sync
     python3 tools/profile_torch_step.py --kernels --root DIR  # K1-K5 of DIR's port
     python3 tools/profile_torch_step.py --k5 --batch 112 128 136  # K5 and cuDNN alone
@@ -12,8 +13,10 @@ bf16, batch 128, 480x640 uint8 frames on the card, every conv on K5) or
 phase 9 (``int8sb``:
 the same with ``quant="w8a8"``, static scales from 4 frames; ``int8dyn``
 with dynamic scales, one ``absmax`` a conv), 3 warm-up
-steps, then ``--steps`` steps under ``torch.profiler``.  Prints the median
-step time (CUDA events, without the profiler), the device time per step
+steps, then ``--steps`` steps under ``torch.profiler``.  ``--model`` (a
+zoo name or a .cfg path, default yolov3), ``--size`` (default 416) and
+``--batch`` (its first value, default 128) set another step: int8sb then
+calibrates at that size.  Prints the median step time (CUDA events, without the profiler), the device time per step
 summed over all kernels, the share of the step the device was idle, the
 device operations (kernels, memsets, copies) a step, and the kernels
 grouped by what they do, largest first.  ``--mma`` forces K3
@@ -90,7 +93,7 @@ GROUPS = (("k6_tile_kernel<false", "K6 int8 input quantizer"),
           ("div", "divide"), ("round", "round"), ("clamp", "clamp"), ("leaky", "leaky"),
           ("copy", "copies and casts"), ("add", "adds (bias, shortcut)"),
           ("sort", "top-K sort"), ("reduce", "reductions"), ("upsample", "upsample"),
-          ("cat", "concat"))
+          ("max_pool", "maxpool (SPP, the ladder)"), ("cat", "concat"))
 
 
 def group_of(name: str) -> str:
@@ -340,7 +343,11 @@ def main() -> None:
                     help="time K5 and cuDNN alone at each --batch (no detector)")
     ap.add_argument("--k6", action="store_true",
                     help="time K6 alone at K6_CASES (no detector)")
-    ap.add_argument("--batch", type=int, nargs="+", default=[128], help="--k5's batch sizes")
+    ap.add_argument("--batch", type=int, nargs="+", default=[128],
+                    help="--k5's batch sizes; the first is --mode's batch")
+    ap.add_argument("--model", default="yolov3",
+                    help="--mode's model: a zoo name or a .cfg path")
+    ap.add_argument("--size", type=int, default=416, help="--mode's input size")
     ap.add_argument("--shape", action="append", choices=tuple(K5_SHAPES),
                     help="--k5's shapes (default: all of K5_SHAPES)")
     ap.add_argument("--root", default=ROOT, help="the checkout whose port to import")
@@ -374,22 +381,23 @@ def main() -> None:
             setattr(kernels, name, lambda *a, _fn=fn, **kw: _fn(*a, _mma=True, **kw))
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    cfg = os.path.join(ROOT, "cfg", "yolov3.cfg")
     kw = {}
     if args.mode == "int8sb":
         calib = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
-        kw = dict(quant="w8a8", quant_calib=calib, quant_recipe="none")
+        kw = dict(quant="w8a8", quant_calib=calib, quant_recipe="none",
+                  quant_calib_size=args.size)
     elif args.mode == "int8dyn":
         kw = dict(quant="w8a8")
-    det = Detector.load(cfg, device=dev, dtype=torch.bfloat16, precision="default", **kw)
-    frames = torch.from_numpy(rng.integers(0, 256, (128, 480, 640, 3), dtype=np.uint8)).to(dev)
+    det = Detector.load(args.model, device=dev, dtype=torch.bfloat16, precision="default", **kw)
+    batch = args.batch[0]
+    frames = torch.from_numpy(rng.integers(0, 256, (batch, 480, 640, 3), dtype=np.uint8)).to(dev)
 
     if args.kernels:
         print(json.dumps(time_kernels(det, frames, kernels, args.root)))
         return
 
     def step():
-        return det.raw_result(frames, size=416, conf=0.6, iou=0.45, max_det=300)
+        return det.raw_result(frames, size=args.size, conf=0.6, iou=0.45, max_det=300)
 
     for _ in range(3):
         step()
@@ -429,7 +437,8 @@ def main() -> None:
         g[1] += evt.count // args.steps
         total += us / 1e3 / args.steps
     card = torch.cuda.get_device_name(0)
-    print(f"{args.mode}{' (mma.sync)' if args.mma else ''} on {card}: median step "
+    print(f"{args.model}@{args.size} batch {batch} {args.mode}"
+          f"{' (mma.sync)' if args.mma else ''} on {card}: median step "
           f"{statistics.median(times):.3f} ms over 10 (min {min(times):.3f}); device time "
           f"{total:.2f} ms per step of a {window / args.steps:.2f} ms profiled step, idle "
           f"{max(0.0, 1 - total / (window / args.steps)):.1%}; {ops / args.steps:.0f} device "
