@@ -10,9 +10,12 @@ Phases, one line each (a failure in any phase exits non-zero):
      yolov3@416 head shapes (batch 8) plus a [region] softmax head, a
      4-anchor new_coords head and yolov4@608's three scale_x_y heads; the
      three yolov3 heads in bf16 in one launch, equal bit for bit to K1 on
-     their fp32 widening; yolov4's three heads in bf16 in one launch; a
-     misaligned head, which must raise; a class tie (the lowest index
-     wins);
+     their fp32 widening; yolov4's three heads in bf16 in one launch; the
+     three new_coords heads (scale_x_y 2.0, values in [0, 1]) of
+     yolov4-csp@512 and of yolov4x-mish@640, each head alone and each
+     model's three in bf16 in one launch, equal to K1 on their fp32
+     widening; a misaligned head, which must raise; a class tie (the
+     lowest index wins);
   4. K2 NMS keep mask against its plain version, batch 8: K = 300 crowded
      boxes with ties and mixed classes, a chain where each box overlaps
      only its successor (K = 300 and 1024), and crowded boxes at K = 1024
@@ -127,6 +130,12 @@ Phases, one line each (a failure in any phase exits non-zero):
      of outputs bit-equal and the rest within one bf16 step or the order
      error of an fp32 sum (2^-20 of sum |x w| + |b|); K5 with mish against
      leaky at yolov4's 608² stride-2 conv, batch 64, device time in turns;
+     the same gate on every distinct conv of yolov4-csp@512 and
+     yolov4x-mish@640 at batch 4 (the logistic heads and the gather route
+     included), and yolov4x-mish's five distinct gather convs (C % 32 != 0:
+     layers 0, 1, 3, 5 and 10) at its path's batch 64, eager and device
+     time beside the bound, the plain version and cuDNN's bf16
+     ``F.conv2d`` + bf16 bias + mish (eager and device, in turns);
      then K5 at batch 128 at every distinct
      yolov3@416 conv shape whose A does not come by a 2-D TMA box (11:
      the im2col, gather and packed routes) and at the largest 1x1 (52²
@@ -209,15 +218,36 @@ Phases, one line each (a failure in any phase exits non-zero):
      int8 conv (none on ``mma.sync``), one K6 a conv input that is not
      int8-resident, no activation-sized ``div``/``round``/``clamp``, no
      unfused [shortcut] ``add``, and no ``cat`` of a route before an int8
-     conv (SPP's route 113 read through by one four-source K6), the drift
-     against (b) printed; (e) drift of bf16 and int8sb "auto" against fp32
-     on 4 frames: no degenerate row;
+     conv (SPP's route 113 read through by one four-source K6), every
+     K3/K4/K6 call of the forward held against its plain version, and
+     again with ``quant_split_concat`` (conv 114 on four split groups), the
+     drift against (b) printed; (e) drift of bf16 and int8sb "auto" against
+     fp32 on 4 frames: no degenerate row;
  19. yolov4-tiny@416, live weights: fp32 card vs CPU on 4 frames (set
      agreement 1.0); bf16 (21 K5 launches a step) and int8sb (the ladder:
      early skip 0, 19 int8 convs, the RGB stem on ``mma.sync``, the int8
      maxpool chain, split routes read as channel slices by K6) at batch 128:
      ms/batch, launches, profiler rows; int8sb on the card against the CPU
-     serving the card's ``quant_state()`` (>= 0.995).
+     serving the card's ``quant_state()`` (>= 0.995);
+ 20. yolov4-csp@512 (the Scaled-YOLOv4 CSP family: mish over the body,
+     CSP routes, bias-only logistic head convs, new_coords heads), live
+     weights, batch 128: as phase 18, (a) fp32 card vs CPU on 2 frames
+     (>= 0.995); (b) bf16: ms/batch, img/s, one K5 launch for each of the
+     115 convs and one K1 and one K2 a step, the profiler rows, the CSP-SPP
+     block's three maxpools timed alone; (c) int8sb
+     (default skip: 98 int8 convs, 61 on K3 and 37 on K4, none on
+     ``mma.sync``; 17 on K5): the launch counts, no activation-sized
+     ``div``/``round``/``clamp``, no ``cat`` of a route before an int8 conv
+     (the CSP-SPP route 109 read through by one four-source K6), every
+     K3/K4/K6 call of the forward held against its plain version, and
+     again with ``quant_split_concat`` (13 int8 convs on split groups);
+     (e) drift of bf16 and int8sb "auto" against fp32 on 4 frames: no
+     degenerate row;
+ 21. yolov4x-mish@640 (139 convs, 7 on K5's gather route), live weights,
+     batch 64: as phase 20 (int8sb: 120 int8 convs, 72 on K3 and 48 on
+     K4, the CSP-SPP route 133's four 640-channel sources in one K6), plus
+     (d) bf16 at batch 128 once, bit-equal to its two halves (layer 0's
+     output 2.10e9 elements, 97.7 % of 2^31), with the peak memory.
 
 Each phase's wall seconds are printed on one line before the report.
 The line before the second-to-last is the kernels' JSON report (``ms``
@@ -227,11 +257,12 @@ second-to-last is the card as nvidia-smi names it; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
 Synthetic He-init weights (seed 0) in phases 3-9, live (equalized) ones
-in 10-19; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17).
+in 10-21; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -263,6 +294,10 @@ PEAK_HBM_BYTES = 3.35e12
 # phases 18-19: yolov4 at the published cfg's 608 (batch 64: 23.7 M pixels a
 # step, about yolov3@416's batch 128), yolov4-tiny at 416 and batch 128
 V4, V4_SIZE, V4_BATCH, V4_TINY = "yolov4", 608, 64, "yolov4-tiny"
+# phases 20-21: the Scaled-YOLOv4 CSP family at the published sizes, (name,
+# size, batch): yolov4-csp@512 at batch 128 (33.6 M pixels a step),
+# yolov4x-mish@640 at batch 64 (26.2 M)
+CSP = (("yolov4-csp", 512, 128), ("yolov4x-mish", 640, 64))
 LAPS: list = []  # (phase, perf_counter at its start)
 
 
@@ -785,6 +820,78 @@ def k5_agreement(ours, ref, x, w, b, stride, pad, shortcut=None) -> tuple[float,
     equal = float((d == 0).double().mean())
     steps = int(torch.where(gap <= floor, torch.zeros_like(d), d).max())
     return equal, steps, float(gap.max())
+
+
+def k5_csp(kernels, frames, dev, card, csp_live) -> dict:
+    """K5 against its plain version on every distinct conv of yolov4-csp@512
+    and yolov4x-mish@640 at batch 4 (their bf16 live forwards' conv inputs:
+    mish, the logistic heads, the gather convs, a fused shortcut); then
+    each distinct gather conv of yolov4x-mish at its path's batch (64), on
+    those inputs repeated: K5's eager and device time beside its bound, its
+    plain version and cuDNN's bf16 ``F.conv2d`` + bf16 bias + mish, in
+    turns."""
+    from pytorch_yolo_tpu_torch import Detector
+    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+
+    F = torch.nn.functional
+    worst = {"equal": 1.0, "steps": 0, "abs": 0.0}
+    cases, gather = 0, {}
+    for name, size, batch in CSP:
+        spec, live = csp_live[name]
+        det = Detector(spec, live, device=dev, dtype=torch.bfloat16, precision="default")
+        per_step: dict = {}
+        w, n, keys, inputs = k5_cases(kernels, det, letterbox_batch(frames[:4], size),
+                                      f"{name}@{size}", per_step=per_step)
+        worst = {k: (min if k == "equal" else max)(worst[k], w[k]) for k in worst}
+        cases += n
+        plans = {i: kernels.conv_bf16_plan(k[0][3], k[1][0], k[1][1], k[1][2], k[2], k[3])
+                 for k, i in keys.items()}
+        say(f"phase 13 K5: {n} cases (every distinct conv of {name}@{size} batch 4: routes "
+            f"{sorted(collections.Counter(p[0] for p in plans.values()).items())}), worst "
+            f"{w['equal']:.4%} bit-equal, {w['steps']} step")
+        for key, i in keys.items():
+            if plans[i][0] != "gather":
+                continue
+            c = det.model.convs[str(i)]
+            (n4, h, wd, ch), ws = key[0], key[1]
+            ho = (h + 2 * c.padding - ws[1]) // c.stride + 1
+            label = (f"{name} conv {i} {ws[1]}x{ws[2]} s{c.stride} {h}²"
+                     + (f"->{ho}²" if c.stride > 1 else "") + f" {ch}->{ws[0]}")
+            x = inputs[i].repeat(-(-batch // n4), 1, 1, 1)[:batch]
+            k5 = lambda: kernels.conv_bf16(x, c.weight, c.bias, c.stride, c.padding, c.activation)  # noqa: E731
+            ours = k5()
+            ref = kernels.conv_bf16_ref(x, c.weight, c.bias, c.stride, c.padding, c.activation)
+            equal, steps, _ = k5_agreement(ours, ref, x, c.weight, c.bias, c.stride, c.padding)
+            if equal < 0.999 or steps > 1:
+                fail(f"K5 {label} batch {batch}: {equal:.5%} bit-equal, {steps} steps")
+            del ours, ref
+            xc = x.permute(0, 3, 1, 2)
+            wc = c.weight.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            bc = c.bias.to(torch.bfloat16)
+            lib = lambda: F.mish(F.conv2d(xc, wc, bc, stride=c.stride, padding=c.padding),  # noqa: E731
+                                 inplace=True)
+            ms, lib_ms = in_turns(lib, k5)
+            dev_ms, lib_dev_ms = in_turns(lib, k5, timer=graph_ms)
+            plain_ms = time_ms(lambda: kernels.conv_bf16_ref(x, c.weight, c.bias, c.stride,
+                                                             c.padding, c.activation), 3, 1)
+            ops, nbytes = kernels.conv_bf16_work(tuple(x.shape), tuple(c.weight.shape), c.stride,
+                                                 c.padding)
+            bms, by = bound(ops, nbytes, PEAK_BF16_OPS)
+            per = per_step[(key[0][1:], ws, c.stride)]
+            gather[label] = dict(launches_per_step=per, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=bms,
+                                 bound_by=by, equal=equal, plan=list(plans[i]),
+                                 bytes=nbytes, flops=ops)
+            say(f"phase 13 K5 gather {label} batch {batch} ({per} a step, plan "
+                f"{plans[i]}): {ms:.4f} ms eager, {dev_ms:.4f} ms device ({bms / dev_ms:.1%} of "
+                f"its {bms:.4f} ms bound, {by}: {ops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB); "
+                f"cuDNN bf16 conv + bf16 bias + mish {lib_ms:.4f} ms eager, {lib_dev_ms:.4f} ms "
+                f"device, in turns ({lib_dev_ms / dev_ms:.2f}x K5's); plain "
+                f"{plain_ms:.4f} ms; {equal:.4%} bit-equal to the plain version; on {card}")
+            del x, xc
+        del det, inputs
+        torch.cuda.empty_cache()
+    return dict(worst=worst, cases=cases, gather=gather)
 
 
 def phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live) -> dict:
@@ -1825,228 +1932,6 @@ def k5_cases(kernels, det, x, tag: str, all_acts=None, per_step=None) -> tuple:
     return worst, len(cases), keys, inputs
 
 
-def phase18_yolov4(kernels, spec, live, info, frames, calib, dev, card) -> dict:
-    """yolov4@608 at full width on its live weights ``live`` (``info``: the
-    equalizer's report): (a) fp32 card vs CPU; (b) bf16 and (c) int8sb at
-    batch 64, ms/batch, launches and profiler rows; (d) bf16 at batch 128
-    bit-equal to its two halves; (e) drift of bf16 and int8sb "auto"
-    against fp32."""
-    from pytorch_yolo_tpu_torch import Detector
-    from pytorch_yolo_tpu_torch.config import MaxPoolSpec
-    from pytorch_yolo_tpu_torch.models.darknet import _maxpool
-    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
-    from pytorch_yolo_tpu_torch.utils.drift import detection_drift, measure_mode_drift
-
-    bf16 = dict(dtype=torch.bfloat16, precision="default")
-    out: dict = {}
-    # (a) fp32 "highest", card vs CPU; the zoo entry point equalizes again
-    frames2 = frames[:2].cpu().numpy()
-    det_ref = Detector(spec, live, device=dev, precision="highest")
-    det_load = Detector.load(V4, device=dev, precision="highest", synthetic="live")
-    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
-    gpu = det_load.detect_batch(frames2, size=V4_SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
-    torch.cuda.synchronize()
-    launches_a = dict(kernels.LAUNCHES)
-    if not (launches_a["decode_score"] == 1 and launches_a["nms_keep"] == 1):
-        fail(f"yolov4 fp32 detect_batch: expected one K1 and one K2 launch: {launches_a}")
-    same = detection_drift(det_ref.detect_batch(frames2, size=V4_SIZE, conf=0.5, iou=IOU,
-                                                max_det=MAX_DET), gpu)
-    if not (same.ref_dets > 0 and same.set_agreement == 1.0):
-        fail(f'Detector.load("{V4}", synthetic="live") differs from the equalized weights: '
-             f"{same.row()}")
-    del det_load
-    t0 = time.perf_counter()
-    cpu = Detector(spec, live, device="cpu", precision="highest").detect_batch(
-        frames2, size=V4_SIZE, conf=0.5, iou=IOU, max_det=MAX_DET)
-    cpu_s = time.perf_counter() - t0
-    st = detection_drift(cpu, gpu)
-    if not (st.ref_dets > 0 and st.set_agreement >= 0.995):
-        fail(f"yolov4@{V4_SIZE} live fp32 card vs CPU: {st.row()}")
-    if not all(np.isfinite(d.boxes).all() and d.boxes.shape[1:] == (4,) for d in gpu):
-        fail("yolov4 fp32 detections are not finite (M, 4) boxes")
-    out["fp32_card_vs_cpu"] = dict(agree=st.set_agreement, worst_px=worst_match(cpu, gpu),
-                                   dets=st.ref_dets)
-    say(f"phase 18a yolov4@{V4_SIZE} live weights: equalizer {info['sweeps']} sweeps (largest "
-        f"|log std| {info['max_log_std']:.4f}) in {info['seconds']:.1f} s on the card; fp32 "
-        f"highest, 2 frames, card vs CPU: set agreement {st.set_agreement:.4f} (>= 0.995), "
-        f"worst matched box {out['fp32_card_vs_cpu']['worst_px']:.4g} px; {st.row()}; the "
-        f"CPU took {cpu_s:.1f} s; launches {launches_a}")
-    del gpu, cpu
-
-    # (b) bf16, batch 64: every conv on K5
-    half = frames[:V4_BATCH]
-    det = Detector(spec, live, device=dev, **bf16)
-
-    def step():
-        return det.raw_result(half, size=V4_SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
-
-    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
-    times, res = pipeline_ms(step)
-    launches = dict(kernels.LAUNCHES)
-    steps = len(times) + 3
-    if not (launches["decode_score"] == steps and launches["nms_keep"] == steps):
-        fail(f"yolov4 bf16: expected one K1 and one K2 launch in each of {steps} steps: "
-             f"{launches}")
-    if launches["conv_bf16"] != len(det.model.convs) * steps or len(det.model.convs) != 110:
-        fail(f"yolov4 bf16: expected one K5 launch for each of 110 convs in each of {steps} "
-             f"steps ({len(det.model.convs)} convs): {launches}")
-    check_result(res, "yolov4 bf16", V4_BATCH)
-    bf16_dets = det._trim(res, V4_BATCH)
-    ms = statistics.median(times)
-    prof = profile_rows(step)
-    # the SPP block's three stride-1 maxpools (F.max_pool2d, as the JAX
-    # package computes them outside Pallas) at their input, bf16
-    spp_in = torch.randn((V4_BATCH, 512, V4_SIZE // 32, V4_SIZE // 32), device=dev).to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    spp = {}
-    for layer in spec.layers:
-        if isinstance(layer, MaxPoolSpec) and layer.stride == 1 and layer.size > 1:
-            pool = lambda layer=layer: _maxpool(spp_in, layer)  # noqa: E731
-            spp[f"layer {layer.index} {layer.size}x{layer.size}"] = graph_ms(pool)
-    out["bf16"] = dict(ms=ms, img_s=V4_BATCH / ms * 1e3, min=min(times), max=max(times),
-                       launches=launches, profile=prof, spp_device_ms=spp)
-    say(f"phase 18b yolov4@{V4_SIZE} bf16 batch {V4_BATCH} pipeline: median {ms:.3f} ms/batch, "
-        f"{V4_BATCH / ms * 1e3:.1f} img/s (min {min(times):.3f}, max {max(times):.3f} ms; "
-        f"{int(res.valid.sum())} kept) on {card}; launches {launches}")
-    say(f"phase 18b yolov4 bf16 step under torch.profiler: {prof['device_ms']:.3f} ms of "
-        f"{prof['operations']} device operations; top kernels {json.dumps(prof['top'])}; SPP "
-        f"maxpools (bf16, {tuple(spp_in.shape)}, device ms) {json.dumps(spp)}")
-    del spp_in
-
-    # (d) bf16 at batch 128 once: bit-equal to the two batch-64 halves
-    torch.cuda.reset_peak_memory_stats(dev)
-    whole = det.raw_result(frames, size=V4_SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(dev)
-    second = det.raw_result(frames[V4_BATCH:], size=V4_SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
-    check_result(whole, "yolov4 bf16 batch 128", 2 * V4_BATCH)
-    differ = [f for f in whole._fields
-              if not torch.equal(getattr(whole, f), torch.cat([getattr(res, f),
-                                                               getattr(second, f)]))]
-    if differ:
-        fail(f"yolov4 bf16 batch {2 * V4_BATCH}: {differ} differ from the two batch-"
-             f"{V4_BATCH} halves")
-    out["batch128"] = dict(bit_equal=True, peak_gb=peak / 1e9)
-    say(f"phase 18d yolov4@{V4_SIZE} bf16 batch {2 * V4_BATCH} once: every field bit-equal to "
-        f"the two batch-{V4_BATCH} halves; layer 0's output "
-        f"{2 * V4_BATCH * V4_SIZE ** 2 * 64 / 1e9:.2f} GB; peak memory {peak / 1e9:.2f} GB")
-    del whole, second, res, det
-
-    # (c) int8sb, batch 64: static scales from 4 frames calibrated at 608
-    t0 = time.perf_counter()
-    det = Detector(spec, live, device=dev, quant="w8a8", quant_calib=calib,
-                   quant_calib_size=V4_SIZE, quant_recipe="none", **bf16)
-    cal_s = time.perf_counter() - t0
-    model = det.model
-
-    def step8():
-        return det.raw_result(half, size=V4_SIZE, conf=CONF, iou=IOU, max_det=MAX_DET)
-
-    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
-    times8, res8 = pipeline_ms(step8)
-    launches8 = dict(kernels.LAUNCHES)
-    n_int8 = launches8["int8_gemm"] + launches8["int8_conv"]
-    n_quant = len(model.qconvs) - len(model._chains)
-    if launches8["int8_gemm_mma"] or launches8["int8_conv_mma"]:
-        fail(f"yolov4 int8sb: an int8 conv ran on the mma.sync core: {launches8}")
-    if not (launches8["decode_score"] == steps and launches8["nms_keep"] == steps):
-        fail(f"yolov4 int8sb: expected one K1 and one K2 launch a step: {launches8}")
-    if (n_int8 != len(model.qconvs) * steps or launches8["conv_bf16"] != len(model.convs) * steps
-            or launches8["quantize_i8"] != n_quant * steps or launches8["absmax"]):
-        fail(f"yolov4 int8sb: expected {len(model.qconvs)} K3/K4, {len(model.convs)} K5 and "
-             f"{n_quant} K6 launches a step and no absmax: {launches8}")
-    with torch.no_grad():
-        ops8 = int8_forward_ops(det, letterbox_batch(half, V4_SIZE), "yolov4 int8sb")
-    if 113 not in ops8["read_through"]:
-        fail(f"yolov4 int8sb: SPP route 113 is not read through: {ops8['read_through']}")
-    xin = letterbox_batch(half, V4_SIZE)
-    path8 = path_int8_vs_plain(kernels, lambda: model(xin, _native_heads=True), "yolov4 int8sb")
-    del xin
-    spp_k6 = sorted(c for c in path8["quantize_i8"]["configs"] if len(c[1]) == 4)
-    if (path8["int8_gemm"]["calls"] + path8["int8_conv"]["calls"] != len(model.qconvs)
-            or path8["quantize_i8"]["calls"] != n_quant or not spp_k6):
-        calls = {k: v["calls"] for k, v in path8.items()}
-        fail(f"yolov4 int8sb: the forward held against the plain versions made {calls} "
-             f"calls ({len(model.qconvs)} K3/K4, {n_quant} K6 expected), route 113's "
-             f"four-source K6 {spp_k6}")
-    # quant_split_concat: each route source at its own scale, so that conv
-    # 114 sums four split groups (MAX_SPLIT_GROUPS) over route 113's K6
-    det_sg = Detector(spec, live, device=dev, quant="w8a8", quant_calib=calib,
-                      quant_calib_size=V4_SIZE, quant_recipe="none", quant_split_concat=True,
-                      **bf16)
-    xin = letterbox_batch(half, V4_SIZE)
-    path_sg = path_int8_vs_plain(kernels, lambda: det_sg.model(xin, _native_heads=True),
-                                 "yolov4 int8sb split-concat")
-    del xin, det_sg
-    conv114 = sorted(c for c in path_sg["int8_gemm"]["configs"]
-                     if c[4] is not None and len(c[4]) == kernels.MAX_SPLIT_GROUPS)
-    spp_sg = sorted(c for c in path_sg["quantize_i8"]["configs"] if len(c[1]) == 4)
-    if not conv114 or not spp_sg:
-        fail(f"yolov4 int8sb split-concat: no K3 call on four split groups ({conv114}) or no "
-             f"four-source K6 ({spp_sg})")
-    check_result(res8, "yolov4 int8sb", V4_BATCH)
-    drift8 = detection_drift(bf16_dets, det._trim(res8, V4_BATCH))
-    ms8 = statistics.median(times8)
-    prof8 = profile_rows(step8)
-    out["int8sb"] = dict(ms=ms8, img_s=V4_BATCH / ms8 * 1e3, min=min(times8), max=max(times8),
-                         launches=launches8, profile=prof8, int8_convs=len(model.qconvs),
-                         bf16_convs=len(model.convs), chains=len(model._chains),
-                         drift_vs_bf16=drift8.set_agreement, calibrate_s=cal_s,
-                         aten=ops8["glue"],
-                         vs_plain={k: dict(calls=v["calls"], configs=len(v["configs"]),
-                                           max_err=v["max_err"]) for k, v in path8.items()},
-                         split_concat_vs_plain={k: dict(calls=v["calls"], max_err=v["max_err"])
-                                                for k, v in path_sg.items()})
-    say(f"phase 18c yolov4@{V4_SIZE} int8sb (w8a8, bf16 glue, {len(model.qconvs)} int8 convs, "
-        f"{len(model.convs)} on K5, {len(model._chains)} int8-resident links, static scales "
-        f"from 4 frames at {V4_SIZE}) batch {V4_BATCH} pipeline: median {ms8:.3f} ms/batch, "
-        f"{V4_BATCH / ms8 * 1e3:.1f} img/s (min {min(times8):.3f}, max {max(times8):.3f} ms; "
-        f"load+calibrate {cal_s:.1f} s) on {card}; bf16 {ms:.3f} ms/batch; launches {launches8}")
-    say(f"phase 18c yolov4 int8sb forward under torch.profiler: activation-sized aten ops "
-        f"{ops8['glue']} (no div/round/clamp; {len(ops8['fused_q'])} of "
-        f"{len(ops8['shortcuts'])} [shortcut]s in K3/K4's epilogue, the rest in K5's; unfused "
-        f"{ops8['unfused']}); routes {ops8['routes']}, read through by K6 {ops8['read_through']} "
-        f"(route 113: SPP's four sources, one K6 launch)")
-    say(f"phase 18c yolov4 int8sb step under torch.profiler: {prof8['device_ms']:.3f} ms of "
-        f"{prof8['operations']} device operations; top kernels {json.dumps(prof8['top'])}")
-    say(f"phase 18c yolov4 int8sb forward at batch {V4_BATCH}, every K3/K4/K6 call held "
-        f"against its plain version on its real inputs: "
-        + "; ".join(f"{k} {v['calls']} calls, {len(v['configs'])} configurations, max abs err "
-                    f"{v['max_err']:.3g}" for k, v in path8.items())
-        + f" (int8 and K6 equal, fp32 within 1e-6 of max(|out|, |operand|)); route 113 K6 "
-        f"{spp_k6[0]} int8 equal; mish K3/K4 configurations "
-        f"{sum(c[3] == 'mish' for k in ('int8_gemm', 'int8_conv') for c in path8[k]['configs'])}")
-    say(f"phase 18c yolov4 int8sb with quant_split_concat at batch {V4_BATCH}, held the same "
-        f"way: " + "; ".join(f"{k} {v['calls']} calls, max abs err {v['max_err']:.3g}"
-                             for k, v in path_sg.items())
-        + f"; conv 114 K3 on {kernels.MAX_SPLIT_GROUPS} split groups {conv114}; route 113 K6 "
-        f"at four scales {spp_sg[0]}")
-    say(f"phase 18c drift int8sb vs bf16 (live weights, not gated): {drift8.row()}")
-    del det, res8, model
-
-    # (e) live drift of bf16 and int8sb "auto" against fp32, 4 frames
-    img_rng = np.random.default_rng(0)
-    drift_imgs = [img_rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
-    calib_live = [np.random.default_rng(100 + i).integers(0, 256, (480, 640, 3), dtype=np.uint8)
-                  for i in range(4)]
-    rows = {}
-    for name, kw in (("bf16", bf16),
-                     ("int8sb auto", dict(quant="w8a8", quant_calib=calib_live,
-                                          quant_calib_size=V4_SIZE, **bf16))):
-        det = Detector(spec, live, device=dev, **kw)
-        st = measure_mode_drift(det_ref, det, drift_imgs, size=V4_SIZE)
-        if st.degenerate:
-            fail(f"yolov4 drift {name}: degenerate regime: {st.row()}")
-        rows[name] = dict(agree=st.set_agreement, box_p99=st.box_p99_px, score_p99=st.score_p99,
-                          recipe=det.quant_state().get("recipe") if det.quant else None)
-        say(f"phase 18e drift yolov4@{V4_SIZE} live, {name} vs fp32 highest: {st.row()}")
-        del det
-    out["drift"] = rows
-    del det_ref
-    torch.cuda.empty_cache()
-    return out
-
-
 def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
     """yolov4-tiny@416: live fp32 card vs CPU; bf16 and int8sb (the ladder:
     early skip 0, split routes, the int8 maxpool chain) at batch 128; int8sb
@@ -2148,6 +2033,266 @@ def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
     return out
 
 
+# phases 18, 20 and 21: what each model must launch, from its generator's
+# shapes (tests/test_torch_csp.py: test_family_plans): bf16 convs (each on
+# K5), int8sb's K3 and K4 convs (default skip), the SPP route (its four
+# sources read by one K6) and the int8 convs after a concat route, on
+# split groups with quant_split_concat
+MODEL_PLAN = {"yolov4": dict(convs=110, k3=52, k4=37, spp=113, split=8),
+              "yolov4-csp": dict(convs=115, k3=61, k4=37, spp=109, split=13),
+              "yolov4x-mish": dict(convs=139, k3=72, k4=48, spp=133, split=13)}
+
+
+def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, calib, dev,
+                card) -> dict:
+    """An SPP model of the YOLOv4 lineage (:data:`MODEL_PLAN`) at full width
+    on its live weights ``live`` (``info``: the equalizer's report), batch
+    ``batch`` at ``size``: (a) fp32 card vs CPU; (b) bf16 and (c) int8sb,
+    ms/batch, launches and profiler rows, SPP's stride-1 maxpools timed
+    alone, every K3/K4/K6 call held against its plain version; (d) (where
+    two batches fit in ``frames``) bf16 at twice the batch, bit-equal to its
+    halves; (e) drift of bf16 and int8sb "auto" against fp32."""
+    from pytorch_yolo_tpu_torch import Detector
+    from pytorch_yolo_tpu_torch.config import MaxPoolSpec
+    from pytorch_yolo_tpu_torch.models.darknet import _maxpool
+    from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+    from pytorch_yolo_tpu_torch.utils.drift import detection_drift, measure_mode_drift
+
+    plan = MODEL_PLAN[name]
+    tag = f"phase {phase}"
+    bf16 = dict(dtype=torch.bfloat16, precision="default")
+    out: dict = {}
+    # (a) fp32 "highest", card vs CPU; the zoo entry point equalizes again
+    frames2 = frames[:2].cpu().numpy()
+    det_ref = Detector(spec, live, device=dev, precision="highest")
+    det_load = Detector.load(name, device=dev, precision="highest", synthetic="live")
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    gpu = det_load.detect_batch(frames2, size=size, conf=0.5, iou=IOU, max_det=MAX_DET)
+    torch.cuda.synchronize()
+    launches_a = dict(kernels.LAUNCHES)
+    if not (launches_a["decode_score"] == 1 and launches_a["nms_keep"] == 1):
+        fail(f"{name} fp32 detect_batch: expected one K1 and one K2 launch: {launches_a}")
+    same = detection_drift(det_ref.detect_batch(frames2, size=size, conf=0.5, iou=IOU,
+                                                max_det=MAX_DET), gpu)
+    if not (same.ref_dets > 0 and same.set_agreement == 1.0):
+        fail(f'Detector.load("{name}", synthetic="live") differs from the equalized weights: '
+             f"{same.row()}")
+    del det_load
+    t0 = time.perf_counter()
+    cpu = Detector(spec, live, device="cpu", precision="highest").detect_batch(
+        frames2, size=size, conf=0.5, iou=IOU, max_det=MAX_DET)
+    cpu_s = time.perf_counter() - t0
+    st = detection_drift(cpu, gpu)
+    if not (st.ref_dets > 0 and st.set_agreement >= 0.995):
+        fail(f"{name}@{size} live fp32 card vs CPU: {st.row()}")
+    if not all(np.isfinite(d.boxes).all() and d.boxes.shape[1:] == (4,) for d in gpu):
+        fail(f"{name} fp32 detections are not finite (M, 4) boxes")
+    out["fp32_card_vs_cpu"] = dict(agree=st.set_agreement, worst_px=worst_match(cpu, gpu),
+                                   dets=st.ref_dets)
+    say(f"{tag}a {name}@{size} live weights: equalizer {info['sweeps']} sweeps (largest "
+        f"|log std| {info['max_log_std']:.4f}) in {info['seconds']:.1f} s on the card; fp32 "
+        f"highest, 2 frames, card vs CPU: set agreement {st.set_agreement:.4f} (>= 0.995), "
+        f"worst matched box {out['fp32_card_vs_cpu']['worst_px']:.4g} px; {st.row()}; the "
+        f"CPU took {cpu_s:.1f} s; launches {launches_a}")
+    del gpu, cpu
+
+    # (b) bf16: every conv on K5
+    part = frames[:batch]
+    det = Detector(spec, live, device=dev, **bf16)
+
+    def step():
+        return det.raw_result(part, size=size, conf=CONF, iou=IOU, max_det=MAX_DET)
+
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    times, res = pipeline_ms(step)
+    launches = dict(kernels.LAUNCHES)
+    steps = len(times) + 3
+    if not (launches["decode_score"] == steps and launches["nms_keep"] == steps):
+        fail(f"{name} bf16: expected one K1 and one K2 launch in each of {steps} steps: "
+             f"{launches}")
+    if (len(det.model.convs) != plan["convs"]
+            or launches["conv_bf16"] != plan["convs"] * steps):
+        fail(f"{name} bf16: expected one K5 launch for each of {plan['convs']} convs in each of "
+             f"{steps} steps ({len(det.model.convs)} convs): {launches}")
+    check_result(res, f"{name} bf16", batch)
+    bf16_dets = det._trim(res, batch)
+    ms = statistics.median(times)
+    prof = profile_rows(step)
+    # the SPP block's three stride-1 maxpools (F.max_pool2d, as the JAX
+    # package computes them outside Pallas) at their input, bf16
+    spp = {}
+    for layer in spec.layers:
+        if isinstance(layer, MaxPoolSpec) and layer.stride == 1 and layer.size > 1:
+            spp_in = torch.randn((batch, spec.out_channels[layer.index - 1], size // 32,
+                                  size // 32), device=dev).to(torch.bfloat16).contiguous(
+                                      memory_format=torch.channels_last)
+            pool = lambda layer=layer, x=spp_in: _maxpool(x, layer)  # noqa: E731
+            spp[f"layer {layer.index} {layer.size}x{layer.size}"] = graph_ms(pool)
+            del spp_in
+    out["bf16"] = dict(ms=ms, img_s=batch / ms * 1e3, min=min(times), max=max(times),
+                       launches=launches, profile=prof, spp_device_ms=spp)
+    say(f"{tag}b {name}@{size} bf16 batch {batch} pipeline: median {ms:.3f} ms/batch, "
+        f"{batch / ms * 1e3:.1f} img/s (min {min(times):.3f}, max {max(times):.3f} ms; "
+        f"{int(res.valid.sum())} kept) on {card}; launches {launches}")
+    say(f"{tag}b {name} bf16 step under torch.profiler: {prof['device_ms']:.3f} ms of "
+        f"{prof['operations']} device operations; top kernels {json.dumps(prof['top'])}; SPP "
+        f"maxpools (bf16, batch {batch}, {size // 32}², device ms) {json.dumps(spp)}")
+
+    # (d) bf16 at twice the batch once: bit-equal to the two halves
+    if len(frames) >= 2 * batch:
+        torch.cuda.reset_peak_memory_stats(dev)
+        whole = det.raw_result(frames[:2 * batch], size=size, conf=CONF, iou=IOU,
+                               max_det=MAX_DET)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        second = det.raw_result(frames[batch:2 * batch], size=size, conf=CONF, iou=IOU,
+                                max_det=MAX_DET)
+        check_result(whole, f"{name} bf16 batch {2 * batch}", 2 * batch)
+        differ = [f for f in whole._fields
+                  if not torch.equal(getattr(whole, f), torch.cat([getattr(res, f),
+                                                                   getattr(second, f)]))]
+        if differ:
+            fail(f"{name} bf16 batch {2 * batch}: {differ} differ from the two batch-{batch} "
+                 f"halves")
+        c0 = det.model.convs["0"]
+        elems = 2 * batch * size ** 2 * c0.weight.shape[0]
+        out[f"batch{2 * batch}"] = dict(bit_equal=True, peak_gb=peak / 1e9,
+                                        layer0_elements=elems)
+        say(f"{tag}d {name}@{size} bf16 batch {2 * batch} once: every field bit-equal to the "
+            f"two batch-{batch} halves; layer 0's output {elems:,} elements "
+            f"({elems / 2 ** 31:.1%} of 2^31, {2 * elems / 1e9:.2f} GB); peak memory "
+            f"{peak / 1e9:.2f} GB")
+        del whole, second
+    del res, det
+
+    # (c) int8sb: static scales from 4 frames calibrated at the model's size
+    t0 = time.perf_counter()
+    det = Detector(spec, live, device=dev, quant="w8a8", quant_calib=calib,
+                   quant_calib_size=size, quant_recipe="none", **bf16)
+    cal_s = time.perf_counter() - t0
+    model = det.model
+
+    def step8():
+        return det.raw_result(part, size=size, conf=CONF, iou=IOU, max_det=MAX_DET)
+
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    times8, res8 = pipeline_ms(step8)
+    launches8 = dict(kernels.LAUNCHES)
+    n_quant = len(model.qconvs) - len(model._chains)
+    if launches8["int8_gemm_mma"] or launches8["int8_conv_mma"]:
+        fail(f"{name} int8sb: an int8 conv ran on the mma.sync core: {launches8}")
+    if not (launches8["decode_score"] == steps and launches8["nms_keep"] == steps):
+        fail(f"{name} int8sb: expected one K1 and one K2 launch a step: {launches8}")
+    if (launches8["int8_gemm"] != plan["k3"] * steps or launches8["int8_conv"] != plan["k4"] * steps
+            or len(model.qconvs) != plan["k3"] + plan["k4"]
+            or launches8["conv_bf16"] != len(model.convs) * steps
+            or len(model.convs) + len(model.qconvs) != plan["convs"]
+            or launches8["quantize_i8"] != n_quant * steps or launches8["absmax"]):
+        fail(f"{name} int8sb: expected {plan['k3']} K3, {plan['k4']} K4, "
+             f"{plan['convs'] - plan['k3'] - plan['k4']} K5 and {n_quant} K6 launches a step "
+             f"and no absmax ({len(model.qconvs)} int8 convs): {launches8}")
+    with torch.no_grad():
+        ops8 = int8_forward_ops(det, letterbox_batch(part, size), f"{name} int8sb")
+    if plan["spp"] not in ops8["read_through"]:
+        fail(f"{name} int8sb: the CSP-SPP route {plan['spp']} is not read through: "
+             f"{ops8['read_through']}")
+    xin = letterbox_batch(part, size)
+    path8 = path_int8_vs_plain(kernels, lambda: model(xin, _native_heads=True),
+                               f"{name} int8sb")
+    del xin
+    spp_k6 = sorted(c for c in path8["quantize_i8"]["configs"] if len(c[1]) == 4)
+    if (path8["int8_gemm"]["calls"] + path8["int8_conv"]["calls"] != len(model.qconvs)
+            or path8["quantize_i8"]["calls"] != n_quant or not spp_k6):
+        calls = {k: v["calls"] for k, v in path8.items()}
+        fail(f"{name} int8sb: the forward held against the plain versions made {calls} calls "
+             f"({len(model.qconvs)} K3/K4, {n_quant} K6 expected), the CSP-SPP route's "
+             f"four-source K6 {spp_k6}")
+    # quant_split_concat: each concat source at its own scale, the convs
+    # after a concat summing split groups
+    det_sg = Detector(spec, live, device=dev, quant="w8a8", quant_calib=calib,
+                      quant_calib_size=size, quant_recipe="none", quant_split_concat=True,
+                      **bf16)
+    xin = letterbox_batch(part, size)
+    path_sg = path_int8_vs_plain(kernels, lambda: det_sg.model(xin, _native_heads=True),
+                                 f"{name} int8sb split-concat")
+    del xin
+    split_convs = sorted(det_sg.model._split_groups)
+    groups = sorted({c[4] for k in ("int8_gemm", "int8_conv") for c in path_sg[k]["configs"]
+                     if c[4] is not None})
+    n_split = sum(1 for i in det_sg.model._qconv_at
+                  if det_sg.model._scale_args(i)[1] is not None)
+    del det_sg
+    spp_sg = sorted(c for c in path_sg["int8_gemm"]["configs"]
+                    if c[4] is not None and len(c[4]) == kernels.MAX_SPLIT_GROUPS)
+    if n_split != plan["split"] or not spp_sg:
+        fail(f"{name} int8sb split-concat: {n_split} int8 convs on split groups "
+             f"({plan['split']} expected), groups {groups}; conv {plan['spp'] + 1} on "
+             f"{kernels.MAX_SPLIT_GROUPS} split groups: {spp_sg}")
+    check_result(res8, f"{name} int8sb", batch)
+    drift8 = detection_drift(bf16_dets, det._trim(res8, batch))
+    ms8 = statistics.median(times8)
+    prof8 = profile_rows(step8)
+    out["int8sb"] = dict(ms=ms8, img_s=batch / ms8 * 1e3, min=min(times8), max=max(times8),
+                         launches=launches8, profile=prof8, int8_convs=len(model.qconvs),
+                         bf16_convs=len(model.convs), chains=len(model._chains),
+                         drift_vs_bf16=drift8.set_agreement, calibrate_s=cal_s,
+                         aten=ops8["glue"],
+                         vs_plain={k: dict(calls=v["calls"], configs=len(v["configs"]),
+                                           max_err=v["max_err"]) for k, v in path8.items()},
+                         split_concat_vs_plain={k: dict(calls=v["calls"], max_err=v["max_err"])
+                                                for k, v in path_sg.items()},
+                         split_groups=[list(g) for g in groups])
+    say(f"{tag}c {name}@{size} int8sb (w8a8, bf16 glue, {len(model.qconvs)} int8 convs, "
+        f"{len(model.convs)} on K5, {len(model._chains)} int8-resident links, static scales "
+        f"from 4 frames at {size}) batch {batch} pipeline: median {ms8:.3f} ms/batch, "
+        f"{batch / ms8 * 1e3:.1f} img/s (min {min(times8):.3f}, max {max(times8):.3f} ms; "
+        f"load+calibrate {cal_s:.1f} s) on {card}; bf16 {ms:.3f} ms/batch; launches {launches8}")
+    say(f"{tag}c {name} int8sb forward under torch.profiler: activation-sized aten ops "
+        f"{ops8['glue']} (no div/round/clamp; {len(ops8['fused_q'])} of "
+        f"{len(ops8['shortcuts'])} [shortcut]s in K3/K4's epilogue, the rest in K5's; unfused "
+        f"{ops8['unfused']}); routes {ops8['routes']}, read through by K6 {ops8['read_through']} "
+        f"(route {plan['spp']}: the CSP-SPP block's four sources, one K6 launch)")
+    say(f"{tag}c {name} int8sb step under torch.profiler: {prof8['device_ms']:.3f} ms of "
+        f"{prof8['operations']} device operations; top kernels {json.dumps(prof8['top'])}")
+    say(f"{tag}c {name} int8sb forward at batch {batch}, every K3/K4/K6 call held against "
+        f"its plain version on its real inputs: "
+        + "; ".join(f"{k} {v['calls']} calls, {len(v['configs'])} configurations, max abs err "
+                    f"{v['max_err']:.3g}" for k, v in path8.items())
+        + f" (int8 and K6 equal, fp32 within 1e-6 of max(|out|, |operand|)); route "
+        f"{plan['spp']} K6 {spp_k6[0]} int8 equal; K3/K4 input channels "
+        f"{sorted({c[0][-1] for k in ('int8_gemm', 'int8_conv') for c in path8[k]['configs']})}")
+    say(f"{tag}c {name} int8sb with quant_split_concat at batch {batch}, held the same way: "
+        + "; ".join(f"{k} {v['calls']} calls, max abs err {v['max_err']:.3g}"
+                    for k, v in path_sg.items())
+        + f"; {n_split} int8 convs on split groups {groups} (convs after a concat "
+        f"{split_convs}); conv {plan['spp'] + 1} K3 on {kernels.MAX_SPLIT_GROUPS} split groups "
+        f"{spp_sg[0][:5]}")
+    say(f"{tag}c drift int8sb vs bf16 (live weights, not gated): {drift8.row()}")
+    del det, res8, model
+
+    # (e) live drift of bf16 and int8sb "auto" against fp32, 4 frames
+    img_rng = np.random.default_rng(0)
+    drift_imgs = [img_rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
+    calib_live = [np.random.default_rng(100 + i).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                  for i in range(4)]
+    rows = {}
+    for mode, kw in (("bf16", bf16),
+                     ("int8sb auto", dict(quant="w8a8", quant_calib=calib_live,
+                                          quant_calib_size=size, **bf16))):
+        det = Detector(spec, live, device=dev, **kw)
+        st = measure_mode_drift(det_ref, det, drift_imgs, size=size)
+        if st.degenerate:
+            fail(f"{name} drift {mode}: degenerate regime: {st.row()}")
+        rows[mode] = dict(agree=st.set_agreement, box_p99=st.box_p99_px, score_p99=st.score_p99,
+                          recipe=det.quant_state().get("recipe") if det.quant else None)
+        say(f"{tag}e drift {name}@{size} live, {mode} vs fp32 highest: {st.row()}")
+        del det
+    out["drift"] = rows
+    del det_ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -2200,6 +2345,16 @@ def main() -> None:
                  (8, V4_SIZE // s, V4_SIZE // s, 255), h, s, False)
                 for h, s in zip(v4.yolo_layers, head_strides(v4))]
     extra += heads_v4
+    # the Scaled-YOLOv4 CSP family: three new_coords heads (scale_x_y 2.0) a
+    # model, on values a logistic conv already squashed, at the published sizes
+    csp_specs = {name: model_spec(name) for name, _, _ in CSP}
+    heads_csp = {name: [(f"{name} {size // s}x{size // s} new_coords scale_x_y {h.scale_x_y}",
+                         (8, size // s, size // s, 255), h, s, True)
+                        for h, s in zip(csp_specs[name].yolo_layers,
+                                        head_strides(csp_specs[name]))]
+                 for name, size, _ in CSP}
+    for heads in heads_csp.values():
+        extra += heads
     k1_err = 0.0
     for name, shape, head, stride, pre in heads_v3 + extra:
         anchors, cls_act, sxy, nc = head_decode_args(head, stride)
@@ -2248,6 +2403,28 @@ def main() -> None:
         f"{[h.scale_x_y for h in v4.yolo_layers]}), batch 8, one launch: ok, max abs err "
         f"{err:.3g}")
     del heads4, ours
+    for name, size, _ in CSP:
+        hc = tuple(torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+                   .to(torch.bfloat16).to(dev) for _, shape, _, _, _ in heads_csp[name])
+        before = dict(kernels.LAUNCHES)
+        ours = kernels.decode_score_all(hc, csp_specs[name])
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES != {**before, "decode_score": before["decode_score"] + 1}:
+            fail(f"K1 on {name}'s three bf16 heads: expected one launch, counts "
+                 f"{kernels.LAUNCHES}")
+        ref = plain_rows(kernels, hc, csp_specs[name])
+        err = max_err(ours, ref)
+        if not rows_close(ours, ref):
+            fail(f"K1 bf16 {name} new_coords heads at {size}: kernel disagrees with its plain "
+                 f"version ({err})")
+        if not torch.equal(ours, kernels.decode_score_all(tuple(h.float() for h in hc),
+                                                          csp_specs[name])):
+            fail(f"K1 bf16 {name} heads: rows differ from K1's on their fp32 widening")
+        k1_err = max(k1_err, err)
+        say(f"phase 3 K1 {name}@{size} bf16 new_coords heads (grids "
+            f"{[shape[1] for _, shape, _, _, _ in heads_csp[name]]}, scale_x_y 2.0), batch 8, "
+            f"one launch: ok, max abs err {err:.3g}, equal to K1 on the fp32 widening")
+        del hc, ours
     odd = torch.zeros(heads_bf16[0].numel() + 1, dtype=torch.bfloat16, device=dev)
     try:
         kernels.decode_score_head(odd[1:].view(heads_bf16[0].shape), v3.yolo_layers[0].anchors,
@@ -3046,8 +3223,20 @@ def main() -> None:
     v4_live = fold_batchnorm(v4, equalize_raw_params(v4, random_raw_params(v4), device=dev,
                                                      info=info4))
     info4["seconds"] = time.perf_counter() - t0
+    csp_live, csp_info = {}, {}
+    for name, _, _ in CSP:
+        t0 = time.perf_counter()
+        csp_info[name] = {}
+        spec = csp_specs[name]
+        csp_live[name] = (spec, fold_batchnorm(spec, equalize_raw_params(
+            spec, random_raw_params(spec), device=dev, info=csp_info[name])))
+        csp_info[name]["seconds"] = time.perf_counter() - t0
     k5 = phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live)
     torch.cuda.empty_cache()
+    k5c = k5_csp(kernels, frames, dev, card, csp_live)
+    k5["worst"] = {k: (min if k == "equal" else max)(k5["worst"][k], k5c["worst"][k])
+                   for k in k5["worst"]}
+    k5["cases"] += k5c["cases"]
     lap("14")
     k2_large = phase14_k2_large(kernels, v3, live, frames, dev, rng, card)
     torch.cuda.empty_cache()
@@ -3062,9 +3251,15 @@ def main() -> None:
     mesh17 = phase17_mesh(kernels, v3, live, tiny_spec, tiny_live, frames, dev, card)
     torch.cuda.empty_cache()
     lap("18")
-    v4_18 = phase18_yolov4(kernels, v4, v4_live, info4, frames, calib, dev, card)
+    v4_18 = phase_model(kernels, 18, V4, V4_SIZE, V4_BATCH, v4, v4_live, info4, frames, calib,
+                        dev, card)
     lap("19")
     tiny19 = phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card)
+    csp_runs = {}
+    for phase, (name, size, batch) in zip((20, 21), CSP):
+        lap(str(phase))
+        csp_runs[name] = phase_model(kernels, phase, name, size, batch, *csp_live[name],
+                                     csp_info[name], frames, calib, dev, card)
     k5_main = k5["timed"][f"3x3 s1 {SIZE // 8}² 128->256"]
 
     report = {"kernels": [
@@ -3110,7 +3305,12 @@ def main() -> None:
          "shapes": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms", "bound_ms",
                                              "plan", "launches_per_step")}
                     for k, v in k5["timed"].items()},
-         "yolov4_mish_vs_leaky": k5["mish_leaky"]},
+         "yolov4_mish_vs_leaky": k5["mish_leaky"],
+         # yolov4x-mish@640's gather convs at batch 64 (phase 13)
+         "gather": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms",
+                                             "library_device_ms", "bound_ms", "bound_by",
+                                             "launches_per_step")}
+                    for k, v in k5c["gather"].items()}},
         {"name": "quantize_i8", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/quantize_i8.cu",
          "replaces": "pytorch_yolo_tpu/ops/quant.py:596",
@@ -3133,6 +3333,8 @@ def main() -> None:
     say(f"phase 17 timings: {json.dumps(mesh17)}")
     say(f"phase 18 timings: {json.dumps(v4_18)}")
     say(f"phase 19 timings: {json.dumps(tiny19)}")
+    for phase, (name, _, _) in zip((20, 21), CSP):
+        say(f"phase {phase} timings: {json.dumps(csp_runs[name])}")
     say(f"phase wall seconds: {json.dumps(phase_seconds())}")
     say(json.dumps(report))
     say(card)

@@ -64,7 +64,7 @@ import torch.nn.functional as F
 
 from ..config import ModelSpec, head_strides
 from .decode import head_decode_args
-from .xla_mish import mish_factor
+from .xla_mish import logistic, mish_factor
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f) for f in
@@ -612,6 +612,8 @@ def _activate(y: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "mish":
         y, t = _mish_factor(y)
         return y * t
+    if activation == "logistic" and y.device.type == "cpu":  # XLA:CPU's bits, as mish
+        return logistic(y)
     return apply_activation(y, activation)
 
 

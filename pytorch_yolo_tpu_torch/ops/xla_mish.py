@@ -1,4 +1,4 @@
-"""mish as the JAX package's compiled int8 epilogue computes it on the CPU.
+"""mish and logistic as the JAX package's compiled int8 epilogue computes them on the CPU.
 
 XLA:CPU does not call a math library for ``exp``, ``log1p`` and ``tanh``:
 it inlines polynomial approximations (Cephes' ``expf`` and ``logf``, a
@@ -11,9 +11,12 @@ layers carry on.  :func:`mish_factor` repeats XLA's operations in fp32, one
 rounding each, every contracted pair as one :func:`~.kernels.fma`, so the
 plain K3/K4 epilogue on the CPU gives the JAX package's bits on a mish
 model (``tests/test_torch_yolov4.py`` holds them equal on 2^23 inputs and
-through yolov4's int8 forward).  The card's kernels keep the CUDA math
-library's ``expf``/``log1pf``/``tanhf``, as torch's CUDA kernels do, and
-their plain version on the card keeps torch's.
+through yolov4's int8 forward).  :func:`logistic` does the same for
+``jax.nn.sigmoid``, which XLA compiles to ``1 / (exp(-y) + 1)`` on the same
+``exp`` (the Scaled-YOLOv4 head convs; ``tests/test_torch_csp.py``).  The
+card's kernels keep the CUDA math library's ``expf``/``log1pf``/``tanhf``,
+as torch's CUDA kernels do, and their plain version on the card keeps
+torch's.
 """
 
 from __future__ import annotations
@@ -67,15 +70,22 @@ def _flush(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
 
 
-def _exp_neg_abs(y: torch.Tensor) -> torch.Tensor:
-    t = torch.clamp(-y.abs(), _EXP_LO, _EXP_HI)
+def _exp_parts(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """exp(t) of XLA:CPU as (q, 2^n), exp(t) = q 2^n, with ``t`` already
+    clamped to [-87.8, 88.8]: the caller rounds the product (mish) or fuses
+    it into the next add (logistic)."""
     n = torch.clamp(torch.floor(_fma(t, _LOG2E, 0.5)), -127.0, 127.0)
     r = _fma(-n, _LN2_LO, _fma(-n, _LN2_HI, t))
     p = _fma(r, _EXP_P[0], _EXP_P[1])
     for c in _EXP_P[2:] + (0.5,):
         p = _fma(p, r, c)
     two_n = ((torch.nan_to_num(n).to(torch.int32) << 23) + 0x3F800000).view(torch.float32)
-    return _flush((_fma(p, r * r, r) + 1.0) * two_n)
+    return _fma(p, r * r, r) + 1.0, two_n
+
+
+def _exp_neg_abs(y: torch.Tensor) -> torch.Tensor:
+    q, two_n = _exp_parts(torch.clamp(-y.abs(), _EXP_LO, _EXP_HI))
+    return _flush(q * two_n)
 
 
 def _log(u: torch.Tensor) -> torch.Tensor:
@@ -130,3 +140,14 @@ def mish_factor(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     sp[small] = _log1p_small(e[small])
     sp[~small] = _log(e[~small] + 1.0)
     return y, _tanh(sp + torch.clamp(y, min=0.0))
+
+
+def logistic(y: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` of fp32 ``y`` with XLA:CPU's bits: ``1 / (q 2^n +
+    1)`` with exp(-y) = q 2^n (:func:`_exp_parts`), the product fused into
+    the add, subnormal inputs and outputs flushed.  torch's ``sigmoid``
+    differs by up to 3 ulps on about 0.4 % of inputs and keeps the
+    subnormal outputs that XLA:CPU flushes."""
+    q, two_n = _exp_parts(torch.clamp(-_flush(y), _EXP_LO, _EXP_HI))
+    out = _flush(1.0 / _fma(q, two_n, 1.0))
+    return torch.where(torch.isnan(y), y, out)

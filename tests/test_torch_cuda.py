@@ -167,10 +167,39 @@ CONV_BF16_CASES = {
 }
 
 
-def conv_bf16_input(name, device="cpu"):
-    """(x, w, b, stride, pad, activation, shortcut) of a K5 case: NHWC bf16
-    x ~ N(0, 1), (O, KH, KW, C) bf16 He-scaled weights, fp32 bias."""
-    n, h, w_, c, o, k, stride, act, bias, shortcut = CONV_BF16_CASES[name]
+# K5 at the Scaled-YOLOv4 convs that no earlier model ran, at batch 1 and
+# the published input sizes: yolov4x-mish@640's gather convs (C % 32 != 0:
+# the 3->40 stem, C = 40 and 80; 40 outputs on a 64-column tile), its 1x1
+# convs at C = 80 (A by TMA, K past C zero-filled), and the bias-only
+# logistic head convs of both models (1x1, A by TMA).  Same layout as
+# CONV_BF16_CASES.
+CSP_CONV_CASES = {
+    "x-mish conv 0 3x3 s1 640² 3->40 mish": (1, 640, 640, 3, 40, 3, 1, "mish", "normal", False),
+    "x-mish conv 1 3x3 s2 640²->320² 40->80 mish": (1, 640, 640, 40, 80, 3, 2, "mish", "normal",
+                                                    False),
+    "x-mish conv 2 1x1 320² 80->40 mish": (1, 320, 320, 80, 40, 1, 1, "mish", "normal", False),
+    "x-mish conv 3 3x3 s1 320² 40->80 mish + shortcut": (1, 320, 320, 40, 80, 3, 1, "mish",
+                                                         "normal", True),
+    "x-mish conv 5 3x3 s2 320²->160² 80->160 mish": (1, 320, 320, 80, 160, 3, 2, "mish",
+                                                     "normal", False),
+    "x-mish conv 10 3x3 s1 160² 80->80 mish + shortcut": (1, 160, 160, 80, 80, 3, 1, "mish",
+                                                          "normal", True),
+    "csp head 1x1 64² 256->255 logistic": (1, 64, 64, 256, 255, 1, 1, "logistic", "normal",
+                                           False),
+    "x-mish head 1x1 80² 320->255 logistic": (1, 80, 80, 320, 255, 1, 1, "logistic", "normal",
+                                              False),
+    "x-mish head 1x1 20² 1280->255 logistic": (1, 20, 20, 1280, 255, 1, 1, "logistic", "normal",
+                                               False),
+}
+
+
+def conv_bf16_input(name, device="cpu", case=None):
+    """(x, w, b, stride, pad, activation, shortcut) of a K5 case (an entry of
+    CONV_BF16_CASES or CSP_CONV_CASES, or ``case``, such an entry's tuple):
+    NHWC bf16 x ~ N(0, 1), (O, KH, KW, C) bf16 He-scaled weights, fp32
+    bias."""
+    n, h, w_, c, o, k, stride, act, bias, shortcut = (
+        case or CONV_BF16_CASES.get(name) or CSP_CONV_CASES[name])
     rng = np.random.default_rng(sum(map(ord, name)))
     bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
     x = bf(rng.normal(0, 1, (n, h, w_, c)))
@@ -276,6 +305,17 @@ INT8_CASES = {
     # yolov4's conv 114 after the SPP route: four 512-channel split groups
     "gemm_split4_mish_spp_19sq_2048_512": (1, 1, (1, 19, 19, 2048), 512,
                                            {"splits": (512, 512, 512, 512), "act": "mish"}),
+    # yolov4x-mish@640's stride-8 stage, C = 160 (160 % 64 = 32), and its
+    # CSP concats there: two 160-channel split groups
+    "gemm_c160_static_mish_80sq": (1, 1, (2, 80, 80, 160), 160, {"sx": "static", "act": "mish"}),
+    "conv3x3_c160_int8_out_mish_80sq": (3, 1, (1, 80, 80, 160), 160,
+                                        {"sx": "static", "act": "mish", "out": "scalar"}),
+    "conv3x3_s2_c160_dynamic_mish": (3, 2, (1, 80, 80, 160), 320,
+                                     {"sx": "dynamic", "act": "mish"}),
+    "gemm_split2_160_160_mish_80sq": (1, 1, (2, 80, 80, 320), 160,
+                                      {"splits": (160, 160), "act": "mish"}),
+    "gemm_split2_160_160_int8_out": (1, 1, (1, 80, 80, 320), 160,
+                                     {"splits": (160, 160), "act": "mish", "out": "vector"}),
 }
 
 
@@ -722,6 +762,10 @@ BRANCH_CASES = {
                                    "split"),
     # yolov4's SPP route 113: the three maxpools and conv 107, 512 channels each
     "4x512_fp32_spp_shared": ((2, 19, 19), ((512, "float32"),) * 4, "shared"),
+    # yolov4x-mish@640's CSP-SPP route 133: four 640-channel sources, 2,560
+    # channels in one launch
+    "4x640_bf16_spp_shared": ((2, 20, 20), ((640, "bfloat16"),) * 4, "shared"),
+    "4x640_fp32_spp_split": ((2, 20, 20), ((640, "float32"),) * 4, "split"),
 }
 
 
@@ -1007,6 +1051,52 @@ def test_cuda_conv_bf16_matches_plain(cuda, name):
     assert ours.dtype == torch.bfloat16 and ours.shape == ref.shape
     equal, ulps = bf16_agreement(ours, ref, conv_bf16_floor(x, w, b, stride, pad, sc))
     assert equal >= 0.999 and ulps <= 1, (equal, ulps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CSP_CONV_CASES))
+def test_cuda_conv_bf16_csp_shapes(cuda, name):
+    """K5 at the Scaled-YOLOv4 family's new convs (yolov4x-mish's gather
+    convs at 640² and 320², its C = 80 1x1 conv, the logistic heads of
+    both models), each on the route ``conv_bf16_plan`` names, against its
+    plain version: the gate of :func:`test_cuda_conv_bf16_matches_plain`."""
+    x, w, b, stride, pad, act, sc = conv_bf16_input(name, cuda)
+    route = tk.conv_bf16_plan(x.shape[-1], w.shape[0], w.shape[1], w.shape[2], stride, pad)[0]
+    assert route == ("tma" if w.shape[1] == 1 else "gather")
+    before = tk.LAUNCHES["conv_bf16"]
+    ours = tk.conv_bf16(x, w, b, stride, pad, act, sc)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["conv_bf16"] == before + 1
+    ref = tk.conv_bf16_ref(x, w, b, stride, pad, act, sc)
+    assert ours.dtype == torch.bfloat16 and ours.shape == ref.shape
+    equal, ulps = bf16_agreement(ours, ref, conv_bf16_floor(x, w, b, stride, pad, sc))
+    assert equal >= 0.999 and ulps <= 1, (equal, ulps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size", [("yolov4-csp", 512), ("yolov4x-mish", 640)])
+def test_cuda_decode_new_coords_heads_one_launch(cuda, name, size):
+    """K1 on a Scaled-YOLOv4 model's three new_coords heads (scale_x_y 2.0,
+    values a logistic conv squashed) at its published size, bf16, in one
+    launch: rows close to the plain version's and equal to K1's on their
+    fp32 widening."""
+    from pytorch_yolo_tpu_torch.config import head_strides
+    from pytorch_yolo_tpu_torch.models.zoo import model_spec
+
+    spec = model_spec(name)
+    rng = np.random.default_rng(size)
+    heads = tuple(torch.from_numpy(rng.uniform(0, 1, (2, size // s, size // s, 255))
+                                   .astype(np.float32)).to(torch.bfloat16).to(cuda)
+                  for s in head_strides(spec))
+    before = dict(tk.LAUNCHES)
+    ours = tk.decode_score_all(heads, spec)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {**before, "decode_score": before["decode_score"] + 1}
+    assert ours.shape == (2, 3 * sum((size // s) ** 2 for s in (8, 16, 32)), 8)
+    wide = tuple(h.float() for h in heads)
+    assert torch.equal(ours, tk.decode_score_all(wide, spec))
+    ref = tk.decode_score_all(tuple(h.cpu() for h in wide), spec)  # the plain version
+    assert_rows_close(ours.cpu(), ref)
 
 
 @pytest.mark.cuda

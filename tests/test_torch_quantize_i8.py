@@ -15,14 +15,13 @@ Tolerances, each with its reason:
     and values that a multiply by the reciprocal would round the other way)
     and ``max|x|``: 0 — an IEEE division, round half to even and a clamp,
     or an exact max, on both sides;
-  * the epilogue with a shortcut operand: 0 for leaky, relu, linear and
-    mish.  XLA:CPU contracts mish's last product ``y * tanh(sp)`` into the
-    add (one rounding) and rounds every other activation before it; the
-    test pins both on JAX's own pieces with the port's ``fma``, and that is
-    what the kernels and their plain version compute.  On the CPU the plain
-    version's mish factor is XLA's, bit for bit (``ops/xla_mish.py``); its
-    logistic differs from XLA's ``exp`` in the last ulps: rtol = atol =
-    1e-5 there;
+  * the epilogue with a shortcut operand: 0 for every activation.
+    XLA:CPU contracts mish's last product ``y * tanh(sp)`` into the add
+    (one rounding) and rounds every other activation before it; the test
+    pins both on JAX's own pieces with the port's ``fma``, and that is what
+    the kernels and their plain version compute.  On the CPU the plain
+    version's mish factor and logistic are XLA's, bit for bit
+    (``ops/xla_mish.py``);
   * the int8 forward of ``SHORTCUT_CFG`` (a leaky and a mish conv before
     its two [shortcut]s, the head conv fp32) with static and dynamic
     scales: the leaky [shortcut]'s output bit-equal to JAX's, the mish
@@ -220,10 +219,7 @@ def test_shortcut_epilogue_matches_xla_fusion(act, sdtype):
     assert ref.dtype == np.float32  # fp32 + bf16 promotes to fp32, as in torch
     ours = tk._serving_epilogue(torch.from_numpy(acc).float(), torch.tensor(deq), torch.tensor(b),
                                 act, None, None, st).numpy()
-    if act != "logistic":
-        np.testing.assert_array_equal(ours, ref)
-    else:
-        np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(ours, ref)  # logistic too: XLA's sigmoid on the CPU
     # each side's pieces: the pre-activation, and the activation (or mish's
     # tanh); the port's pre-activation equals XLA's bit for bit
     pre = np.array(jax.jit(lambda a: a.astype(jnp.float32) * deq + b)(acc))
@@ -242,7 +238,8 @@ def test_shortcut_epilogue_matches_xla_fusion(act, sdtype):
     else:
         y = np.asarray(jax.jit(lambda a: jdn.apply_activation(a, act))(pre))
         np.testing.assert_array_equal(y + sw, ref)  # rounded, then added
-        y_t = tdn.apply_activation(pre_t.clone(), act)
+        y_t = tk._activate(pre_t.clone(), act)  # logistic: ops/xla_mish.py's, XLA's bits
+        np.testing.assert_array_equal(y_t.numpy(), y)
         np.testing.assert_array_equal(ours, (y_t + torch.from_numpy(sw)).numpy())
 
 
