@@ -14,8 +14,10 @@ Phases, one line each (a failure in any phase exits non-zero):
      three new_coords heads (scale_x_y 2.0, values in [0, 1]) of
      yolov4-csp@512 and of yolov4x-mish@640, each head alone and each
      model's three in bf16 in one launch, equal to K1 on their fp32
-     widening; a misaligned head, which must raise; a class tie (the
-     lowest index wins);
+     widening; the same for the three, four and five 4-anchor new_coords
+     heads of yolov4-p5@896, yolov4-p6@1280 and yolov4-p7@1536 (p7: grids
+     192² to 12², 196,416 rows a frame); a misaligned head, which must
+     raise; a class tie (the lowest index wins);
   4. K2 NMS keep mask against its plain version, batch 8: K = 300 crowded
      boxes with ties and mixed classes, a chain where each box overlaps
      only its successor (K = 300 and 1024), and crowded boxes at K = 1024
@@ -130,12 +132,14 @@ Phases, one line each (a failure in any phase exits non-zero):
      of outputs bit-equal and the rest within one bf16 step or the order
      error of an fp32 sum (2^-20 of sum |x w| + |b|); K5 with mish against
      leaky at yolov4's 608² stride-2 conv, batch 64, device time in turns;
-     the same gate on every distinct conv of yolov4-csp@512 and
-     yolov4x-mish@640 at batch 4 (the logistic heads and the gather route
-     included), and yolov4x-mish's five distinct gather convs (C % 32 != 0:
-     layers 0, 1, 3, 5 and 10) at its path's batch 64, eager and device
-     time beside the bound, the plain version and cuDNN's bf16
-     ``F.conv2d`` + bf16 bias + mish (eager and device, in turns);
+     the same gate on every distinct conv of yolov4-csp@512,
+     yolov4x-mish@640, yolov4-p5@896, yolov4-p6@1280 and yolov4-p7@1536 at
+     batch 4 (the logistic heads and the gather route included), and the
+     five distinct gather convs (C % 32 != 0) of yolov4x-mish (layers 0,
+     1, 3, 5 and 10) at its path's batch 64 and of yolov4-p7 (layers 0,
+     1, 6, 11 and 16, 19, 22) at its batch 8, eager and device time beside
+     the bound, the plain version and cuDNN's bf16 ``F.conv2d`` + bf16
+     bias + mish (eager and device, in turns);
      then K5 at batch 128 at every distinct
      yolov3@416 conv shape whose A does not come by a 2-D TMA box (11:
      the im2col, gather and packed routes) and at the largest 1x1 (52²
@@ -247,7 +251,20 @@ Phases, one line each (a failure in any phase exits non-zero):
      batch 64: as phase 20 (int8sb: 120 int8 convs, 72 on K3 and 48 on
      K4, the CSP-SPP route 133's four 640-channel sources in one K6), plus
      (d) bf16 at batch 128 once, bit-equal to its two halves (layer 0's
-     output 2.10e9 elements, 97.7 % of 2^31), with the peak memory.
+     output 2.10e9 elements, 97.7 % of 2^31), with the peak memory;
+ 22. yolov4-p5@896 (the Scaled-YOLOv4 large family: 4-anchor new_coords
+     heads, CSP stages and BottleneckCSP2 necks), live weights, batch 32:
+     as phase 21 (bf16: 163 K5 a step; int8sb: 82 K3 + 58 K4, 23 on K5;
+     the CSP-SPP route 169 in one K6; 13 convs on split groups; (d) at
+     batch 64);
+ 23. yolov4-p6@1280 (a stride-64 head, early skip 16), batch 16: as 22
+     (205 K5; 81 K3 + 53 K4, 71 on K5; route 197; 15 split convs; (d) at
+     32);
+ 24. yolov4-p7@1536 (a stride-128 head, early skip 32, 7 convs on K5's
+     gather route), batch 8: as 22 (247 K5; 73 K3 + 45 K4, 129 on K5; route
+     225's four 640-channel sources; 15 split convs; (d) at 16).
+     Phases 18 and 20-24 time SPP's pools on the grid at their stride (32
+     up to yolov4x-mish, 64 on p6, 128 on p7).
 
 Each phase's wall seconds are printed on one line before the report.
 The line before the second-to-last is the kernels' JSON report (``ms``
@@ -257,7 +274,7 @@ second-to-last is the card as nvidia-smi names it; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
 Synthetic He-init weights (seed 0) in phases 3-9, live (equalized) ones
-in 10-21; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17).
+in 10-24; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17).
 """
 
 from __future__ import annotations
@@ -298,6 +315,10 @@ V4, V4_SIZE, V4_BATCH, V4_TINY = "yolov4", 608, 64, "yolov4-tiny"
 # size, batch): yolov4-csp@512 at batch 128 (33.6 M pixels a step),
 # yolov4x-mish@640 at batch 64 (26.2 M)
 CSP = (("yolov4-csp", 512, 128), ("yolov4x-mish", 640, 64))
+# phases 22-24: the Scaled-YOLOv4 large family at the published sizes, each
+# batch near yolov3@416's 22 M pixels a step (p7: 18.9 M): yolov4-p5@896 at
+# batch 32 (25.7 M), yolov4-p6@1280 at 16 (26.2 M), yolov4-p7@1536 at 8
+LARGE = (("yolov4-p5", 896, 32), ("yolov4-p6", 1280, 16), ("yolov4-p7", 1536, 8))
 LAPS: list = []  # (phase, perf_counter at its start)
 
 
@@ -755,6 +776,30 @@ def plain_rows(kernels, heads, spec) -> torch.Tensor:
                       for raw, p in zip(heads, kernels.decode_plan(heads, spec))], dim=1)
 
 
+def k1_one_launch(kernels, name, size, spec, heads) -> float:
+    """K1 on a model's bf16 ``heads`` in one launch: rows close to its plain
+    version's and equal to K1's on their fp32 widening.  Returns the
+    largest error against the plain version."""
+    before = dict(kernels.LAUNCHES)
+    ours = kernels.decode_score_all(heads, spec)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES != {**before, "decode_score": before["decode_score"] + 1}:
+        fail(f"K1 on {name}'s {len(heads)} bf16 heads: expected one launch, counts "
+             f"{kernels.LAUNCHES}")
+    ref = plain_rows(kernels, heads, spec)
+    err = max_err(ours, ref)
+    if not rows_close(ours, ref):
+        fail(f"K1 bf16 {name} new_coords heads at {size}: kernel disagrees with its plain "
+             f"version ({err})")
+    if not torch.equal(ours, kernels.decode_score_all(tuple(h.float() for h in heads), spec)):
+        fail(f"K1 bf16 {name} heads: rows differ from K1's on their fp32 widening")
+    say(f"phase 3 K1 {name}@{size} bf16 new_coords heads ({len(heads)} heads of "
+        f"{[h.shape[-1] for h in heads]} channels, grids {[h.shape[1] for h in heads]}, "
+        f"{ours.shape[1]:,} rows a frame, scale_x_y 2.0), batch {ours.shape[0]}, one launch: ok, "
+        f"max abs err {err:.3g}, equal to K1 on the fp32 widening")
+    return err
+
+
 def chain_boxes(n: int, k: int, device):
     """K boxes in a row, box i = [i, 0, i+3, 10]: IoU 0.5 with its successor,
     0.2 with the one after, so greedy NMS keeps every other box and the
@@ -822,22 +867,22 @@ def k5_agreement(ours, ref, x, w, b, stride, pad, shortcut=None) -> tuple[float,
     return equal, steps, float(gap.max())
 
 
-def k5_csp(kernels, frames, dev, card, csp_live) -> dict:
-    """K5 against its plain version on every distinct conv of yolov4-csp@512
-    and yolov4x-mish@640 at batch 4 (their bf16 live forwards' conv inputs:
-    mish, the logistic heads, the gather convs, a fused shortcut); then
-    each distinct gather conv of yolov4x-mish at its path's batch (64), on
-    those inputs repeated: K5's eager and device time beside its bound, its
-    plain version and cuDNN's bf16 ``F.conv2d`` + bf16 bias + mish, in
-    turns."""
+def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
+    """K5 against its plain version on every distinct conv of the
+    Scaled-YOLOv4 models of :data:`CSP` and :data:`LARGE` at batch 4 (their
+    bf16 live forwards' conv inputs: mish, the logistic heads, the gather
+    convs, a fused shortcut); then each distinct gather conv (yolov4x-mish's
+    and yolov4-p7's) at its path's batch, on those inputs repeated: K5's
+    eager and device time beside its bound, its plain version and cuDNN's
+    bf16 ``F.conv2d`` + bf16 bias + mish, in turns."""
     from pytorch_yolo_tpu_torch import Detector
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
 
     F = torch.nn.functional
     worst = {"equal": 1.0, "steps": 0, "abs": 0.0}
     cases, gather = 0, {}
-    for name, size, batch in CSP:
-        spec, live = csp_live[name]
+    for name, size, batch in CSP + LARGE:
+        spec, live = scaled_live[name]
         det = Detector(spec, live, device=dev, dtype=torch.bfloat16, precision="default")
         per_step: dict = {}
         w, n, keys, inputs = k5_cases(kernels, det, letterbox_batch(frames[:4], size),
@@ -2033,14 +2078,17 @@ def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
     return out
 
 
-# phases 18, 20 and 21: what each model must launch, from its generator's
-# shapes (tests/test_torch_csp.py: test_family_plans): bf16 convs (each on
-# K5), int8sb's K3 and K4 convs (default skip), the SPP route (its four
-# sources read by one K6) and the int8 convs after a concat route, on
-# split groups with quant_split_concat
+# phases 18 and 20-24: what each model must launch, from its generator's
+# shapes (tests/test_torch_csp.py and tests/test_torch_large.py:
+# test_family_plans): bf16 convs (each on K5), int8sb's K3 and K4 convs
+# (default skip), the SPP route (its four sources read by one K6) and the
+# int8 convs after a concat route, on split groups with quant_split_concat
 MODEL_PLAN = {"yolov4": dict(convs=110, k3=52, k4=37, spp=113, split=8),
               "yolov4-csp": dict(convs=115, k3=61, k4=37, spp=109, split=13),
-              "yolov4x-mish": dict(convs=139, k3=72, k4=48, spp=133, split=13)}
+              "yolov4x-mish": dict(convs=139, k3=72, k4=48, spp=133, split=13),
+              "yolov4-p5": dict(convs=163, k3=82, k4=58, spp=169, split=13),
+              "yolov4-p6": dict(convs=205, k3=81, k4=53, spp=197, split=15),
+              "yolov4-p7": dict(convs=247, k3=73, k4=45, spp=225, split=15)}
 
 
 def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, calib, dev,
@@ -2056,6 +2104,7 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     from pytorch_yolo_tpu_torch.config import MaxPoolSpec
     from pytorch_yolo_tpu_torch.models.darknet import _maxpool
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
+    from pytorch_yolo_tpu_torch.ops.quant import _layer_input_strides
     from pytorch_yolo_tpu_torch.utils.drift import detection_drift, measure_mode_drift
 
     plan = MODEL_PLAN[name]
@@ -2119,24 +2168,28 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     ms = statistics.median(times)
     prof = profile_rows(step)
     # the SPP block's three stride-1 maxpools (F.max_pool2d, as the JAX
-    # package computes them outside Pallas) at their input, bf16
+    # package computes them outside Pallas) at their input, bf16, on the grid
+    # of the stride at the pools (32 on yolov4 and the CSP pair, 64 on p6,
+    # 128 on p7)
     spp = {}
+    in_stride = _layer_input_strides(spec)
     for layer in spec.layers:
         if isinstance(layer, MaxPoolSpec) and layer.stride == 1 and layer.size > 1:
-            spp_in = torch.randn((batch, spec.out_channels[layer.index - 1], size // 32,
-                                  size // 32), device=dev).to(torch.bfloat16).contiguous(
-                                      memory_format=torch.channels_last)
+            grid = size // in_stride[layer.index]
+            spp_in = torch.randn((batch, spec.out_channels[layer.index - 1], grid, grid),
+                                 device=dev).to(torch.bfloat16).contiguous(
+                                     memory_format=torch.channels_last)
             pool = lambda layer=layer, x=spp_in: _maxpool(x, layer)  # noqa: E731
             spp[f"layer {layer.index} {layer.size}x{layer.size}"] = graph_ms(pool)
             del spp_in
     out["bf16"] = dict(ms=ms, img_s=batch / ms * 1e3, min=min(times), max=max(times),
-                       launches=launches, profile=prof, spp_device_ms=spp)
+                       launches=launches, profile=prof, spp_device_ms=spp, spp_grid=grid)
     say(f"{tag}b {name}@{size} bf16 batch {batch} pipeline: median {ms:.3f} ms/batch, "
         f"{batch / ms * 1e3:.1f} img/s (min {min(times):.3f}, max {max(times):.3f} ms; "
         f"{int(res.valid.sum())} kept) on {card}; launches {launches}")
     say(f"{tag}b {name} bf16 step under torch.profiler: {prof['device_ms']:.3f} ms of "
         f"{prof['operations']} device operations; top kernels {json.dumps(prof['top'])}; SPP "
-        f"maxpools (bf16, batch {batch}, {size // 32}², device ms) {json.dumps(spp)}")
+        f"maxpools (bf16, batch {batch}, {grid}², device ms) {json.dumps(spp)}")
 
     # (d) bf16 at twice the batch once: bit-equal to the two halves
     if len(frames) >= 2 * batch:
@@ -2406,25 +2459,39 @@ def main() -> None:
     for name, size, _ in CSP:
         hc = tuple(torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
                    .to(torch.bfloat16).to(dev) for _, shape, _, _, _ in heads_csp[name])
-        before = dict(kernels.LAUNCHES)
-        ours = kernels.decode_score_all(hc, csp_specs[name])
-        torch.cuda.synchronize()
-        if kernels.LAUNCHES != {**before, "decode_score": before["decode_score"] + 1}:
-            fail(f"K1 on {name}'s three bf16 heads: expected one launch, counts "
-                 f"{kernels.LAUNCHES}")
-        ref = plain_rows(kernels, hc, csp_specs[name])
-        err = max_err(ours, ref)
-        if not rows_close(ours, ref):
-            fail(f"K1 bf16 {name} new_coords heads at {size}: kernel disagrees with its plain "
-                 f"version ({err})")
-        if not torch.equal(ours, kernels.decode_score_all(tuple(h.float() for h in hc),
-                                                          csp_specs[name])):
-            fail(f"K1 bf16 {name} heads: rows differ from K1's on their fp32 widening")
-        k1_err = max(k1_err, err)
-        say(f"phase 3 K1 {name}@{size} bf16 new_coords heads (grids "
-            f"{[shape[1] for _, shape, _, _, _ in heads_csp[name]]}, scale_x_y 2.0), batch 8, "
-            f"one launch: ok, max abs err {err:.3g}, equal to K1 on the fp32 widening")
-        del hc, ours
+        k1_err = max(k1_err, k1_one_launch(kernels, name, size, csp_specs[name], hc))
+        del hc
+    # the Scaled-YOLOv4 large family: three, four or five new_coords heads of
+    # four anchors (340 channels) at the published sizes, each head alone in
+    # fp32, then a model's bf16 heads in one launch (136,000 and 196,416 rows
+    # a frame on p6 and p7); inputs from their own generator, so the frames
+    # of the later phases stay those of earlier runs
+    large_specs = {name: model_spec(name) for name, _, _ in LARGE}
+    rng3 = np.random.default_rng(3)
+    for name, size, _ in LARGE:
+        spec = large_specs[name]
+        heads = [(head, s, (8, size // s, size // s, len(head.mask) * (5 + head.classes)))
+                 for head, s in zip(spec.yolo_layers, head_strides(spec))]
+        for head, stride, shape in heads:
+            anchors, cls_act, sxy, nc = head_decode_args(head, stride)
+            raw = torch.from_numpy(rng3.uniform(0, 1, shape).astype(np.float32)).to(dev)
+            kw = dict(cls_act=cls_act, scale_xy=sxy, new_coords=nc)
+            ours = kernels.decode_score_head(raw, anchors, stride, head.classes, **kw)
+            ref = kernels.decode_score_head_ref(raw, anchors, stride, head.classes, **kw)
+            torch.cuda.synchronize()
+            err = max_err(ours, ref)
+            if not rows_close(ours, ref):
+                fail(f"K1 {name} {shape[1]}x{shape[1]}: kernel disagrees with its plain version "
+                     f"(max abs err {err})")
+            k1_err = max(k1_err, err)
+            say(f"phase 3 K1 {name} {shape[1]}x{shape[1]} {len(anchors)}-anchor new_coords "
+                f"scale_x_y {sxy} {shape}: ok, max abs err {err:.3g} (tol {TOL} rel. to row "
+                "corners; cls_id exact)")
+            del raw, ours, ref
+        hl = tuple(torch.from_numpy(rng3.uniform(0, 1, shape).astype(np.float32))
+                   .to(torch.bfloat16).to(dev) for _, _, shape in heads)
+        k1_err = max(k1_err, k1_one_launch(kernels, name, size, spec, hl))
+        del hl
     odd = torch.zeros(heads_bf16[0].numel() + 1, dtype=torch.bfloat16, device=dev)
     try:
         kernels.decode_score_head(odd[1:].view(heads_bf16[0].shape), v3.yolo_layers[0].anchors,
@@ -3223,17 +3290,17 @@ def main() -> None:
     v4_live = fold_batchnorm(v4, equalize_raw_params(v4, random_raw_params(v4), device=dev,
                                                      info=info4))
     info4["seconds"] = time.perf_counter() - t0
-    csp_live, csp_info = {}, {}
-    for name, _, _ in CSP:
+    scaled_live, scaled_info = {}, {}
+    for name, _, _ in CSP + LARGE:
         t0 = time.perf_counter()
-        csp_info[name] = {}
-        spec = csp_specs[name]
-        csp_live[name] = (spec, fold_batchnorm(spec, equalize_raw_params(
-            spec, random_raw_params(spec), device=dev, info=csp_info[name])))
-        csp_info[name]["seconds"] = time.perf_counter() - t0
+        scaled_info[name] = {}
+        spec = {**csp_specs, **large_specs}[name]
+        scaled_live[name] = (spec, fold_batchnorm(spec, equalize_raw_params(
+            spec, random_raw_params(spec), device=dev, info=scaled_info[name])))
+        scaled_info[name]["seconds"] = time.perf_counter() - t0
     k5 = phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live)
     torch.cuda.empty_cache()
-    k5c = k5_csp(kernels, frames, dev, card, csp_live)
+    k5c = k5_scaled(kernels, frames, dev, card, scaled_live)
     k5["worst"] = {k: (min if k == "equal" else max)(k5["worst"][k], k5c["worst"][k])
                    for k in k5["worst"]}
     k5["cases"] += k5c["cases"]
@@ -3255,11 +3322,12 @@ def main() -> None:
                         dev, card)
     lap("19")
     tiny19 = phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card)
-    csp_runs = {}
-    for phase, (name, size, batch) in zip((20, 21), CSP):
+    scaled_runs = {}
+    for phase, (name, size, batch) in zip((20, 21, 22, 23, 24), CSP + LARGE):
         lap(str(phase))
-        csp_runs[name] = phase_model(kernels, phase, name, size, batch, *csp_live[name],
-                                     csp_info[name], frames, calib, dev, card)
+        scaled_runs[name] = phase_model(kernels, phase, name, size, batch, *scaled_live[name],
+                                        scaled_info[name], frames, calib, dev, card)
+        del scaled_live[name]
     k5_main = k5["timed"][f"3x3 s1 {SIZE // 8}² 128->256"]
 
     report = {"kernels": [
@@ -3306,7 +3374,8 @@ def main() -> None:
                                              "plan", "launches_per_step")}
                     for k, v in k5["timed"].items()},
          "yolov4_mish_vs_leaky": k5["mish_leaky"],
-         # yolov4x-mish@640's gather convs at batch 64 (phase 13)
+         # the gather convs of yolov4x-mish@640 at batch 64 and of
+         # yolov4-p7@1536 at batch 8 (phase 13)
          "gather": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms",
                                              "library_device_ms", "bound_ms", "bound_by",
                                              "launches_per_step")}
@@ -3333,8 +3402,8 @@ def main() -> None:
     say(f"phase 17 timings: {json.dumps(mesh17)}")
     say(f"phase 18 timings: {json.dumps(v4_18)}")
     say(f"phase 19 timings: {json.dumps(tiny19)}")
-    for phase, (name, _, _) in zip((20, 21), CSP):
-        say(f"phase {phase} timings: {json.dumps(csp_runs[name])}")
+    for phase, (name, _, _) in zip((20, 21, 22, 23, 24), CSP + LARGE):
+        say(f"phase {phase} timings: {json.dumps(scaled_runs[name])}")
     say(f"phase wall seconds: {json.dumps(phase_seconds())}")
     say(json.dumps(report))
     say(card)

@@ -193,13 +193,32 @@ CSP_CONV_CASES = {
 }
 
 
+# K5 at the Scaled-YOLOv4 large family's convs that no earlier model ran,
+# at batch 1 and yolov4-p7@1536's shapes: name -> (the route
+# conv_bf16_plan must name, a CONV_BF16_CASES-style tuple).  Its 3x3 s1
+# 40->40 gather conv at 768² (with the [shortcut] its residual block fuses),
+# a C = 480 residual conv (480 % 64 = 32: the im2col32 route) and the
+# 340-output logistic head convs at stride 8 and 128.
+LARGE_CONV_CASES = {
+    "p7 conv 6 3x3 s1 768² 40->40 mish + shortcut": (
+        "gather", (1, 768, 768, 40, 40, 3, 1, "mish", "normal", True)),
+    "p7 3x3 s1 48² 480->480 mish + shortcut": (
+        "im2col32", (1, 48, 48, 480, 480, 3, 1, "mish", "normal", True)),
+    "p7 head 1x1 192² 320->340 logistic": (
+        "tma", (1, 192, 192, 320, 340, 1, 1, "logistic", "normal", False)),
+    "p7 head 1x1 12² 1280->340 logistic": (
+        "tma", (1, 12, 12, 1280, 340, 1, 1, "logistic", "normal", False)),
+}
+
+
 def conv_bf16_input(name, device="cpu", case=None):
     """(x, w, b, stride, pad, activation, shortcut) of a K5 case (an entry of
-    CONV_BF16_CASES or CSP_CONV_CASES, or ``case``, such an entry's tuple):
-    NHWC bf16 x ~ N(0, 1), (O, KH, KW, C) bf16 He-scaled weights, fp32
-    bias."""
+    CONV_BF16_CASES, CSP_CONV_CASES or LARGE_CONV_CASES, or ``case``, such
+    an entry's tuple): NHWC bf16 x ~ N(0, 1), (O, KH, KW, C) bf16 He-scaled
+    weights, fp32 bias."""
     n, h, w_, c, o, k, stride, act, bias, shortcut = (
-        case or CONV_BF16_CASES.get(name) or CSP_CONV_CASES[name])
+        case or CONV_BF16_CASES.get(name) or CSP_CONV_CASES.get(name)
+        or LARGE_CONV_CASES[name][1])
     rng = np.random.default_rng(sum(map(ord, name)))
     bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
     x = bf(rng.normal(0, 1, (n, h, w_, c)))
@@ -316,6 +335,27 @@ INT8_CASES = {
                                       {"splits": (160, 160), "act": "mish"}),
     "gemm_split2_160_160_int8_out": (1, 1, (1, 80, 80, 320), 160,
                                      {"splits": (160, 160), "act": "mish", "out": "vector"}),
+    # yolov4-p7@1536's widths that are not multiples of the 128-byte K slice
+    # (480 % 128 = 96, 960 and 1600 % 128 = 64) at their grids, and its
+    # CSP and PAN concats as split groups: 480 + 480 and 960 + 640
+    "gemm_c480_static_mish_48sq": (1, 1, (1, 48, 48, 480), 480, {"sx": "static", "act": "mish"}),
+    "conv3x3_c480_static_mish_48sq": (3, 1, (1, 48, 48, 480), 480,
+                                      {"sx": "static", "act": "mish"}),
+    "gemm_c960_static_mish_24sq": (1, 1, (1, 24, 24, 960), 480, {"sx": "static", "act": "mish"}),
+    "conv3x3_c960_static_mish_24sq": (3, 1, (1, 24, 24, 960), 960,
+                                      {"sx": "static", "act": "mish"}),
+    "conv3x3_s2_c960_static_mish_48sq": (3, 2, (1, 48, 48, 960), 1280,
+                                         {"sx": "static", "act": "mish"}),
+    "gemm_c1600_static_mish_24sq": (1, 1, (1, 24, 24, 1600), 960,
+                                    {"sx": "static", "act": "mish"}),
+    "conv3x3_c1600_static_mish_12sq": (3, 1, (1, 12, 12, 1600), 640,
+                                       {"sx": "static", "act": "mish"}),
+    "gemm_split2_480_480_mish_48sq": (1, 1, (1, 48, 48, 960), 960,
+                                      {"splits": (480, 480), "act": "mish"}),
+    "gemm_split2_960_640_mish_24sq": (1, 1, (1, 24, 24, 1600), 960,
+                                      {"splits": (960, 640), "act": "mish"}),
+    "conv3x3_split2_960_640_mish_12sq": (3, 1, (1, 12, 12, 1600), 640,
+                                         {"splits": (960, 640), "act": "mish"}),
 }
 
 
@@ -1054,15 +1094,17 @@ def test_cuda_conv_bf16_matches_plain(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CSP_CONV_CASES))
+@pytest.mark.parametrize("name", list(CSP_CONV_CASES) + list(LARGE_CONV_CASES))
 def test_cuda_conv_bf16_csp_shapes(cuda, name):
     """K5 at the Scaled-YOLOv4 family's new convs (yolov4x-mish's gather
     convs at 640² and 320², its C = 80 1x1 conv, the logistic heads of
-    both models), each on the route ``conv_bf16_plan`` names, against its
-    plain version: the gate of :func:`test_cuda_conv_bf16_matches_plain`."""
+    both models; yolov4-p7's of :data:`LARGE_CONV_CASES`), each on the
+    route ``conv_bf16_plan`` names, against its plain version: the gate of
+    :func:`test_cuda_conv_bf16_matches_plain`."""
     x, w, b, stride, pad, act, sc = conv_bf16_input(name, cuda)
     route = tk.conv_bf16_plan(x.shape[-1], w.shape[0], w.shape[1], w.shape[2], stride, pad)[0]
-    assert route == ("tma" if w.shape[1] == 1 else "gather")
+    assert route == (LARGE_CONV_CASES[name][0] if name in LARGE_CONV_CASES
+                     else "tma" if w.shape[1] == 1 else "gather")
     before = tk.LAUNCHES["conv_bf16"]
     ours = tk.conv_bf16(x, w, b, stride, pad, act, sc)
     torch.cuda.synchronize()
@@ -1074,25 +1116,28 @@ def test_cuda_conv_bf16_csp_shapes(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,size", [("yolov4-csp", 512), ("yolov4x-mish", 640)])
+@pytest.mark.parametrize("name,size", [("yolov4-csp", 512), ("yolov4x-mish", 640),
+                                       ("yolov4-p6", 1280), ("yolov4-p7", 1536)])
 def test_cuda_decode_new_coords_heads_one_launch(cuda, name, size):
-    """K1 on a Scaled-YOLOv4 model's three new_coords heads (scale_x_y 2.0,
-    values a logistic conv squashed) at its published size, bf16, in one
-    launch: rows close to the plain version's and equal to K1's on their
-    fp32 widening."""
+    """K1 on a Scaled-YOLOv4 model's new_coords heads (scale_x_y 2.0, values
+    a logistic conv squashed) at its published size, bf16, in one launch:
+    three heads of three anchors (the CSP pair), four or five heads of four
+    anchors (p6, p7: 136,000 and 196,416 rows a frame); rows close to the
+    plain version's and equal to K1's on their fp32 widening."""
     from pytorch_yolo_tpu_torch.config import head_strides
     from pytorch_yolo_tpu_torch.models.zoo import model_spec
 
     spec = model_spec(name)
+    grids = [(len(h.mask), size // s) for h, s in zip(spec.yolo_layers, head_strides(spec))]
     rng = np.random.default_rng(size)
-    heads = tuple(torch.from_numpy(rng.uniform(0, 1, (2, size // s, size // s, 255))
+    heads = tuple(torch.from_numpy(rng.uniform(0, 1, (2, g, g, a * 85))
                                    .astype(np.float32)).to(torch.bfloat16).to(cuda)
-                  for s in head_strides(spec))
+                  for a, g in grids)
     before = dict(tk.LAUNCHES)
     ours = tk.decode_score_all(heads, spec)
     torch.cuda.synchronize()
     assert tk.LAUNCHES == {**before, "decode_score": before["decode_score"] + 1}
-    assert ours.shape == (2, 3 * sum((size // s) ** 2 for s in (8, 16, 32)), 8)
+    assert ours.shape == (2, sum(a * g * g for a, g in grids), 8)
     wide = tuple(h.float() for h in heads)
     assert torch.equal(ours, tk.decode_score_all(wide, spec))
     ref = tk.decode_score_all(tuple(h.cpu() for h in wide), spec)  # the plain version
