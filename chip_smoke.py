@@ -16,8 +16,12 @@ Phases, one line each (a failure in any phase exits non-zero):
      model's three in bf16 in one launch, equal to K1 on their fp32
      widening; the same for the three, four and five 4-anchor new_coords
      heads of yolov4-p5@896, yolov4-p6@1280 and yolov4-p7@1536 (p7: grids
-     192² to 12², 196,416 rows a frame); a misaligned head, which must
-     raise; a class tie (the lowest index wins);
+     192² to 12², 196,416 rows a frame); the [region] softmax heads of
+     yolov2@416 and yolov2-tiny@416 (five anchors in grid units, 845 rows a
+     frame) and yolov3-spp@608's three heads, each head alone in fp32 and
+     each model's heads in bf16 in one launch, equal to K1 on their fp32
+     widening; a misaligned head, which must raise; a class tie (the lowest
+     index wins);
   4. K2 NMS keep mask against its plain version, batch 8: K = 300 crowded
      boxes with ties and mixed classes, a chain where each box overlaps
      only its successor (K = 300 and 1024), and crowded boxes at K = 1024
@@ -139,7 +143,10 @@ Phases, one line each (a failure in any phase exits non-zero):
      1, 3, 5 and 10) at its path's batch 64 and of yolov4-p7 (layers 0,
      1, 6, 11 and 16, 19, 22) at its batch 8, eager and device time beside
      the bound, the plain version and cuDNN's bf16 ``F.conv2d`` + bf16
-     bias + mish (eager and device, in turns);
+     bias + mish (eager and device, in turns); the same gate on every
+     distinct conv of yolov3-spp@608, yolov2@416 and yolov2-tiny@416 at
+     batch 4, and yolov2-tiny's gather conv (layer 2, C = 16) at batch 128,
+     timed the same way beside cuDNN + bias + leaky;
      then K5 at batch 128 at every distinct
      yolov3@416 conv shape whose A does not come by a 2-D TMA box (11:
      the im2col, gather and packed routes) and at the largest 1x1 (52²
@@ -262,9 +269,26 @@ Phases, one line each (a failure in any phase exits non-zero):
      32);
  24. yolov4-p7@1536 (a stride-128 head, early skip 32, 7 convs on K5's
      gather route), batch 8: as 22 (247 K5; 73 K3 + 45 K4, 129 on K5; route
-     225's four 640-channel sources; 15 split convs; (d) at 16).
-     Phases 18 and 20-24 time SPP's pools on the grid at their stride (32
-     up to yolov4x-mish, 64 on p6, 128 on p7).
+     225's four 640-channel sources; 15 split convs; (d) at 16);
+ 25. yolov3-spp@608 (SPP in a leaky Darknet-53), live weights, batch 64:
+     as 18 (bf16: 76 K5 a step; int8sb: early skip 8, 32 K3 + 31 K4, 13
+     on K5; SPP's route 83 in one K6; 3 split convs; (d) at 128), except
+     that a degenerate drift row (this model's regime on the TPU) is
+     printed DO-NOT-BANK instead of failing the phase;
+ 26. yolov2@416 ([reorg], the [region] softmax head), live weights, batch
+     128: as 18 (bf16: 23 K5 a step; int8sb, the ladder: early skip 0, 7
+     K3 + 15 K4 with the int8 RGB stem on ``mma.sync``, 1 on K5, the int8
+     maxpools on resident int8, route 28's two sources (the reorg of conv
+     26's fp32 output and conv 24) in one K6, conv 29 on split groups 256
+     + 1024; (d) at 256, the second half from seed 26), plus the int8 stem
+     alone (K4 on ``mma.sync`` on its real inputs, beside its bound, its
+     plain version, K5 and cuDNN bf16 on the same conv);
+ 27. yolov2-tiny@416, batch 128: as 26 (9 K5; int8sb 8 K4, the stem on
+     ``mma.sync``, the 2x2 stride-1 pool at 13² on int8; no concat route;
+     (d) at 256 from seed 27).
+     Phases 18 and 20-27 time every maxpool alone on the grid at its stride
+     (SPP's: 32 up to yolov4x-mish, 64 on p6, 128 on p7), in bf16 and, where
+     int8sb keeps it on resident int8, in int8.
 
 Each phase's wall seconds are printed on one line before the report.
 The line before the second-to-last is the kernels' JSON report (``ms``
@@ -274,7 +298,8 @@ second-to-last is the card as nvidia-smi names it; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run outside the
 repository, the script exits non-zero and prints no result.
 Synthetic He-init weights (seed 0) in phases 3-9, live (equalized) ones
-in 10-24; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17).
+in 10-27; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17;
+26d and 27d: their second halves from seeds 26 and 27).
 """
 
 from __future__ import annotations
@@ -319,6 +344,11 @@ CSP = (("yolov4-csp", 512, 128), ("yolov4x-mish", 640, 64))
 # batch near yolov3@416's 22 M pixels a step (p7: 18.9 M): yolov4-p5@896 at
 # batch 32 (25.7 M), yolov4-p6@1280 at 16 (26.2 M), yolov4-p7@1536 at 8
 LARGE = (("yolov4-p5", 896, 32), ("yolov4-p6", 1280, 16), ("yolov4-p7", 1536, 8))
+# phases 25-27: the zoo's last three families, (name, size, batch):
+# yolov3-spp at its published cfg's 608 and batch 64 (23.7 M pixels a step,
+# as yolov4@608), yolov2 and yolov2-tiny at 416 (their cfgs' size, the
+# YOLO9000 paper's 13x13 grid) and batch 128 (22.2 M, as yolov3)
+ZOO_LAST = (("yolov3-spp", 608, 64), ("yolov2", 416, 128), ("yolov2-tiny", 416, 128))
 LAPS: list = []  # (phase, perf_counter at its start)
 
 
@@ -789,14 +819,16 @@ def k1_one_launch(kernels, name, size, spec, heads) -> float:
     ref = plain_rows(kernels, heads, spec)
     err = max_err(ours, ref)
     if not rows_close(ours, ref):
-        fail(f"K1 bf16 {name} new_coords heads at {size}: kernel disagrees with its plain "
-             f"version ({err})")
+        fail(f"K1 bf16 {name} heads at {size}: kernel disagrees with its plain version ({err})")
     if not torch.equal(ours, kernels.decode_score_all(tuple(h.float() for h in heads), spec)):
         fail(f"K1 bf16 {name} heads: rows differ from K1's on their fp32 widening")
-    say(f"phase 3 K1 {name}@{size} bf16 new_coords heads ({len(heads)} heads of "
+    kinds = sorted({(p.cls_act, p.scale_xy, p.new_coords)
+                    for p in kernels.decode_plan(heads, spec)})
+    say(f"phase 3 K1 {name}@{size} bf16 heads ({len(heads)} heads of "
         f"{[h.shape[-1] for h in heads]} channels, grids {[h.shape[1] for h in heads]}, "
-        f"{ours.shape[1]:,} rows a frame, scale_x_y 2.0), batch {ours.shape[0]}, one launch: ok, "
-        f"max abs err {err:.3g}, equal to K1 on the fp32 widening")
+        f"{ours.shape[1]:,} rows a frame; classes, scale_x_y, new_coords {kinds}), batch "
+        f"{ours.shape[0]}, one launch: ok, max abs err {err:.3g}, equal to K1 on the fp32 "
+        f"widening")
     return err
 
 
@@ -869,19 +901,21 @@ def k5_agreement(ours, ref, x, w, b, stride, pad, shortcut=None) -> tuple[float,
 
 def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
     """K5 against its plain version on every distinct conv of the
-    Scaled-YOLOv4 models of :data:`CSP` and :data:`LARGE` at batch 4 (their
-    bf16 live forwards' conv inputs: mish, the logistic heads, the gather
-    convs, a fused shortcut); then each distinct gather conv (yolov4x-mish's
-    and yolov4-p7's) at its path's batch, on those inputs repeated: K5's
-    eager and device time beside its bound, its plain version and cuDNN's
-    bf16 ``F.conv2d`` + bf16 bias + mish, in turns."""
+    Scaled-YOLOv4 models of :data:`CSP` and :data:`LARGE` and of the
+    models of :data:`ZOO_LAST` at batch 4 (their bf16 live forwards' conv
+    inputs: mish and leaky, the logistic, linear and [region] heads, the
+    gather convs, a fused shortcut where the model has one); then each
+    distinct gather conv (yolov4x-mish's, yolov4-p7's and yolov2-tiny's) at
+    its path's batch, on those inputs repeated: K5's eager and device time
+    beside its bound, its plain version and cuDNN's bf16 ``F.conv2d`` +
+    bf16 bias + the conv's activation, in turns."""
     from pytorch_yolo_tpu_torch import Detector
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
 
     F = torch.nn.functional
     worst = {"equal": 1.0, "steps": 0, "abs": 0.0}
     cases, gather = 0, {}
-    for name, size, batch in CSP + LARGE:
+    for name, size, batch in CSP + LARGE + ZOO_LAST:
         spec, live = scaled_live[name]
         det = Detector(spec, live, device=dev, dtype=torch.bfloat16, precision="default")
         per_step: dict = {}
@@ -913,8 +947,10 @@ def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
             xc = x.permute(0, 3, 1, 2)
             wc = c.weight.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
             bc = c.bias.to(torch.bfloat16)
-            lib = lambda: F.mish(F.conv2d(xc, wc, bc, stride=c.stride, padding=c.padding),  # noqa: E731
-                                 inplace=True)
+            act = {"mish": lambda y: F.mish(y, inplace=True),
+                   "leaky": lambda y: F.leaky_relu(y, 0.1, inplace=True)}[c.activation]
+            lib = lambda: act(F.conv2d(xc, wc, bc, stride=c.stride,  # noqa: E731
+                                       padding=c.padding))
             ms, lib_ms = in_turns(lib, k5)
             dev_ms, lib_dev_ms = in_turns(lib, k5, timer=graph_ms)
             plain_ms = time_ms(lambda: kernels.conv_bf16_ref(x, c.weight, c.bias, c.stride,
@@ -930,7 +966,8 @@ def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
             say(f"phase 13 K5 gather {label} batch {batch} ({per} a step, plan "
                 f"{plans[i]}): {ms:.4f} ms eager, {dev_ms:.4f} ms device ({bms / dev_ms:.1%} of "
                 f"its {bms:.4f} ms bound, {by}: {ops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB); "
-                f"cuDNN bf16 conv + bf16 bias + mish {lib_ms:.4f} ms eager, {lib_dev_ms:.4f} ms "
+                f"cuDNN bf16 conv + bf16 bias + {c.activation} {lib_ms:.4f} ms eager, "
+                f"{lib_dev_ms:.4f} ms "
                 f"device, in turns ({lib_dev_ms / dev_ms:.2f}x K5's); plain "
                 f"{plain_ms:.4f} ms; {equal:.4%} bit-equal to the plain version; on {card}")
             del x, xc
@@ -1917,10 +1954,10 @@ def k5_cases(kernels, det, x, tag: str, all_acts=None, per_step=None) -> tuple:
     input, taken by a stats hook), with its own activation (every
     activation at the shape ``all_acts``, an (input shape, weight shape)
     key), and the first conv that takes a [shortcut] with a random
-    operand.  Returns the worst case (equal share, steps, abs error), the
-    number of cases, and each distinct conv's first layer and input;
-    ``per_step`` (a dict) counts the convs of each (input HWC, weight
-    shape, stride) a step."""
+    operand (where the model has one).  Returns the worst case (equal
+    share, steps, abs error), the number of cases, and each distinct conv's
+    first layer and input; ``per_step`` (a dict) counts the convs of each
+    (input HWC, weight shape, stride) a step."""
     keys: dict = {}
 
     def hook(i, t):
@@ -1944,18 +1981,20 @@ def k5_cases(kernels, det, x, tag: str, all_acts=None, per_step=None) -> tuple:
         for act in acts:
             cases.append((f"{tag} conv {i} {key[0]} * {key[1]} s{c.stride} {act}", inputs[i], c,
                           act, None))
-    fused = min(det.model._fused)
-    c = det.model.convs[str(fused)]
-    xf = inputs.get(fused)
-    if xf is None:  # the first conv of its shape is another layer: take that layer's input
-        k = next(k for k, j in keys.items() if k[1] == tuple(c.weight.shape)
-                 and k[2:4] == (c.stride, c.padding))
-        xf = inputs[keys[k]]
-    sc_shape = (xf.shape[0], (xf.shape[1] + 2 * c.padding - c.weight.shape[1]) // c.stride + 1,
-                (xf.shape[2] + 2 * c.padding - c.weight.shape[2]) // c.stride + 1,
-                c.weight.shape[0])
-    sc = torch.randn(sc_shape, device=xf.device).to(torch.bfloat16)
-    cases.append((f"{tag} conv {fused} {c.activation} + shortcut", xf, c, c.activation, sc))
+    if det.model._fused:  # the v2 pair has no [shortcut]
+        fused = min(det.model._fused)
+        c = det.model.convs[str(fused)]
+        xf = inputs.get(fused)
+        if xf is None:  # the first conv of its shape is another layer: take that layer's input
+            k = next(k for k, j in keys.items() if k[1] == tuple(c.weight.shape)
+                     and k[2:4] == (c.stride, c.padding))
+            xf = inputs[keys[k]]
+        sc_shape = (xf.shape[0],
+                    (xf.shape[1] + 2 * c.padding - c.weight.shape[1]) // c.stride + 1,
+                    (xf.shape[2] + 2 * c.padding - c.weight.shape[2]) // c.stride + 1,
+                    c.weight.shape[0])
+        sc = torch.randn(sc_shape, device=xf.device).to(torch.bfloat16)
+        cases.append((f"{tag} conv {fused} {c.activation} + shortcut", xf, c, c.activation, sc))
     worst = {"equal": 1.0, "steps": 0, "abs": 0.0}
     for name, xc, c, act, sc in cases:
         before = kernels.LAUNCHES["conv_bf16"]
@@ -2078,36 +2117,170 @@ def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
     return out
 
 
-# phases 18 and 20-24: what each model must launch, from its generator's
-# shapes (tests/test_torch_csp.py and tests/test_torch_large.py:
-# test_family_plans): bf16 convs (each on K5), int8sb's K3 and K4 convs
-# (default skip), the SPP route (its four sources read by one K6) and the
-# int8 convs after a concat route, on split groups with quant_split_concat
-MODEL_PLAN = {"yolov4": dict(convs=110, k3=52, k4=37, spp=113, split=8),
-              "yolov4-csp": dict(convs=115, k3=61, k4=37, spp=109, split=13),
-              "yolov4x-mish": dict(convs=139, k3=72, k4=48, spp=133, split=13),
-              "yolov4-p5": dict(convs=163, k3=82, k4=58, spp=169, split=13),
-              "yolov4-p6": dict(convs=205, k3=81, k4=53, spp=197, split=15),
-              "yolov4-p7": dict(convs=247, k3=73, k4=45, spp=225, split=15)}
+# phases 18 and 20-27: what each model must launch, from its generator's
+# shapes (tests/test_torch_csp.py, tests/test_torch_large.py and
+# tests/test_torch_zoo_v2_spp.py: test_family_plans): bf16 convs (each on
+# K5), int8sb's K3 and K4 convs (default skip) and those of them on the
+# mma.sync core (the C = 3 RGB stem of a ladder family), the multi-source
+# route whose sources one K6 reads (SPP's four, or yolov2's reorg route 28;
+# None: the model has no such route) and the int8 convs after a concat
+# route, on split groups with quant_split_concat.  drift_guarded: a
+# degenerate drift row is printed "DO-NOT-BANK" instead of failing the phase
+# (yolov3-spp, whose live regime was degenerate on the TPU).
+MODEL_PLAN = {"yolov4": dict(convs=110, k3=52, k4=37, route=113, split=8),
+              "yolov4-csp": dict(convs=115, k3=61, k4=37, route=109, split=13),
+              "yolov4x-mish": dict(convs=139, k3=72, k4=48, route=133, split=13),
+              "yolov4-p5": dict(convs=163, k3=82, k4=58, route=169, split=13),
+              "yolov4-p6": dict(convs=205, k3=81, k4=53, route=197, split=15),
+              "yolov4-p7": dict(convs=247, k3=73, k4=45, route=225, split=15),
+              "yolov3-spp": dict(convs=76, k3=32, k4=31, route=83, split=3,
+                                 drift_guarded=True),
+              "yolov2": dict(convs=23, k3=7, k4=15, route=28, split=1, mma=1),
+              "yolov2-tiny": dict(convs=9, k3=0, k4=8, route=None, split=0, mma=1)}
+
+
+def pool_times(spec, size: int, batch: int, dev, dtype, layers=None) -> dict:
+    """Each maxpool of ``spec`` (or those of ``layers``) alone, device ms
+    from a CUDA graph, at its input: ``batch`` random maps of its channels
+    on the grid of the stride at the pool, bf16 or resident int8."""
+    from pytorch_yolo_tpu_torch.config import MaxPoolSpec
+    from pytorch_yolo_tpu_torch.models.darknet import _maxpool
+    from pytorch_yolo_tpu_torch.ops.quant import _layer_input_strides
+
+    in_stride = _layer_input_strides(spec)
+    out = {}
+    for layer in spec.layers:
+        if not isinstance(layer, MaxPoolSpec) or (layers is not None
+                                                  and layer.index not in layers):
+            continue
+        grid = size // in_stride[layer.index]
+        shape = (batch, spec.out_channels[layer.index - 1], grid, grid)
+        if dtype == torch.int8:
+            x = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
+        else:
+            x = torch.randn(shape, device=dev).to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        pool = lambda layer=layer, x=x: _maxpool(x, layer)  # noqa: E731
+        out[f"layer {layer.index} {layer.size}x{layer.size} s{layer.stride} {grid}²"] = \
+            graph_ms(pool)
+        del x
+    return out
+
+
+def int8_stem(kernels, det, xin, card, tag: str) -> dict:
+    """The int8 RGB stem of a ladder family alone: K4 on the ``mma.sync``
+    core on its real inputs (the int8 of the letterboxed batch ``xin`` and
+    the stem's epilogue, taken from one forward), eager and device time,
+    beside its bound, its plain version, K5 on the same conv in bf16 (the
+    bf16 path's stem) and cuDNN's bf16 ``F.conv2d`` + bias + leaky (device
+    times in turns with K4)."""
+    F = torch.nn.functional
+    real = kernels.int8_conv
+    seen: list = []
+
+    def spy(xq, wq, stride, pad, **kw):
+        if not seen and xq.shape[-1] == 3:
+            seen.append((xq, wq, stride, pad, kw))
+        return real(xq, wq, stride, pad, **kw)
+
+    try:
+        kernels.int8_conv = spy
+        with torch.no_grad():
+            det.model(xin, _native_heads=True)
+    finally:
+        kernels.int8_conv = real
+    xq, wq, stride, pad, kw = seen[0]
+    plan = kernels.igemm_plan(xq.shape[-1], [0, xq.shape[-1]], wq.shape[0], False, True)
+    before = kernels.LAUNCHES["int8_conv_mma"]
+    out = real(xq, wq, stride, pad, **kw)
+    torch.cuda.synchronize()
+    if plan[0] != "mma" or kernels.LAUNCHES["int8_conv_mma"] != before + 1:
+        fail(f"{tag}: the int8 RGB stem {tuple(xq.shape)} -> {wq.shape[0]} is not on the "
+             f"mma.sync core: plan {plan}, launches {kernels.LAUNCHES}")
+    ref = kernels.int8_conv_ref(xq, wq, stride, pad, **kw)
+    if not torch.equal(out, ref):
+        fail(f"{tag}: the int8 stem disagrees with its plain version")
+    del ref
+    k4 = lambda: real(xq, wq, stride, pad, **kw)  # noqa: E731
+    ms = time_ms(k4)
+    plain_ms = time_ms(lambda: kernels.int8_conv_ref(xq, wq, stride, pad, **kw), 2, 1)
+    # the same conv in bf16: K5 (packed route) and cuDNN, on the fp32 input
+    xb = xin.to(torch.bfloat16).contiguous()
+    wb = (wq.float() * kw["ws"][:, None, None, None]).to(torch.bfloat16).contiguous()
+    k5 = lambda: kernels.conv_bf16(xb, wb, kw["b"], stride, pad, "leaky")  # noqa: E731
+    xc = xb.permute(0, 3, 1, 2)
+    wc = wb.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    bc = kw["b"].to(torch.bfloat16)
+    lib = lambda: F.leaky_relu(F.conv2d(xc, wc, bc, stride=stride, padding=pad),  # noqa: E731
+                               0.1, inplace=True)
+    dev_ms, lib_ms = in_turns(lib, k4, timer=graph_ms)
+    k5_ms = graph_ms(k5)
+    ops, nbytes = kernels.igemm_work(tuple(xq.shape), tuple(wq.shape), stride, pad,
+                                     out.element_size())
+    bms, by = bound(ops, nbytes, PEAK_INT8_OPS)
+    res = dict(shape=list(xq.shape), out_channels=wq.shape[0], out_dtype=str(out.dtype)[6:],
+               ms=ms, device_ms=dev_ms, plain_ms=plain_ms, k5_bf16_device_ms=k5_ms,
+               cudnn_bf16_device_ms=lib_ms, bound_ms=bms, bound_by=by)
+    say(f"{tag} int8 RGB stem alone (K4 on mma.sync, {tuple(xq.shape)} -> {wq.shape[0]}, 3x3 "
+        f"s{stride}, {str(out.dtype)[6:]} out, the forward's own inputs): {ms:.4f} ms eager, "
+        f"{dev_ms:.4f} ms device ({bms / dev_ms:.2%} of its {bms:.4f} ms bound, {by}: "
+        f"{ops / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB); cuDNN bf16 conv + bias + leaky "
+        f"{lib_ms:.4f} ms device in turns; K5 bf16 (packed) {k5_ms:.4f} ms device; plain "
+        f"{plain_ms:.2f} ms; int8 equal to the plain version; on {card}")
+    del out, xb, wb, xc, wc
+    return res
+
+
+def double(det, name, size, batch, part, res, frames, phase, dev, out, tag) -> None:
+    """(d) of :func:`phase_model`: bf16 at twice the batch once, every field
+    of the result bit-equal to the two halves (``res`` the first half's),
+    the peak memory printed; frames past ``frames`` are drawn from seed
+    ``phase``."""
+    more = frames[batch:2 * batch]
+    if len(more) < batch:  # the second half from its own seed
+        more = torch.cat([more, torch.from_numpy(np.random.default_rng(phase).integers(
+            0, 256, size=(batch - len(more), *frames.shape[1:]), dtype=np.uint8)).to(dev)])
+    torch.cuda.reset_peak_memory_stats(dev)
+    both = frames[:2 * batch] if len(frames) >= 2 * batch else torch.cat([part, more])
+    whole = det.raw_result(both, size=size, conf=CONF, iou=IOU, max_det=MAX_DET)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    second = det.raw_result(more, size=size, conf=CONF, iou=IOU, max_det=MAX_DET)
+    check_result(whole, f"{name} bf16 batch {2 * batch}", 2 * batch)
+    differ = [f for f in whole._fields
+              if not torch.equal(getattr(whole, f), torch.cat([getattr(res, f),
+                                                               getattr(second, f)]))]
+    if differ:
+        fail(f"{name} bf16 batch {2 * batch}: {differ} differ from the two batch-{batch} halves")
+    c0 = det.model.convs["0"]
+    elems = 2 * batch * size ** 2 * c0.weight.shape[0]
+    out[f"batch{2 * batch}"] = dict(bit_equal=True, peak_gb=peak / 1e9, layer0_elements=elems)
+    say(f"{tag}d {name}@{size} bf16 batch {2 * batch} once: every field bit-equal to the "
+        f"two batch-{batch} halves; layer 0's output {elems:,} elements "
+        f"({elems / 2 ** 31:.1%} of 2^31, {2 * elems / 1e9:.2f} GB); peak memory "
+        f"{peak / 1e9:.2f} GB")
+    del whole, second, more, both
 
 
 def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, calib, dev,
                 card) -> dict:
-    """An SPP model of the YOLOv4 lineage (:data:`MODEL_PLAN`) at full width
-    on its live weights ``live`` (``info``: the equalizer's report), batch
-    ``batch`` at ``size``: (a) fp32 card vs CPU; (b) bf16 and (c) int8sb,
-    ms/batch, launches and profiler rows, SPP's stride-1 maxpools timed
-    alone, every K3/K4/K6 call held against its plain version; (d) (where
-    two batches fit in ``frames``) bf16 at twice the batch, bit-equal to its
-    halves; (e) drift of bf16 and int8sb "auto" against fp32."""
+    """A model of :data:`MODEL_PLAN` at full width on its live weights
+    ``live`` (``info``: the equalizer's report), batch ``batch`` at
+    ``size``: (a) fp32 card vs CPU; (b) bf16 and (c) int8sb, ms/batch,
+    launches and profiler rows, the maxpools timed alone (bf16, and int8
+    where int8sb keeps them resident), every K3/K4/K6 call held against its
+    plain version, the int8 RGB stem alone on a ladder family; (d) bf16 at
+    twice the batch, bit-equal to its halves (frames past ``frames`` drawn
+    from seed ``phase``) where ``frames`` holds both halves or layer 0's
+    output stays under 2^31 elements; (e) drift of bf16 and int8sb "auto"
+    against fp32."""
     from pytorch_yolo_tpu_torch import Detector
-    from pytorch_yolo_tpu_torch.config import MaxPoolSpec
-    from pytorch_yolo_tpu_torch.models.darknet import _maxpool
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
-    from pytorch_yolo_tpu_torch.ops.quant import _layer_input_strides
     from pytorch_yolo_tpu_torch.utils.drift import detection_drift, measure_mode_drift
 
     plan = MODEL_PLAN[name]
+    mma = plan.get("mma", 0)
+    route = plan["route"]
     tag = f"phase {phase}"
     bf16 = dict(dtype=torch.bfloat16, precision="default")
     out: dict = {}
@@ -2167,56 +2340,27 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     bf16_dets = det._trim(res, batch)
     ms = statistics.median(times)
     prof = profile_rows(step)
-    # the SPP block's three stride-1 maxpools (F.max_pool2d, as the JAX
-    # package computes them outside Pallas) at their input, bf16, on the grid
-    # of the stride at the pools (32 on yolov4 and the CSP pair, 64 on p6,
-    # 128 on p7)
-    spp = {}
-    in_stride = _layer_input_strides(spec)
-    for layer in spec.layers:
-        if isinstance(layer, MaxPoolSpec) and layer.stride == 1 and layer.size > 1:
-            grid = size // in_stride[layer.index]
-            spp_in = torch.randn((batch, spec.out_channels[layer.index - 1], grid, grid),
-                                 device=dev).to(torch.bfloat16).contiguous(
-                                     memory_format=torch.channels_last)
-            pool = lambda layer=layer, x=spp_in: _maxpool(x, layer)  # noqa: E731
-            spp[f"layer {layer.index} {layer.size}x{layer.size}"] = graph_ms(pool)
-            del spp_in
+    # the maxpools (F.max_pool2d, as the JAX package computes them outside
+    # Pallas: SPP's three stride-1 pools, the v2 ladders' 2x2 pools) at
+    # their input, bf16, on the grid of the stride at the pool
+    pools = pool_times(spec, size, batch, dev, torch.bfloat16)
     out["bf16"] = dict(ms=ms, img_s=batch / ms * 1e3, min=min(times), max=max(times),
-                       launches=launches, profile=prof, spp_device_ms=spp, spp_grid=grid)
+                       launches=launches, profile=prof, pools_device_ms=pools)
     say(f"{tag}b {name}@{size} bf16 batch {batch} pipeline: median {ms:.3f} ms/batch, "
         f"{batch / ms * 1e3:.1f} img/s (min {min(times):.3f}, max {max(times):.3f} ms; "
         f"{int(res.valid.sum())} kept) on {card}; launches {launches}")
     say(f"{tag}b {name} bf16 step under torch.profiler: {prof['device_ms']:.3f} ms of "
-        f"{prof['operations']} device operations; top kernels {json.dumps(prof['top'])}; SPP "
-        f"maxpools (bf16, batch {batch}, {grid}², device ms) {json.dumps(spp)}")
+        f"{prof['operations']} device operations; top kernels {json.dumps(prof['top'])}; "
+        f"maxpools alone (bf16, batch {batch}, device ms) {json.dumps(pools, ensure_ascii=False)}")
 
-    # (d) bf16 at twice the batch once: bit-equal to the two halves
-    if len(frames) >= 2 * batch:
-        torch.cuda.reset_peak_memory_stats(dev)
-        whole = det.raw_result(frames[:2 * batch], size=size, conf=CONF, iou=IOU,
-                               max_det=MAX_DET)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated(dev)
-        second = det.raw_result(frames[batch:2 * batch], size=size, conf=CONF, iou=IOU,
-                                max_det=MAX_DET)
-        check_result(whole, f"{name} bf16 batch {2 * batch}", 2 * batch)
-        differ = [f for f in whole._fields
-                  if not torch.equal(getattr(whole, f), torch.cat([getattr(res, f),
-                                                                   getattr(second, f)]))]
-        if differ:
-            fail(f"{name} bf16 batch {2 * batch}: {differ} differ from the two batch-{batch} "
-                 f"halves")
-        c0 = det.model.convs["0"]
-        elems = 2 * batch * size ** 2 * c0.weight.shape[0]
-        out[f"batch{2 * batch}"] = dict(bit_equal=True, peak_gb=peak / 1e9,
-                                        layer0_elements=elems)
-        say(f"{tag}d {name}@{size} bf16 batch {2 * batch} once: every field bit-equal to the "
-            f"two batch-{batch} halves; layer 0's output {elems:,} elements "
-            f"({elems / 2 ** 31:.1%} of 2^31, {2 * elems / 1e9:.2f} GB); peak memory "
-            f"{peak / 1e9:.2f} GB")
-        del whole, second
+    # (d) bf16 at twice the batch once, bit-equal to the two halves: where
+    # ``frames`` holds both, or layer 0's output stays under 2^31 elements
+    # (yolov4-csp@512 at 256 would reach it)
+    if (len(frames) >= 2 * batch
+            or 2 * batch * size ** 2 * det.model.convs["0"].weight.shape[0] < 2 ** 31):
+        double(det, name, size, batch, part, res, frames, phase, dev, out, tag)
     del res, det
+
 
     # (c) int8sb: static scales from 4 frames calibrated at the model's size
     t0 = time.perf_counter()
@@ -2232,11 +2376,13 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     times8, res8 = pipeline_ms(step8)
     launches8 = dict(kernels.LAUNCHES)
     n_quant = len(model.qconvs) - len(model._chains)
-    if launches8["int8_gemm_mma"] or launches8["int8_conv_mma"]:
-        fail(f"{name} int8sb: an int8 conv ran on the mma.sync core: {launches8}")
+    if launches8["int8_gemm_mma"] + launches8["int8_conv_mma"] != mma * steps:
+        fail(f"{name} int8sb: expected {mma} int8 conv(s) a step on the mma.sync core (the C = 3 "
+             f"RGB stem of a ladder family; none elsewhere): {launches8}")
     if not (launches8["decode_score"] == steps and launches8["nms_keep"] == steps):
         fail(f"{name} int8sb: expected one K1 and one K2 launch a step: {launches8}")
-    if (launches8["int8_gemm"] != plan["k3"] * steps or launches8["int8_conv"] != plan["k4"] * steps
+    if (launches8["int8_gemm"] + launches8["int8_gemm_mma"] != plan["k3"] * steps
+            or launches8["int8_conv"] + launches8["int8_conv_mma"] != plan["k4"] * steps
             or len(model.qconvs) != plan["k3"] + plan["k4"]
             or launches8["conv_bf16"] != len(model.convs) * steps
             or len(model.convs) + len(model.qconvs) != plan["convs"]
@@ -2246,20 +2392,26 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
              f"and no absmax ({len(model.qconvs)} int8 convs): {launches8}")
     with torch.no_grad():
         ops8 = int8_forward_ops(det, letterbox_batch(part, size), f"{name} int8sb")
-    if plan["spp"] not in ops8["read_through"]:
-        fail(f"{name} int8sb: the CSP-SPP route {plan['spp']} is not read through: "
-             f"{ops8['read_through']}")
+    srcs = () if route is None else tuple(spec.layers[route].layers)
+    if route is not None and route not in ops8["read_through"]:
+        fail(f"{name} int8sb: route {route} is not read through: {ops8['read_through']}")
     xin = letterbox_batch(part, size)
     path8 = path_int8_vs_plain(kernels, lambda: model(xin, _native_heads=True),
                                f"{name} int8sb")
+    # the int8 pools (resident int8 between a chain's producer and consumer)
+    # and the int8 RGB stem of a ladder family, alone
+    int8_pools = {j for p, c in model._chains.items() for j in range(p + 1, c)}
+    pools8 = pool_times(spec, size, batch, dev, torch.int8, int8_pools) if int8_pools else {}
+    stem = int8_stem(kernels, det, xin, card, f"{tag}c {name}") if mma else None
     del xin
-    spp_k6 = sorted(c for c in path8["quantize_i8"]["configs"] if len(c[1]) == 4)
+    route_k6 = sorted(c for c in path8["quantize_i8"]["configs"]
+                      if tuple(b[0] for b in c[1]) == tuple(spec.out_channels[j] for j in srcs))
     if (path8["int8_gemm"]["calls"] + path8["int8_conv"]["calls"] != len(model.qconvs)
-            or path8["quantize_i8"]["calls"] != n_quant or not spp_k6):
+            or path8["quantize_i8"]["calls"] != n_quant or (route is not None and not route_k6)):
         calls = {k: v["calls"] for k, v in path8.items()}
         fail(f"{name} int8sb: the forward held against the plain versions made {calls} calls "
-             f"({len(model.qconvs)} K3/K4, {n_quant} K6 expected), the CSP-SPP route's "
-             f"four-source K6 {spp_k6}")
+             f"({len(model.qconvs)} K3/K4, {n_quant} K6 expected), route {route}'s "
+             f"{len(srcs)}-source K6 {route_k6}")
     # quant_split_concat: each concat source at its own scale, the convs
     # after a concat summing split groups
     det_sg = Detector(spec, live, device=dev, quant="w8a8", quant_calib=calib,
@@ -2275,12 +2427,13 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     n_split = sum(1 for i in det_sg.model._qconv_at
                   if det_sg.model._scale_args(i)[1] is not None)
     del det_sg
-    spp_sg = sorted(c for c in path_sg["int8_gemm"]["configs"]
-                    if c[4] is not None and len(c[4]) == kernels.MAX_SPLIT_GROUPS)
-    if n_split != plan["split"] or not spp_sg:
+    want_groups = tuple(spec.out_channels[j] for j in srcs)
+    route_sg = sorted(c for k in ("int8_gemm", "int8_conv") for c in path_sg[k]["configs"]
+                      if route is not None and c[4] == want_groups)
+    if n_split != plan["split"] or (route is not None and not route_sg):
         fail(f"{name} int8sb split-concat: {n_split} int8 convs on split groups "
-             f"({plan['split']} expected), groups {groups}; conv {plan['spp'] + 1} on "
-             f"{kernels.MAX_SPLIT_GROUPS} split groups: {spp_sg}")
+             f"({plan['split']} expected), groups {groups}; conv after route {route} on split "
+             f"groups {want_groups}: {route_sg}")
     check_result(res8, f"{name} int8sb", batch)
     drift8 = detection_drift(bf16_dets, det._trim(res8, batch))
     ms8 = statistics.median(times8)
@@ -2289,37 +2442,40 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
                          launches=launches8, profile=prof8, int8_convs=len(model.qconvs),
                          bf16_convs=len(model.convs), chains=len(model._chains),
                          drift_vs_bf16=drift8.set_agreement, calibrate_s=cal_s,
-                         aten=ops8["glue"],
+                         aten=ops8["glue"], int8_pools_device_ms=pools8, int8_stem=stem,
                          vs_plain={k: dict(calls=v["calls"], configs=len(v["configs"]),
                                            max_err=v["max_err"]) for k, v in path8.items()},
                          split_concat_vs_plain={k: dict(calls=v["calls"], max_err=v["max_err"])
                                                 for k, v in path_sg.items()},
                          split_groups=[list(g) for g in groups])
     say(f"{tag}c {name}@{size} int8sb (w8a8, bf16 glue, {len(model.qconvs)} int8 convs, "
-        f"{len(model.convs)} on K5, {len(model._chains)} int8-resident links, static scales "
-        f"from 4 frames at {size}) batch {batch} pipeline: median {ms8:.3f} ms/batch, "
-        f"{batch / ms8 * 1e3:.1f} img/s (min {min(times8):.3f}, max {max(times8):.3f} ms; "
-        f"load+calibrate {cal_s:.1f} s) on {card}; bf16 {ms:.3f} ms/batch; launches {launches8}")
+        f"{mma} on mma.sync, {len(model.convs)} on K5, {len(model._chains)} int8-resident "
+        f"links, static scales from 4 frames at {size}) batch {batch} pipeline: median "
+        f"{ms8:.3f} ms/batch, {batch / ms8 * 1e3:.1f} img/s (min {min(times8):.3f}, max "
+        f"{max(times8):.3f} ms; load+calibrate {cal_s:.1f} s) on {card}; bf16 {ms:.3f} "
+        f"ms/batch; launches {launches8}")
     say(f"{tag}c {name} int8sb forward under torch.profiler: activation-sized aten ops "
         f"{ops8['glue']} (no div/round/clamp; {len(ops8['fused_q'])} of "
         f"{len(ops8['shortcuts'])} [shortcut]s in K3/K4's epilogue, the rest in K5's; unfused "
         f"{ops8['unfused']}); routes {ops8['routes']}, read through by K6 {ops8['read_through']} "
-        f"(route {plan['spp']}: the CSP-SPP block's four sources, one K6 launch)")
+        f"(route {route}: sources {list(srcs)}, one K6 launch)")
     say(f"{tag}c {name} int8sb step under torch.profiler: {prof8['device_ms']:.3f} ms of "
-        f"{prof8['operations']} device operations; top kernels {json.dumps(prof8['top'])}")
+        f"{prof8['operations']} device operations; top kernels {json.dumps(prof8['top'])}; "
+        f"int8 maxpools alone (resident int8, batch {batch}, device ms) "
+        f"{json.dumps(pools8, ensure_ascii=False)}")
     say(f"{tag}c {name} int8sb forward at batch {batch}, every K3/K4/K6 call held against "
         f"its plain version on its real inputs: "
         + "; ".join(f"{k} {v['calls']} calls, {len(v['configs'])} configurations, max abs err "
                     f"{v['max_err']:.3g}" for k, v in path8.items())
         + f" (int8 and K6 equal, fp32 within 1e-6 of max(|out|, |operand|)); route "
-        f"{plan['spp']} K6 {spp_k6[0]} int8 equal; K3/K4 input channels "
+        f"{route} K6 {route_k6[0] if route_k6 else None} int8 equal; K3/K4 input channels "
         f"{sorted({c[0][-1] for k in ('int8_gemm', 'int8_conv') for c in path8[k]['configs']})}")
     say(f"{tag}c {name} int8sb with quant_split_concat at batch {batch}, held the same way: "
         + "; ".join(f"{k} {v['calls']} calls, max abs err {v['max_err']:.3g}"
                     for k, v in path_sg.items())
         + f"; {n_split} int8 convs on split groups {groups} (convs after a concat "
-        f"{split_convs}); conv {plan['spp'] + 1} K3 on {kernels.MAX_SPLIT_GROUPS} split groups "
-        f"{spp_sg[0][:5]}")
+        f"{split_convs}); the conv after route {route} on split groups "
+        f"{route_sg[0][:5] if route_sg else None}")
     say(f"{tag}c drift int8sb vs bf16 (live weights, not gated): {drift8.row()}")
     del det, res8, model
 
@@ -2334,11 +2490,14 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
                                           quant_calib_size=size, **bf16))):
         det = Detector(spec, live, device=dev, **kw)
         st = measure_mode_drift(det_ref, det, drift_imgs, size=size)
-        if st.degenerate:
+        if st.degenerate and not plan.get("drift_guarded"):
             fail(f"{name} drift {mode}: degenerate regime: {st.row()}")
         rows[mode] = dict(agree=st.set_agreement, box_p99=st.box_p99_px, score_p99=st.score_p99,
+                          degenerate=st.degenerate,
                           recipe=det.quant_state().get("recipe") if det.quant else None)
-        say(f"{tag}e drift {name}@{size} live, {mode} vs fp32 highest: {st.row()}")
+        say(f"{tag}e drift {name}@{size} live, {mode} vs fp32 highest: {st.row()}"
+            + (" DO-NOT-BANK (a degenerate regime, printed and not gated on this model)"
+               if st.degenerate else ""))
         del det
     out["drift"] = rows
     del det_ref
@@ -2462,19 +2621,26 @@ def main() -> None:
         k1_err = max(k1_err, k1_one_launch(kernels, name, size, csp_specs[name], hc))
         del hc
     # the Scaled-YOLOv4 large family: three, four or five new_coords heads of
-    # four anchors (340 channels) at the published sizes, each head alone in
-    # fp32, then a model's bf16 heads in one launch (136,000 and 196,416 rows
-    # a frame on p6 and p7); inputs from their own generator, so the frames
-    # of the later phases stay those of earlier runs
+    # four anchors (340 channels, values a logistic conv squashed) at the
+    # published sizes (136,000 and 196,416 rows a frame on p6 and p7); then
+    # the zoo's last three families: the [region] head of yolov2@416 and
+    # yolov2-tiny@416 (five anchors in grid units, a softmax over 80 classes,
+    # 845 rows a frame) and yolov3-spp@608's three [yolo] heads; each head
+    # alone in fp32, then a model's bf16 heads in one launch; inputs from
+    # their own generator, so the frames of the later phases stay those of
+    # earlier runs
     large_specs = {name: model_spec(name) for name, _, _ in LARGE}
+    last_specs = {name: model_spec(name) for name, _, _ in ZOO_LAST}
     rng3 = np.random.default_rng(3)
-    for name, size, _ in LARGE:
-        spec = large_specs[name]
-        heads = [(head, s, (8, size // s, size // s, len(head.mask) * (5 + head.classes)))
-                 for head, s in zip(spec.yolo_layers, head_strides(spec))]
-        for head, stride, shape in heads:
+    for name, size, _ in LARGE + ZOO_LAST:
+        spec = {**large_specs, **last_specs}[name]
+        shapes = []
+        for head, stride in zip(spec.yolo_layers, head_strides(spec)):
             anchors, cls_act, sxy, nc = head_decode_args(head, stride)
-            raw = torch.from_numpy(rng3.uniform(0, 1, shape).astype(np.float32)).to(dev)
+            shape = (8, size // stride, size // stride, len(anchors) * (5 + head.classes))
+            shapes.append(shape)
+            x = rng3.uniform(0, 1, shape) if nc else rng3.normal(0, 2, shape)
+            raw = torch.from_numpy(x.astype(np.float32)).to(dev)
             kw = dict(cls_act=cls_act, scale_xy=sxy, new_coords=nc)
             ours = kernels.decode_score_head(raw, anchors, stride, head.classes, **kw)
             ref = kernels.decode_score_head_ref(raw, anchors, stride, head.classes, **kw)
@@ -2484,12 +2650,13 @@ def main() -> None:
                 fail(f"K1 {name} {shape[1]}x{shape[1]}: kernel disagrees with its plain version "
                      f"(max abs err {err})")
             k1_err = max(k1_err, err)
-            say(f"phase 3 K1 {name} {shape[1]}x{shape[1]} {len(anchors)}-anchor new_coords "
-                f"scale_x_y {sxy} {shape}: ok, max abs err {err:.3g} (tol {TOL} rel. to row "
-                "corners; cls_id exact)")
+            say(f"phase 3 K1 {name} {type(head).__name__} {shape[1]}x{shape[1]} {len(anchors)} "
+                f"anchors, classes {cls_act}, scale_x_y {sxy}, new_coords {nc} {shape}: ok, max "
+                f"abs err {err:.3g} (tol {TOL} rel. to row corners; cls_id exact)")
             del raw, ours, ref
-        hl = tuple(torch.from_numpy(rng3.uniform(0, 1, shape).astype(np.float32))
-                   .to(torch.bfloat16).to(dev) for _, _, shape in heads)
+        hl = tuple(torch.from_numpy((rng3.uniform(0, 1, sh) if nc else rng3.normal(0, 2, sh))
+                                    .astype(np.float32)).to(torch.bfloat16).to(dev)
+                   for sh in shapes)
         k1_err = max(k1_err, k1_one_launch(kernels, name, size, spec, hl))
         del hl
     odd = torch.zeros(heads_bf16[0].numel() + 1, dtype=torch.bfloat16, device=dev)
@@ -3291,10 +3458,10 @@ def main() -> None:
                                                      info=info4))
     info4["seconds"] = time.perf_counter() - t0
     scaled_live, scaled_info = {}, {}
-    for name, _, _ in CSP + LARGE:
+    for name, _, _ in CSP + LARGE + ZOO_LAST:
         t0 = time.perf_counter()
         scaled_info[name] = {}
-        spec = {**csp_specs, **large_specs}[name]
+        spec = {**csp_specs, **large_specs, **last_specs}[name]
         scaled_live[name] = (spec, fold_batchnorm(spec, equalize_raw_params(
             spec, random_raw_params(spec), device=dev, info=scaled_info[name])))
         scaled_info[name]["seconds"] = time.perf_counter() - t0
@@ -3323,7 +3490,7 @@ def main() -> None:
     lap("19")
     tiny19 = phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card)
     scaled_runs = {}
-    for phase, (name, size, batch) in zip((20, 21, 22, 23, 24), CSP + LARGE):
+    for phase, (name, size, batch) in zip(range(20, 28), CSP + LARGE + ZOO_LAST):
         lap(str(phase))
         scaled_runs[name] = phase_model(kernels, phase, name, size, batch, *scaled_live[name],
                                         scaled_info[name], frames, calib, dev, card)
@@ -3362,7 +3529,10 @@ def main() -> None:
          "launches": launches9["int8_conv"], "max_abs_err": errs["int8_conv"],
          "ms": c9["ms"], "plain_ms": c9["plain_ms"], "bound_ms": c9["bound_ms"],
          "bound_by": c9["bound_by"], "library_ms": c9["cudnn_ms"],
-         "device_ms": c9["device_ms"], "v1_ms": c9["old_ms"]},
+         "device_ms": c9["device_ms"], "v1_ms": c9["old_ms"],
+         # the v2 ladders' int8 RGB stems on the mma.sync core (phases 26-27)
+         "rgb_stem_mma": {name: scaled_runs[name]["int8sb"]["int8_stem"]
+                          for name in ("yolov2", "yolov2-tiny")}},
         {"name": "conv_bf16", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/conv_bf16.cu",
          "replaces": "pytorch_yolo_tpu/models/darknet.py:82",
@@ -3374,8 +3544,9 @@ def main() -> None:
                                              "plan", "launches_per_step")}
                     for k, v in k5["timed"].items()},
          "yolov4_mish_vs_leaky": k5["mish_leaky"],
-         # the gather convs of yolov4x-mish@640 at batch 64 and of
-         # yolov4-p7@1536 at batch 8 (phase 13)
+         # the gather convs of yolov4x-mish@640 at batch 64, of
+         # yolov4-p7@1536 at batch 8 and of yolov2-tiny@416 at batch 128
+         # (phase 13)
          "gather": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms",
                                              "library_device_ms", "bound_ms", "bound_by",
                                              "launches_per_step")}
@@ -3402,8 +3573,8 @@ def main() -> None:
     say(f"phase 17 timings: {json.dumps(mesh17)}")
     say(f"phase 18 timings: {json.dumps(v4_18)}")
     say(f"phase 19 timings: {json.dumps(tiny19)}")
-    for phase, (name, _, _) in zip((20, 21, 22, 23, 24), CSP + LARGE):
-        say(f"phase {phase} timings: {json.dumps(scaled_runs[name])}")
+    for phase, (name, _, _) in zip(range(20, 28), CSP + LARGE + ZOO_LAST):
+        say(f"phase {phase} timings: {json.dumps(scaled_runs[name], ensure_ascii=False)}")
     say(f"phase wall seconds: {json.dumps(phase_seconds())}")
     say(json.dumps(report))
     say(card)

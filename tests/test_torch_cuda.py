@@ -31,7 +31,7 @@ import torch
 
 import pytorch_yolo_tpu_torch as pt
 from pytorch_yolo_tpu_torch.config import MaxPoolSpec
-from pytorch_yolo_tpu_torch.models.darknet import _maxpool
+from pytorch_yolo_tpu_torch.models.darknet import _maxpool, _reorg
 from pytorch_yolo_tpu_torch.ops import kernels as tk
 from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch, letterbox_host
 from pytorch_yolo_tpu_torch.ops.quant import dynamic_scale, scale_of_amax
@@ -211,14 +211,37 @@ LARGE_CONV_CASES = {
 }
 
 
+# K5 at the convs of yolov3-spp@608, yolov2@416 and yolov2-tiny@416 that no
+# earlier model ran, at their published shapes: name -> (the route
+# conv_bf16_plan must name, a CONV_BF16_CASES-style tuple).  yolov2's conv 29
+# after the reorg route (1280 = 256 + 1024 channels), its 1x1 conv before the
+# reorg and its 425-output [region] head conv; yolov2-tiny's stride-1 RGB stem
+# (3 -> 16, the packed route) and its C = 16 conv (the gather route);
+# yolov3-spp's 2048 -> 512 conv after the SPP route.
+V2_CONV_CASES = {
+    "yolov2 conv 29 3x3 s1 13² 1280->1024 leaky": (
+        "im2col", (2, 13, 13, 1280, 1024, 3, 1, "leaky", "normal", False)),
+    "yolov2 conv 26 1x1 26² 512->64 leaky": (
+        "tma", (2, 26, 26, 512, 64, 1, 1, "leaky", "normal", False)),
+    "yolov2 head 1x1 13² 1024->425 linear": (
+        "tma", (2, 13, 13, 1024, 425, 1, 1, "linear", "normal", False)),
+    "yolov2-tiny stem 3x3 s1 416² 3->16 leaky": (
+        "packed", (1, 416, 416, 3, 16, 3, 1, "leaky", "normal", False)),
+    "yolov2-tiny conv 2 3x3 s1 208² 16->32 leaky": (
+        "gather", (1, 208, 208, 16, 32, 3, 1, "leaky", "normal", False)),
+    "yolov3-spp conv 84 1x1 19² 2048->512 leaky": (
+        "tma", (2, 19, 19, 2048, 512, 1, 1, "leaky", "normal", False)),
+}
+
+
 def conv_bf16_input(name, device="cpu", case=None):
     """(x, w, b, stride, pad, activation, shortcut) of a K5 case (an entry of
-    CONV_BF16_CASES, CSP_CONV_CASES or LARGE_CONV_CASES, or ``case``, such
-    an entry's tuple): NHWC bf16 x ~ N(0, 1), (O, KH, KW, C) bf16 He-scaled
-    weights, fp32 bias."""
+    CONV_BF16_CASES, CSP_CONV_CASES, LARGE_CONV_CASES or V2_CONV_CASES, or
+    ``case``, such an entry's tuple): NHWC bf16 x ~ N(0, 1), (O, KH, KW, C)
+    bf16 He-scaled weights, fp32 bias."""
     n, h, w_, c, o, k, stride, act, bias, shortcut = (
         case or CONV_BF16_CASES.get(name) or CSP_CONV_CASES.get(name)
-        or LARGE_CONV_CASES[name][1])
+        or {**LARGE_CONV_CASES, **V2_CONV_CASES}[name][1])
     rng = np.random.default_rng(sum(map(ord, name)))
     bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
     x = bf(rng.normal(0, 1, (n, h, w_, c)))
@@ -356,6 +379,22 @@ INT8_CASES = {
                                       {"splits": (960, 640), "act": "mish"}),
     "conv3x3_split2_960_640_mish_12sq": (3, 1, (1, 12, 12, 1600), 640,
                                          {"splits": (960, 640), "act": "mish"}),
+    # the v2 ladders' int8 RGB stems at stride 1 (C = 3: igemm_plan sends
+    # them to the mma.sync byte path, whose counter the planned case's
+    # launch must raise), int8 out at the next conv's scale as their chain
+    # writes it
+    "conv3x3_rgb_stem_s1_416sq_3_32_int8_out": (3, 1, (2, 416, 416, 3), 32,
+                                                {"sx": "static", "act": "leaky",
+                                                 "out": "scalar"}),
+    "conv3x3_rgb_stem_s1_416sq_3_16_int8_out": (3, 1, (2, 416, 416, 3), 16,
+                                                {"sx": "static", "act": "leaky",
+                                                 "out": "scalar"}),
+    # yolov2's conv 29 after route 28 (the reorg's 256 channels + conv 24's
+    # 1024) on split groups, and the same groups on a 1x1 conv
+    "conv3x3_split2_256_1024_leaky_13sq": (3, 1, (2, 13, 13, 1280), 1024,
+                                           {"splits": (256, 1024), "act": "leaky"}),
+    "gemm_split2_256_1024_leaky_13sq": (1, 1, (2, 13, 13, 1280), 1024,
+                                        {"splits": (256, 1024), "act": "leaky"}),
 }
 
 
@@ -596,9 +635,12 @@ def test_cuda_int8_kernels_match_plain(cuda, name, core):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size,stride,hw", [(2, 2, 52), (2, 1, 13), (3, 1, 15)])
+@pytest.mark.parametrize("size,stride,hw", [(2, 2, 52), (2, 1, 13), (3, 1, 15), (2, 2, 416),
+                                            (2, 2, 208)])
 def test_cuda_int8_maxpool(cuda, size, stride, hw):
-    """int8 maxpool on the card equals the fp32 pool of the same values."""
+    """int8 maxpool on the card equals the fp32 pool of the same values (the
+    v2 ladders' pools on resident int8: 2x2 s2 at 416² and 208², the 2x2 s1
+    pool at 13²)."""
     x = torch.from_numpy(np.random.default_rng(size).integers(-127, 128, (2, 64, hw, hw))
                          .astype(np.int8)).contiguous(memory_format=torch.channels_last)
     spec = MaxPoolSpec(index=0, size=size, stride=stride)
@@ -806,21 +848,31 @@ BRANCH_CASES = {
     # channels in one launch
     "4x640_bf16_spp_shared": ((2, 20, 20), ((640, "bfloat16"),) * 4, "shared"),
     "4x640_fp32_spp_split": ((2, 20, 20), ((640, "float32"),) * 4, "split"),
+    # yolov2's route 28 at 416: the [reorg] of conv 26's (64, 26, 26) output
+    # (256 channels at 13², a shuffled copy) and conv 24's 1024 channels
+    "256+1024_reorg_fp32_fp32_dynamic": ((2, 13, 13), ((256, "float32", "reorg"),
+                                                       (1024, "float32")), "dynamic"),
+    "256+1024_reorg_bf16_bf16_split": ((2, 13, 13), ((256, "bfloat16", "reorg"),
+                                                     (1024, "bfloat16")), "split"),
 }
 
 
 def branch_case(name, device="cpu"):
     """(sources, scales) of a BRANCH_CASES entry: each source its own
     contiguous tensor, with ties, saturated values and, in fp32, division
-    traps at its branch's scale."""
+    traps at its branch's scale; a "reorg" source is Darknet's [reorg] of a
+    map of a quarter of its channels at twice its height and width."""
     lead, branches, mode = BRANCH_CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     sxg = np.array([0.0371, 2.0 ** -6, 0.0219, 0.0293][:len(branches)], np.float32)
     if mode != "split":
         sxg[:] = sxg[0]
     xs = []
-    for (c, dtype), s in zip(branches, sxg):
-        x = (rng.normal(0.0, 1.5, (*lead, c)) * 64 * s).reshape(-1, c)
+    for (c, dtype, *view), s in zip(branches, sxg):
+        if view:  # the reorg's input: (N, 2H, 2W, C / 4)
+            n, h, w = lead
+            pre, c = (n, 2 * h, 2 * w), c // 4
+        x = (rng.normal(0.0, 1.5, (*(pre if view else lead), c)) * 64 * s).reshape(-1, c)
         tie = rng.uniform(size=x.shape) < 0.2
         x[tie] = ((rng.integers(-130, 130, x.shape) + 0.5) * s)[tie]
         sat = rng.uniform(size=x.shape) < 0.05
@@ -828,6 +880,10 @@ def branch_case(name, device="cpu"):
         x = x.astype(np.float32)
         if dtype == "float32":
             plant_division_traps(x, np.full(c, s, np.float32))
+        if view:  # NCHW channels_last through the forward's reorg, back to NHWC
+            t = torch.from_numpy(x.reshape(*pre, c)).to(device, getattr(torch, dtype))
+            xs.append(_reorg(t.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1))
+            continue
         xs.append(torch.from_numpy(x.reshape(*lead, c)).to(device, getattr(torch, dtype)))
     if mode == "split":
         return xs, [torch.tensor(s, device=device) for s in sxg]
@@ -1094,16 +1150,19 @@ def test_cuda_conv_bf16_matches_plain(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CSP_CONV_CASES) + list(LARGE_CONV_CASES))
+@pytest.mark.parametrize("name", list(CSP_CONV_CASES) + list(LARGE_CONV_CASES)
+                         + list(V2_CONV_CASES))
 def test_cuda_conv_bf16_csp_shapes(cuda, name):
     """K5 at the Scaled-YOLOv4 family's new convs (yolov4x-mish's gather
     convs at 640² and 320², its C = 80 1x1 conv, the logistic heads of
-    both models; yolov4-p7's of :data:`LARGE_CONV_CASES`), each on the
-    route ``conv_bf16_plan`` names, against its plain version: the gate of
-    :func:`test_cuda_conv_bf16_matches_plain`."""
+    both models; yolov4-p7's of :data:`LARGE_CONV_CASES`) and at the
+    yolov2, yolov2-tiny and yolov3-spp convs of :data:`V2_CONV_CASES`,
+    each on the route ``conv_bf16_plan`` names, against its plain version:
+    the gate of :func:`test_cuda_conv_bf16_matches_plain`."""
     x, w, b, stride, pad, act, sc = conv_bf16_input(name, cuda)
     route = tk.conv_bf16_plan(x.shape[-1], w.shape[0], w.shape[1], w.shape[2], stride, pad)[0]
-    assert route == (LARGE_CONV_CASES[name][0] if name in LARGE_CONV_CASES
+    routes = {**LARGE_CONV_CASES, **V2_CONV_CASES}
+    assert route == (routes[name][0] if name in routes
                      else "tma" if w.shape[1] == 1 else "gather")
     before = tk.LAUNCHES["conv_bf16"]
     ours = tk.conv_bf16(x, w, b, stride, pad, act, sc)
@@ -1138,6 +1197,36 @@ def test_cuda_decode_new_coords_heads_one_launch(cuda, name, size):
     torch.cuda.synchronize()
     assert tk.LAUNCHES == {**before, "decode_score": before["decode_score"] + 1}
     assert ours.shape == (2, sum(a * g * g for a, g in grids), 8)
+    wide = tuple(h.float() for h in heads)
+    assert torch.equal(ours, tk.decode_score_all(wide, spec))
+    ref = tk.decode_score_all(tuple(h.cpu() for h in wide), spec)  # the plain version
+    assert_rows_close(ours.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size", [("yolov2", 416), ("yolov2-tiny", 416),
+                                       ("yolov3-spp", 608)])
+def test_cuda_decode_zoo_heads_one_launch(cuda, name, size):
+    """K1 on the bf16 heads of yolov2 and yolov2-tiny (one [region] head:
+    five anchors in grid units, a softmax over 80 classes, 845 rows a frame)
+    and of yolov3-spp@608 (three [yolo] heads, 22,743 rows), batch 8, in one
+    launch: rows close to the plain version's and equal to K1's on their
+    fp32 widening."""
+    from pytorch_yolo_tpu_torch.config import head_strides
+    from pytorch_yolo_tpu_torch.models.zoo import model_spec
+    from pytorch_yolo_tpu_torch.ops.decode import head_decode_args
+
+    spec = model_spec(name)
+    grids = [(len(head_decode_args(h, s)[0]), size // s)
+             for h, s in zip(spec.yolo_layers, head_strides(spec))]
+    rng = np.random.default_rng(size + len(grids))
+    heads = tuple(torch.from_numpy(rng.normal(0, 2, (8, g, g, a * 85)).astype(np.float32))
+                  .to(torch.bfloat16).to(cuda) for a, g in grids)
+    before = dict(tk.LAUNCHES)
+    ours = tk.decode_score_all(heads, spec)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {**before, "decode_score": before["decode_score"] + 1}
+    assert ours.shape == (8, {"yolov3-spp": 22_743}.get(name, 845), 8)
     wide = tuple(h.float() for h in heads)
     assert torch.equal(ours, tk.decode_score_all(wide, spec))
     ref = tk.decode_score_all(tuple(h.cpu() for h in wide), spec)  # the plain version

@@ -26,7 +26,8 @@ CFGS = {"mini-csp": lambda: MINI_CSP_CFG, **_GENERATORS}
 
 
 @pytest.mark.parametrize("name,size", [("yolov3-tiny", 160), ("yolov3-tiny", 416),
-                                       ("mini-csp", 64), ("yolov2", 160)])
+                                       ("mini-csp", 64), ("yolov2", 160), ("yolov2", 64),
+                                       ("yolov2-tiny", 64)])
 def test_forward_matches_jax(name, size):
     text = CFGS[name]()
     jspec = jcfg.build_spec(jcfg.parse_cfg_text(text))

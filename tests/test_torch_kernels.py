@@ -139,7 +139,8 @@ def test_decode_plan_covers_every_row_once(name, size, batch):
 
 
 def test_head_decode_args_match():
-    for name in ("yolov3", "yolov2-tiny", "yolov4-csp", "yolov4", "yolov4-tiny"):
+    for name in ("yolov3", "yolov2-tiny", "yolov4-csp", "yolov4", "yolov4-tiny", "yolov2",
+                 "yolov3-spp"):
         spec, tspec = specs(name)
         assert tcfg.head_strides(tspec) == jcfg.head_strides(spec)
         for h, th, s in zip(spec.yolo_layers, tspec.yolo_layers, jcfg.head_strides(spec)):

@@ -400,7 +400,8 @@ def test_fma_rounds_once():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["yolov3-tiny", "yolov3", "yolov4", "yolov4-tiny"])
+@pytest.mark.parametrize("name", ["yolov3-tiny", "yolov3", "yolov4", "yolov4-tiny",
+                                  "yolov3-spp", "yolov2", "yolov2-tiny"])
 @pytest.mark.parametrize("static", [False, True])
 def test_resident_chains_match_jax(name, static):
     jspec, tspec = specs(name)
