@@ -48,10 +48,16 @@ Phases, one line each (a failure in any phase exits non-zero):
      yolov3 conv shapes (batch 8), each epilogue mode once, plus edge cases
      of the wgmma core (ragged M with more tiles than SMs, O = 1024 and 16,
      split groups that are not multiples of 128 channels, a ragged stride-2
-     output, int8 out with O not a multiple of 16, the byte path), each on
-     the core ``igemm_plan`` picks (its launch counter checked) and on the
-     ``mma.sync`` core, against their plain versions (int32 and int8 equal,
-     fp32 within 1e-6 relative); K3/K4 with a [shortcut] operand (fp32 and
+     output, int8 out with O not a multiple of 16, the byte path), and the
+     int8 RGB stem on K4's packed route (the three zoo stems at 416², s1
+     3 -> 32 and 3 -> 16, s2 3 -> 32; int32 sums, fp32 out, int8 out at a
+     scalar and a per-channel out_scale; static, dynamic, per-channel and
+     int8 sx; leaky, mish, logistic, linear; O = 8, 16, 24, 32; batch 1 at
+     417 x 415 at stride 1 and 2; tiles across small images; a one-pixel
+     wide image), each on the core ``igemm_plan`` picks (its launch counter
+     checked) and on the ``mma.sync`` core, against their plain versions
+     (int32 and int8 equal, fp32 within 1e-6 relative; the packed route
+     equal in every mode); K3/K4 with a [shortcut] operand (fp32 and
      bf16, leaky and mish, ragged output rows, a split conv, the byte path)
      on both cores, within 1e-6 of the larger of the output and the
      operand; then K6, the int8 input quantizer, against its plain version
@@ -236,10 +242,11 @@ Phases, one line each (a failure in any phase exits non-zero):
      fp32 on 4 frames: no degenerate row;
  19. yolov4-tiny@416, live weights: fp32 card vs CPU on 4 frames (set
      agreement 1.0); bf16 (21 K5 launches a step) and int8sb (the ladder:
-     early skip 0, 19 int8 convs, the RGB stem on ``mma.sync``, the int8
-     maxpool chain, split routes read as channel slices by K6) at batch 128:
-     ms/batch, launches, profiler rows; int8sb on the card against the CPU
-     serving the card's ``quant_state()`` (>= 0.995);
+     early skip 0, 19 int8 convs, the stride-2 RGB stem on K4's packed
+     route and none on ``mma.sync``, the int8 maxpool chain, split routes
+     read as channel slices by K6) at batch 128: ms/batch, launches,
+     profiler rows; the stem alone as in phase 26; int8sb on the card
+     against the CPU serving the card's ``quant_state()`` (>= 0.995);
  20. yolov4-csp@512 (the Scaled-YOLOv4 CSP family: mish over the body,
      CSP routes, bias-only logistic head convs, new_coords heads), live
      weights, batch 128: as phase 18, (a) fp32 card vs CPU on 2 frames
@@ -277,15 +284,18 @@ Phases, one line each (a failure in any phase exits non-zero):
      printed DO-NOT-BANK instead of failing the phase;
  26. yolov2@416 ([reorg], the [region] softmax head), live weights, batch
      128: as 18 (bf16: 23 K5 a step; int8sb, the ladder: early skip 0, 7
-     K3 + 15 K4 with the int8 RGB stem on ``mma.sync``, 1 on K5, the int8
-     maxpools on resident int8, route 28's two sources (the reorg of conv
-     26's fp32 output and conv 24) in one K6, conv 29 on split groups 256
-     + 1024; (d) at 256, the second half from seed 26), plus the int8 stem
-     alone (K4 on ``mma.sync`` on its real inputs, beside its bound, its
-     plain version, K5 and cuDNN bf16 on the same conv);
+     K3 + 15 K4 with the int8 RGB stem on K4's packed route and none on
+     ``mma.sync``, 1 on K5, the int8 maxpools on resident int8, route 28's
+     two sources (the reorg of conv 26's fp32 output and conv 24) in one
+     K6, conv 29 on split groups 256 + 1024; (d) at 256, the second half
+     from seed 26), plus the int8 stem alone on its real inputs: the
+     packed route and the ``mma.sync`` core (the byte path it replaced),
+     each equal to the plain version, their device times in turns from
+     CUDA graphs, beside its bound, its plain version, K5 and cuDNN bf16
+     on the same conv;
  27. yolov2-tiny@416, batch 128: as 26 (9 K5; int8sb 8 K4, the stem on
-     ``mma.sync``, the 2x2 stride-1 pool at 13² on int8; no concat route;
-     (d) at 256 from seed 27).
+     the packed route, the 2x2 stride-1 pool at 13² on int8; no concat
+     route; (d) at 256 from seed 27).
      Phases 18 and 20-27 time every maxpool alone on the grid at its stride
      (SPP's: 32 up to yolov4x-mish, 64 on p6, 128 on p7), in bf16 and, where
      int8sb keeps it on resident int8, in int8.
@@ -637,9 +647,8 @@ def check_shortcut(kernels, errs, where, name, xq, wq, stride, pad, kw, sdt) -> 
                                  plain=True)):
         fail(f"K3/K4 shortcut {name}: the operand changed nothing in the plain version")
     lim = 1e-6 * torch.maximum(ref.abs(), sc.float().reshape(ref.shape).abs())
-    want = int8_key(kernels, wq, stride, kw)
     for mma in (False, True):
-        key = want if not mma else want.removesuffix("_mma") + "_mma"
+        key = int8_key(kernels, wq, stride, kw, mma)
         before = kernels.LAUNCHES[key]
         ours = run_int8(kernels, xq, wq, stride, pad, kw, mma=mma)
         torch.cuda.synchronize()
@@ -655,17 +664,21 @@ def check_shortcut(kernels, errs, where, name, xq, wq, stride, pad, kw, sdt) -> 
             f"{float(gap.max()):.3g} (tol 1e-6 of max(|out|, |operand|))")
 
 
-def int8_key(kernels, wq, stride, kw) -> str:
-    """The LAUNCHES key of the core ``igemm_plan`` picks for a K3/K4 call."""
+def int8_key(kernels, wq, stride, kw, mma: bool = False) -> str:
+    """The LAUNCHES key of the core ``igemm_plan`` picks for a K3/K4 call
+    (``mma``: of the ``mma.sync`` core, which ``_mma=True`` forces)."""
     name = "int8_gemm" if wq.shape[1] == 1 and stride == 1 else "int8_conv"
-    c = wq.shape[-1]
+    if mma:
+        return name + "_mma"
+    c, k = wq.shape[-1], wq.shape[1]
     goff = [0, c]
     if "splits" in kw:
         goff = [0]
         for g in kw["splits"]:
             goff.append(goff[-1] + g)
-    core, _ = kernels.igemm_plan(c, goff, wq.shape[0], "splits" in kw, True)
-    return name if core == "wgmma" else name + "_mma"
+    core, _ = kernels.igemm_plan(c, goff, wq.shape[0], "splits" in kw, True, k, wq.shape[2],
+                                 stride, k // 2, kw.get("shortcut") is not None)
+    return {"wgmma": name, "packed": name + "_packed", "mma": name + "_mma"}[core]
 
 
 # The first K6's device ms (the simple kernel before its Hopper redesign;
@@ -1678,7 +1691,8 @@ def phase17_mesh(kernels, v3, live, tiny_spec, tiny_live, frames, dev, card) -> 
     t_ours = t_mesh.detect_batch(skew, size=SIZE, conf=0.3)
     torch.cuda.synchronize()
     launched = dict(kernels.LAUNCHES)
-    int8 = {k: launched[k] for k in ("int8_gemm", "int8_conv", "int8_gemm_mma", "int8_conv_mma")}
+    int8 = {k: launched[k] for k in ("int8_gemm", "int8_conv", "int8_gemm_mma", "int8_conv_mma",
+                                     "int8_conv_packed")}
     if (sum(int8.values()) != 2 * len(t_mesh.model.qconvs) or not launched["int8_gemm"]
             or not launched["int8_conv"] or any(v % 2 for v in int8.values())):
         fail(f"17b: expected every int8 conv on K3/K4 once a shard: {launched}")
@@ -2051,16 +2065,17 @@ def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
         launches = dict(kernels.LAUNCHES)
         steps = len(times) + 3
         model = det.model
-        mma = sum(1 for q in model.qconvs.values() if q.wq.shape[-1] % 16)  # the RGB stem
+        stem = sum(1 for q in model.qconvs.values() if q.wq.shape[-1] == 3)  # the RGB stem
         want = dict(decode_score=steps, nms_keep=steps, conv_bf16=len(model.convs) * steps,
-                    quantize_i8=(len(model.qconvs) - len(model._chains)) * steps, absmax=0)
+                    quantize_i8=(len(model.qconvs) - len(model._chains)) * steps, absmax=0,
+                    int8_conv_packed=stem * steps, int8_gemm_mma=0, int8_conv_mma=0)
         n_int8 = sum(launches[k] for k in ("int8_gemm", "int8_conv", "int8_gemm_mma",
-                                           "int8_conv_mma"))
+                                           "int8_conv_mma", "int8_conv_packed"))
         if (any(launches[k] != v for k, v in want.items())
-                or n_int8 != len(model.qconvs) * steps
-                or launches["int8_gemm_mma"] + launches["int8_conv_mma"] != mma * steps):
+                or n_int8 != len(model.qconvs) * steps):
             fail(f"yolov4-tiny {what}: launches {launches}, expected {want}, "
-                 f"{len(model.qconvs)} K3/K4 a step ({mma} on mma.sync: C % 16 != 0)")
+                 f"{len(model.qconvs)} K3/K4 a step ({stem} on the packed route: C = 3; none "
+                 f"on mma.sync)")
         check_result(res, f"yolov4-tiny {what}")
         ms = statistics.median(times)
         prof = profile_rows(step)
@@ -2084,6 +2099,8 @@ def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
     xin = letterbox_batch(frames, SIZE)
     path8 = path_int8_vs_plain(kernels, lambda: det8.model(xin, _native_heads=True),
                                "yolov4-tiny int8sb")
+    # the stride-2 int8 RGB stem alone, on the packed route and on mma.sync
+    out["int8_stem"] = int8_stem(kernels, det8, xin, card, "phase 19 yolov4-tiny")
     del xin
     calls = {k: v["calls"] for k, v in path8.items()}
     n_quant = len(det8.model.qconvs) - len(det8.model._chains)
@@ -2121,7 +2138,8 @@ def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
 # shapes (tests/test_torch_csp.py, tests/test_torch_large.py and
 # tests/test_torch_zoo_v2_spp.py: test_family_plans): bf16 convs (each on
 # K5), int8sb's K3 and K4 convs (default skip) and those of them on the
-# mma.sync core (the C = 3 RGB stem of a ladder family), the multi-source
+# packed route (the C = 3 RGB stem of a ladder family; none runs on the
+# mma.sync core), the multi-source
 # route whose sources one K6 reads (SPP's four, or yolov2's reorg route 28;
 # None: the model has no such route) and the int8 convs after a concat
 # route, on split groups with quant_split_concat.  drift_guarded: a
@@ -2135,8 +2153,8 @@ MODEL_PLAN = {"yolov4": dict(convs=110, k3=52, k4=37, route=113, split=8),
               "yolov4-p7": dict(convs=247, k3=73, k4=45, route=225, split=15),
               "yolov3-spp": dict(convs=76, k3=32, k4=31, route=83, split=3,
                                  drift_guarded=True),
-              "yolov2": dict(convs=23, k3=7, k4=15, route=28, split=1, mma=1),
-              "yolov2-tiny": dict(convs=9, k3=0, k4=8, route=None, split=0, mma=1)}
+              "yolov2": dict(convs=23, k3=7, k4=15, route=28, split=1, packed=1),
+              "yolov2-tiny": dict(convs=9, k3=0, k4=8, route=None, split=0, packed=1)}
 
 
 def pool_times(spec, size: int, batch: int, dev, dtype, layers=None) -> dict:
@@ -2168,12 +2186,15 @@ def pool_times(spec, size: int, batch: int, dev, dtype, layers=None) -> dict:
 
 
 def int8_stem(kernels, det, xin, card, tag: str) -> dict:
-    """The int8 RGB stem of a ladder family alone: K4 on the ``mma.sync``
-    core on its real inputs (the int8 of the letterboxed batch ``xin`` and
-    the stem's epilogue, taken from one forward), eager and device time,
-    beside its bound, its plain version, K5 on the same conv in bf16 (the
-    bf16 path's stem) and cuDNN's bf16 ``F.conv2d`` + bias + leaky (device
-    times in turns with K4)."""
+    """The int8 RGB stem of a ladder family alone, on its real inputs (the
+    int8 of the letterboxed batch ``xin`` and the stem's epilogue, taken
+    from one forward): K4's packed route, which the plan picks, and the
+    ``mma.sync`` core (``_mma=True``, the byte path it replaced), each one
+    launch and equal to the plain version; their device times in turns from
+    CUDA graphs (mma.sync, packed, packed, mma.sync), the packed route's
+    eager time, its bound, its plain version, K5 on the same conv in bf16
+    (the bf16 path's stem) and cuDNN's bf16 ``F.conv2d`` + bias + leaky
+    (device times in turns with the packed route)."""
     F = torch.nn.functional
     real = kernels.int8_conv
     seen: list = []
@@ -2190,19 +2211,27 @@ def int8_stem(kernels, det, xin, card, tag: str) -> dict:
     finally:
         kernels.int8_conv = real
     xq, wq, stride, pad, kw = seen[0]
-    plan = kernels.igemm_plan(xq.shape[-1], [0, xq.shape[-1]], wq.shape[0], False, True)
-    before = kernels.LAUNCHES["int8_conv_mma"]
-    out = real(xq, wq, stride, pad, **kw)
-    torch.cuda.synchronize()
-    if plan[0] != "mma" or kernels.LAUNCHES["int8_conv_mma"] != before + 1:
-        fail(f"{tag}: the int8 RGB stem {tuple(xq.shape)} -> {wq.shape[0]} is not on the "
-             f"mma.sync core: plan {plan}, launches {kernels.LAUNCHES}")
+    plan = kernels.igemm_plan(3, [0, 3], wq.shape[0], False, True, wq.shape[1], wq.shape[2],
+                              stride, pad)
     ref = kernels.int8_conv_ref(xq, wq, stride, pad, **kw)
-    if not torch.equal(out, ref):
-        fail(f"{tag}: the int8 stem disagrees with its plain version")
-    del ref
+    outs = {}
+    for key, mma in (("int8_conv_packed", False), ("int8_conv_mma", True)):
+        before = dict(kernels.LAUNCHES)
+        outs[key] = real(xq, wq, stride, pad, _mma=mma, **kw)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES != {**before, key: before[key] + 1}:
+            fail(f"{tag}: the int8 RGB stem {tuple(xq.shape)} -> {wq.shape[0]} (plan {plan}) "
+                 f"expected one {key} launch: {kernels.LAUNCHES}")
+        if not torch.equal(outs[key], ref):
+            fail(f"{tag}: the int8 stem on {key} disagrees with its plain version")
+    if plan[0] != "packed":
+        fail(f"{tag}: the int8 RGB stem is not on the packed route: plan {plan}")
+    out = outs.pop("int8_conv_packed")
+    del outs, ref
     k4 = lambda: real(xq, wq, stride, pad, **kw)  # noqa: E731
+    old = lambda: real(xq, wq, stride, pad, _mma=True, **kw)  # noqa: E731
     ms = time_ms(k4)
+    dev_ms, mma_ms = in_turns(old, k4, timer=graph_ms)
     plain_ms = time_ms(lambda: kernels.int8_conv_ref(xq, wq, stride, pad, **kw), 2, 1)
     # the same conv in bf16: K5 (packed route) and cuDNN, on the fp32 input
     xb = xin.to(torch.bfloat16).contiguous()
@@ -2213,20 +2242,23 @@ def int8_stem(kernels, det, xin, card, tag: str) -> dict:
     bc = kw["b"].to(torch.bfloat16)
     lib = lambda: F.leaky_relu(F.conv2d(xc, wc, bc, stride=stride, padding=pad),  # noqa: E731
                                0.1, inplace=True)
-    dev_ms, lib_ms = in_turns(lib, k4, timer=graph_ms)
+    dev2_ms, lib_ms = in_turns(lib, k4, timer=graph_ms)
     k5_ms = graph_ms(k5)
     ops, nbytes = kernels.igemm_work(tuple(xq.shape), tuple(wq.shape), stride, pad,
                                      out.element_size())
     bms, by = bound(ops, nbytes, PEAK_INT8_OPS)
-    res = dict(shape=list(xq.shape), out_channels=wq.shape[0], out_dtype=str(out.dtype)[6:],
-               ms=ms, device_ms=dev_ms, plain_ms=plain_ms, k5_bf16_device_ms=k5_ms,
-               cudnn_bf16_device_ms=lib_ms, bound_ms=bms, bound_by=by)
-    say(f"{tag} int8 RGB stem alone (K4 on mma.sync, {tuple(xq.shape)} -> {wq.shape[0]}, 3x3 "
-        f"s{stride}, {str(out.dtype)[6:]} out, the forward's own inputs): {ms:.4f} ms eager, "
-        f"{dev_ms:.4f} ms device ({bms / dev_ms:.2%} of its {bms:.4f} ms bound, {by}: "
-        f"{ops / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB); cuDNN bf16 conv + bias + leaky "
-        f"{lib_ms:.4f} ms device in turns; K5 bf16 (packed) {k5_ms:.4f} ms device; plain "
-        f"{plain_ms:.2f} ms; int8 equal to the plain version; on {card}")
+    res = dict(shape=list(xq.shape), out_channels=wq.shape[0], stride=stride,
+               out_dtype=str(out.dtype)[6:], plan=list(plan), max_abs_err=0.0, ms=ms,
+               device_ms=dev_ms, device_ms_vs_cudnn=dev2_ms, mma_device_ms=mma_ms,
+               plain_ms=plain_ms, k5_bf16_device_ms=k5_ms, cudnn_bf16_device_ms=lib_ms,
+               bound_ms=bms, bound_by=by)
+    say(f"{tag} int8 RGB stem alone ({tuple(xq.shape)} -> {wq.shape[0]}, 3x3 s{stride}, "
+        f"{str(out.dtype)[6:]} out, the forward's own inputs): K4's packed route {ms:.4f} ms "
+        f"eager, {dev_ms:.4f} ms device ({bms / dev_ms:.2%} of its {bms:.4f} ms bound, {by}: "
+        f"{ops / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB); the mma.sync core {mma_ms:.4f} ms "
+        f"device in turns ({mma_ms / dev_ms:.1f}x); cuDNN bf16 conv + bias + leaky {lib_ms:.4f} "
+        f"ms device in turns (packed {dev2_ms:.4f}); K5 bf16 (packed) {k5_ms:.4f} ms device; "
+        f"plain {plain_ms:.2f} ms; both cores int8 equal to the plain version; on {card}")
     del out, xb, wb, xc, wc
     return res
 
@@ -2279,7 +2311,7 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     from pytorch_yolo_tpu_torch.utils.drift import detection_drift, measure_mode_drift
 
     plan = MODEL_PLAN[name]
-    mma = plan.get("mma", 0)
+    packed = plan.get("packed", 0)
     route = plan["route"]
     tag = f"phase {phase}"
     bf16 = dict(dtype=torch.bfloat16, precision="default")
@@ -2376,13 +2408,14 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     times8, res8 = pipeline_ms(step8)
     launches8 = dict(kernels.LAUNCHES)
     n_quant = len(model.qconvs) - len(model._chains)
-    if launches8["int8_gemm_mma"] + launches8["int8_conv_mma"] != mma * steps:
-        fail(f"{name} int8sb: expected {mma} int8 conv(s) a step on the mma.sync core (the C = 3 "
-             f"RGB stem of a ladder family; none elsewhere): {launches8}")
+    if (launches8["int8_gemm_mma"] + launches8["int8_conv_mma"]
+            or launches8["int8_conv_packed"] != packed * steps):
+        fail(f"{name} int8sb: expected {packed} int8 conv(s) a step on K4's packed route (the "
+             f"C = 3 RGB stem of a ladder family) and none on the mma.sync core: {launches8}")
     if not (launches8["decode_score"] == steps and launches8["nms_keep"] == steps):
         fail(f"{name} int8sb: expected one K1 and one K2 launch a step: {launches8}")
     if (launches8["int8_gemm"] + launches8["int8_gemm_mma"] != plan["k3"] * steps
-            or launches8["int8_conv"] + launches8["int8_conv_mma"] != plan["k4"] * steps
+            or launches8["int8_conv"] + launches8["int8_conv_packed"] != plan["k4"] * steps
             or len(model.qconvs) != plan["k3"] + plan["k4"]
             or launches8["conv_bf16"] != len(model.convs) * steps
             or len(model.convs) + len(model.qconvs) != plan["convs"]
@@ -2402,7 +2435,7 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     # and the int8 RGB stem of a ladder family, alone
     int8_pools = {j for p, c in model._chains.items() for j in range(p + 1, c)}
     pools8 = pool_times(spec, size, batch, dev, torch.int8, int8_pools) if int8_pools else {}
-    stem = int8_stem(kernels, det, xin, card, f"{tag}c {name}") if mma else None
+    stem = int8_stem(kernels, det, xin, card, f"{tag}c {name}") if packed else None
     del xin
     route_k6 = sorted(c for c in path8["quantize_i8"]["configs"]
                       if tuple(b[0] for b in c[1]) == tuple(spec.out_channels[j] for j in srcs))
@@ -2449,8 +2482,9 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
                                                 for k, v in path_sg.items()},
                          split_groups=[list(g) for g in groups])
     say(f"{tag}c {name}@{size} int8sb (w8a8, bf16 glue, {len(model.qconvs)} int8 convs, "
-        f"{mma} on mma.sync, {len(model.convs)} on K5, {len(model._chains)} int8-resident "
-        f"links, static scales from 4 frames at {size}) batch {batch} pipeline: median "
+        f"{packed} on the packed route, {len(model.convs)} on K5, {len(model._chains)} "
+        f"int8-resident links, static scales from 4 frames at {size}) batch {batch} pipeline: "
+        f"median "
         f"{ms8:.3f} ms/batch, {batch / ms8 * 1e3:.1f} img/s (min {min(times8):.3f}, max "
         f"{max(times8):.3f} ms; load+calibrate {cal_s:.1f} s) on {card}; bf16 {ms:.3f} "
         f"ms/batch; launches {launches8}")
@@ -2844,7 +2878,7 @@ def main() -> None:
 
     # 7. K3 and K4 against their plain versions
     lap("7")
-    errs = {"int8_gemm": 0.0, "int8_conv": 0.0}
+    errs = {"int8_gemm": 0.0, "int8_conv": 0.0, "int8_conv_packed": 0.0}
     probe = [("probe (4096,1024)x(1024,512)", 1, 1, (1, 1, 4096, 1024), 512, "fixed"),
              ("probe (32768,256)x(256,128)", 1, 1, (1, 1, 32768, 256), 128, "fixed")]
     v3_shapes = {"1x1 52² 256->128": (1, 1, (8, 52, 52, 256), 128),
@@ -2871,22 +2905,45 @@ def main() -> None:
             ("s2 ragged O=72", 3, 2, (1, 27, 33, 48), 72, {"sx": "static", "act": "leaky"}),
             ("int8 out O=40", 3, 1, (1, 13, 13, 64), 40, {"sx": "static", "act": "leaky",
                                                           "out": "scalar"}),
-            ("byte path C=3", 3, 1, (2, 32, 32, 3), 16, "acc"),
+            ("C=3 (the packed route; the byte path on mma.sync)", 3, 1, (2, 32, 32, 3), 16,
+             "acc"),
             ("byte path K=24", 1, 1, (1, 16, 16, 24), 32, {"sx": "static", "act": "leaky"}),
             # four split groups (MAX_SPLIT_GROUPS): yolov4's conv 114 at 19² (608)
             ("split x4 19² 2048->512 mish", 1, 1, (8, 19, 19, 2048), 512,
              {"splits": (512,) * 4, "act": "mish"}),
             ("split x4 19² 2048->512 leaky int8 out", 1, 1, (8, 19, 19, 2048), 512,
              {"splits": (512,) * 4, "act": "leaky", "out": "vector"})]
+    # the int8 RGB stem on K4's packed route (3x3, C = 3): the three zoo
+    # stems at 416² and the route's edges, every epilogue mode it takes
+    i8 = {"sx": "static", "act": "leaky", "out": "scalar"}
+    packed = [("packed yolov2 stem s1 3->32 int8 out", 3, 1, (2, 416, 416, 3), 32, i8),
+              ("packed yolov2-tiny stem s1 3->16 int8 out", 3, 1, (2, 416, 416, 3), 16, i8),
+              ("packed yolov4-tiny stem s2 3->32 int8 out", 3, 2, (2, 416, 416, 3), 32, i8),
+              ("packed int32 sums O=32", 3, 1, (2, 64, 64, 3), 32, "acc"),
+              ("packed fp32 out static leaky O=8", 3, 1, (2, 64, 64, 3), 8,
+               {"sx": "static", "act": "leaky"}),
+              ("packed fp32 out dynamic mish O=24", 3, 1, (3, 37, 41, 3), 24,
+               {"sx": "dynamic", "act": "mish"}),
+              ("packed fp32 out per-channel sx logistic s2", 3, 2, (2, 33, 35, 3), 32,
+               {"sx": "vector", "act": "logistic"}),
+              ("packed int8 out per-channel out_scale linear O=16", 3, 1, (2, 29, 31, 3), 16,
+               {"sx": "static", "act": "linear", "out": "vector"}),
+              ("packed int8 in, int8 out mish O=24", 3, 1, (2, 30, 30, 3), 24,
+               {"sx": "int8", "act": "mish", "out": "scalar"}),
+              ("packed batch 1 417x415 s1 dynamic int8 out", 3, 1, (1, 417, 415, 3), 32,
+               {"sx": "dynamic", "act": "leaky", "out": "scalar"}),
+              ("packed batch 1 417x415 s2 (odd H and W) fp32 out", 3, 2, (1, 417, 415, 3), 16,
+               {"sx": "static", "act": "leaky"}),
+              ("packed tiles across 9 images of 7x5", 3, 1, (9, 7, 5, 3), 8, i8),
+              ("packed one-pixel-wide images s2", 3, 2, (3, 9, 1, 3), 16, "acc")]
     cases = probe + [(f"{name} {m if isinstance(m, str) else m}", *v3_shapes[name], m)
-                     for name in v3_shapes for m in modes[name]] + edge
-    cores = {"wgmma": 0, "mma": 0}
+                     for name in v3_shapes for m in modes[name]] + edge + packed
+    cores = {"wgmma": 0, "mma": 0, "packed": 0}
     for name, k, stride, shape, o, mode in cases:
         xq, wq, st, pad, kw = int8_case(rng, k, stride, shape, o, mode, dev)
         ref = run_int8(kernels, xq, wq, st, pad, kw, plain=True)
-        want = int8_key(kernels, wq, st, kw)
         for mma in (False, True):
-            key = want if not mma else want.removesuffix("_mma") + "_mma"
+            key = int8_key(kernels, wq, st, kw, mma)
             before = kernels.LAUNCHES[key]
             ours = run_int8(kernels, xq, wq, st, pad, kw, mma=mma)
             torch.cuda.synchronize()
@@ -2903,14 +2960,17 @@ def main() -> None:
             else:
                 err = float((ours.long() - ref.long()).abs().max())
                 ok, what = err == 0, f"{ref.dtype} equal"
+            if key.endswith("_packed"):  # the packed route: equal in every mode
+                ok, what = ok and torch.equal(ours, ref), f"{what}; torch.equal"
             base_key = key.removesuffix("_mma")
             errs[base_key] = max(errs[base_key], err)
-            cores["mma" if key.endswith("_mma") else "wgmma"] += 1
+            cores[key.rpartition("_")[2] if key.endswith(("_mma", "_packed")) else "wgmma"] += 1
             if not ok:
                 fail(f"{key} {name}: kernel disagrees with its plain version ({what}, {err})")
             say(f"phase 7 {key} {name} {tuple(shape)}->{o}: ok, {what}")
-    say(f"phase 7: {len(cases)} cases, {cores['wgmma']} on the wgmma core and {cores['mma']} "
-        f"on the mma.sync core, all equal to the plain versions")
+    say(f"phase 7: {len(cases)} cases, {cores['wgmma']} on the wgmma core, {cores['packed']} on "
+        f"the packed route and {cores['mma']} on the mma.sync core, all equal to the plain "
+        f"versions")
 
     # K3/K4 with a [shortcut] operand in the fp32 epilogue, on both cores
     sc_cases = [
@@ -3496,6 +3556,9 @@ def main() -> None:
                                         scaled_info[name], frames, calib, dev, card)
         del scaled_live[name]
     k5_main = k5["timed"][f"3x3 s1 {SIZE // 8}² 128->256"]
+    stems = {"yolov2": scaled_runs["yolov2"]["int8sb"]["int8_stem"],
+             "yolov2-tiny": scaled_runs["yolov2-tiny"]["int8sb"]["int8_stem"],
+             "yolov4-tiny": tiny19["int8_stem"]}
 
     report = {"kernels": [
         {"name": "decode_score", "route": "cuda",
@@ -3530,9 +3593,28 @@ def main() -> None:
          "ms": c9["ms"], "plain_ms": c9["plain_ms"], "bound_ms": c9["bound_ms"],
          "bound_by": c9["bound_by"], "library_ms": c9["cudnn_ms"],
          "device_ms": c9["device_ms"], "v1_ms": c9["old_ms"],
-         # the v2 ladders' int8 RGB stems on the mma.sync core (phases 26-27)
-         "rgb_stem_mma": {name: scaled_runs[name]["int8sb"]["int8_stem"]
-                          for name in ("yolov2", "yolov2-tiny")}},
+         # the int8 RGB stems alone (phases 19, 26, 27): the mma.sync core
+         # they ran on before the packed route, and the packed route
+         "rgb_stem_mma": {name: {k: stems[name][k] for k in ("mma_device_ms", "bound_ms")}
+                          for name in stems},
+         "rgb_stem_packed": {name: {k: stems[name][k] for k in (
+             "ms", "device_ms", "bound_ms", "bound_by", "max_abs_err", "plain_ms",
+             "cudnn_bf16_device_ms", "k5_bf16_device_ms")} for name in stems}},
+        {"name": "int8_conv_packed", "route": "cuda",
+         "source": "pytorch_yolo_tpu_torch/csrc/int8_packed.cu",
+         "replaces": "pytorch_yolo_tpu/ops/quant.py:564",
+         # the yolov2 int8sb step's launches (phase 26c); its stem's figures
+         "launches": scaled_runs["yolov2"]["int8sb"]["launches"]["int8_conv_packed"],
+         "max_abs_err": max(errs["int8_conv_packed"], *(v["max_abs_err"] for v in stems.values())),
+         "ms": stems["yolov2"]["ms"], "plain_ms": stems["yolov2"]["plain_ms"],
+         "bound_ms": stems["yolov2"]["bound_ms"], "bound_by": stems["yolov2"]["bound_by"],
+         "library_ms": stems["yolov2"]["cudnn_bf16_device_ms"],
+         "device_ms": stems["yolov2"]["device_ms"],
+         "v1_ms": stems["yolov2"]["mma_device_ms"],  # the mma.sync core, device time
+         "launches_per_path": {"yolov4-tiny": tiny19["int8sb"]["launches"]["int8_conv_packed"],
+                               **{name: scaled_runs[name]["int8sb"]["launches"][
+                                   "int8_conv_packed"] for name in ("yolov2", "yolov2-tiny")}},
+         "stems": stems},
         {"name": "conv_bf16", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/conv_bf16.cu",
          "replaces": "pytorch_yolo_tpu/models/darknet.py:82",

@@ -436,6 +436,33 @@ __device__ __forceinline__ void store_rows_for(int mode, int act, const Epi& e, 
 #undef YOLO_ACTS
 }
 
+// The epilogue's factors (mul, add, div) of output channel `o` for
+// epilogue_one: the dequant `sx * ws[o]` (or ws[o] alone where `sx` is
+// null) and the bias; at int8 out with leaky, relu or linear both divided
+// by the out_scale (divide first, activate after), with any other
+// activation the out_scale as the divisor (activate at the true scale,
+// then divide).  (0, 0, 1) past O and in the accumulator and fixed modes.
+__device__ __forceinline__ float3 epilogue_column(const IgemmArgs& a, int o, float sx,
+                                                  float os_scalar, bool homogeneous) {
+  float mul = 0.0f, add = 0.0f, div = 1.0f;
+  if (a.mode >= kEpiF32 && o < a.O) {
+    const float deq = a.sx != nullptr ? __fmul_rn(sx, a.ws[o]) : a.ws[o];
+    const float bias = a.bias[o];
+    mul = deq;
+    add = bias;
+    if (a.mode == kEpiI8) {
+      const float os = a.out_scale_vec ? a.out_scale[o] : os_scalar;
+      if (homogeneous) {
+        mul = __fdiv_rn(deq, os);
+        add = __fdiv_rn(bias, os);
+      } else {
+        div = os;
+      }
+    }
+  }
+  return make_float3(mul, add, div);
+}
+
 // Writes the 32 columns [32 CH, 32 CH + 32) of a consumer warpgroup's
 // accumulators (split convs: the fp32 group sums, times sxg[0] for a single
 // group) to its staging rows at shared address `staging`.  acc[4j + 2h + e]
@@ -648,26 +675,10 @@ __global__ void __launch_bounds__(kThreads, 1) wgmma_kernel(__grid_constant__ co
       // stage the raw sums, then turn them into outputs four columns a thread.
       named_barrier(bar_id, 128);  // the last tile's pieces are written
       for (int c = tid; c < BN; c += 128) {
-        const int o = n0 + c;
-        float mul = 0.0f, add = 0.0f, div = 1.0f;
-        if (a.mode >= kEpiF32 && o < a.O) {
-          const float deq = a.sx != nullptr ? __fmul_rn(sx, a.ws[o]) : a.ws[o];
-          const float bias = a.bias[o];
-          mul = deq;
-          add = bias;
-          if (a.mode == kEpiI8) {
-            const float os = a.out_scale_vec ? a.out_scale[o] : os_scalar;
-            if (homogeneous) {  // divide first, activate after
-              mul = __fdiv_rn(deq, os);
-              add = __fdiv_rn(bias, os);
-            } else {            // activate at the true scale, then divide
-              div = os;
-            }
-          }
-        }
-        prm[c] = mul;
-        prm[BN + c] = add;
-        prm[2 * BN + c] = div;
+        const float3 f = epilogue_column(a, n0 + c, sx, os_scalar, homogeneous);
+        prm[c] = f.x;
+        prm[BN + c] = f.y;
+        prm[2 * BN + c] = f.z;
       }
       const float g1 = kSplit && a.groups == 1 ? a.sxg[0] : 1.0f;
       // The chunk loop stays rolled (one copy of the store loops); only the

@@ -15,7 +15,10 @@
   stride-1 conv.
 * **K4** :func:`int8_conv` (``csrc/int8_conv.cu``): int8 implicit-GEMM conv
   with the serving epilogue (``pytorch_yolo_tpu/ops/quant.py:
-  quantized_conv``); every other quantized conv.
+  quantized_conv``); every other quantized conv.  The int8 RGB stem (3x3,
+  C = 3) takes K4's packed route (``csrc/int8_packed.cu``): a 32-byte row
+  of A a pixel, one ``wgmma`` k32 step (:func:`int8_packed_rows` models
+  its rows).
 * **K5** :func:`conv_bf16` (``csrc/conv_bf16.cu``): bf16 implicit-GEMM conv
   with fp32 accumulators and the JAX epilogue (fp32 bias, activation, one
   rounding to bf16, optional shortcut add) on the wgmma core
@@ -31,7 +34,8 @@
 
 K3 and K4 run on the Hopper core ``csrc/int8_wgmma.cuh`` (wgmma, TMA, a
 warp-specialised ring, persistent blocks) whenever C and the group offsets
-are multiples of 16 (:func:`igemm_plan`); the ``mma.sync`` core
+are multiples of 16 (:func:`igemm_plan`); the RGB stem on the packed route,
+counted as ``int8_conv_packed``; the ``mma.sync`` core
 ``csrc/int8_igemm.cuh`` keeps the byte path, counted apart as
 ``int8_gemm_mma`` / ``int8_conv_mma``.  Both take a Darknet [shortcut]
 operand into their fp32 epilogue (``shortcut=``).
@@ -59,6 +63,7 @@ import subprocess
 import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,7 +74,7 @@ from .xla_mish import logistic, mish_factor
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f) for f in
                 ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu",
-                  "conv_bf16.cu", "quantize_i8.cu"))
+                  "int8_packed.cu", "conv_bf16.cu", "quantize_i8.cu"))
 HEADERS = tuple(os.path.join(CSRC, f) for f in ("int8_igemm.cuh", "int8_wgmma.cuh",
                                                 "device_guard.cuh"))
 BUILD_DIR = os.path.join(CSRC, "_build")
@@ -79,7 +84,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"decode_score": 0, "nms_keep": 0, "int8_gemm": 0, "int8_gemm_mma": 0,
-            "int8_conv": 0, "int8_conv_mma": 0, "conv_bf16": 0, "quantize_i8": 0, "absmax": 0}
+            "int8_conv": 0, "int8_conv_mma": 0, "int8_conv_packed": 0, "conv_bf16": 0,
+            "quantize_i8": 0, "absmax": 0}
 
 MAX_ANCHORS = 8         # csrc/decode_score.cu: kMaxAnchors
 MAX_HEADS = 8           # csrc/decode_score.cu: kMaxHeads, heads in one K1 launch
@@ -164,8 +170,9 @@ def load_library() -> ctypes.CDLL:
             lib.yolo_conv_bf16.argtypes = [ctypes.POINTER(_ConvBf16Args), i, i, i, p]
             lib.yolo_quantize_i8.argtypes = [ctypes.POINTER(_QuantArgs), i, p]
             lib.yolo_absmax.argtypes = [ctypes.POINTER(_QuantArgs), i, p]
+            lib.yolo_int8_conv_packed.argtypes = [ctypes.POINTER(_IgemmArgs), i, p]
             for fn in (lib.yolo_decode_score, lib.yolo_nms_keep, lib.yolo_conv_bf16,
-                       lib.yolo_quantize_i8, lib.yolo_absmax):
+                       lib.yolo_quantize_i8, lib.yolo_absmax, lib.yolo_int8_conv_packed):
                 fn.restype = i
             for fn in (lib.yolo_int8_gemm, lib.yolo_int8_conv, lib.yolo_int8_gemm_mma,
                        lib.yolo_int8_conv_mma):
@@ -711,17 +718,156 @@ def int8_conv_ref(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
 
 
 def igemm_plan(channels: int, goff: "list[int]", out_channels: int, split: bool,
-               aligned: bool) -> tuple[str, int]:
+               aligned: bool, kh: int, kw: int, stride: int, pad: int,
+               shortcut: bool = False) -> tuple[str, int]:
     """The K3/K4 core for a call, from its shapes alone: ``("wgmma", BN)``
     with a BN-column tile when the channel count and every group offset are
     multiples of 16 and both operands are 16-byte aligned (what TMA and the
     16-byte gather need); BN is 256 from 256 output channels on, 128 below
     and for split groups (their fp32 group sums double the accumulators).
-    Else ``("mma", 128)``: the ``mma.sync`` core's byte path, which an int8
-    RGB stem takes (C = 3)."""
+    ``("packed", 32)`` for the int8 RGB stem: a 3x3 conv of 3 channels,
+    stride 1 or 2, pad 1, 8 to 32 outputs in steps of 8 (one
+    ``wgmma.m64n32k32``), one group, no [shortcut] operand, aligned
+    (``csrc/int8_packed.cu``).  Else ``("mma", 128)``: the ``mma.sync``
+    core's byte path (C or a group offset not a multiple of 16)."""
+    if (aligned and channels == 3 and kh == kw == 3 and stride in (1, 2) and pad == 1
+            and out_channels % 8 == 0 and 8 <= out_channels <= INT8_PACKED_N and not split
+            and not shortcut):
+        return "packed", INT8_PACKED_N
     if aligned and channels % 16 == 0 and all(g % 16 == 0 for g in goff):
         return "wgmma", 128 if split or out_channels < 256 else 256
     return "mma", 128
+
+
+# K4's packed route (csrc/int8_packed.cu): its tile, its shared memory, and
+# a numpy model of the rows of A its producer builds.
+INT8_PACKED_ROWS = 256  # kRows: output pixels a tile
+INT8_PACKED_K = 32      # kK: bytes of a row of A (27 values, 5 zeros) and of W
+INT8_PACKED_N = 32      # kN: W's rows, zero past O
+INT8_PACKED_SMEM_FIXED = 4 * 256 * 32 + 32 * 32 + 2 * 64 * 160 + 2 * 4 * 8 + 1024  # Layout::kFixed
+
+
+def int8_packed_slot(wo: int, stride: int) -> int:
+    """Bytes of a slice's slot (csrc: slot_bytes): the span of
+    ``(min(Wo, 256) - 1) * stride + 3`` pixels of 3 bytes, 15 bytes before
+    it for the first copy's alignment and 16 after, to the 16-byte grid."""
+    return ((min(wo, INT8_PACKED_ROWS) - 1) * stride + 3) * 3 + 31 + 15 & ~15
+
+
+def int8_packed_max_segments(wo: int) -> int:
+    """Output-row runs ("segments") a tile of 256 pixels can touch
+    (csrc: max_segments): 2 from ``Wo >= 255`` on, 256 at ``Wo = 1``."""
+    return 1 + (INT8_PACKED_ROWS - 1 + wo - 1) // wo
+
+
+def int8_packed_smem(wo: int, stride: int) -> int:
+    """Shared memory a packed launch asks for: the ring of A, W, the
+    epilogue's staging rows, the barriers, and two slice buffers of 3 slots
+    a segment (one a tap row) and each slot's 4-byte phase (csrc:
+    buffer_bytes)."""
+    buffer = 3 * int8_packed_max_segments(wo) * (int8_packed_slot(wo, stride) + 4) + 15 & ~15
+    return INT8_PACKED_SMEM_FIXED + 2 * buffer
+
+
+def _div_by(n: int, d: int) -> int:
+    """``n // d`` as csrc/int8_packed.cu divides a pixel's place by Wo and an
+    output row by Ho (``fast_div``, ``div_by``): the round-up division of
+    CUTLASS's FastDivmod, ``(n * mul >> 32) >> (l - 1)`` with l = ceil(log2
+    d) and mul = ceil(2^(31 + l) / d), exact for n in [0, 2^31); d = 1 is
+    not divided."""
+    if d == 1:
+        return n
+    l = (d - 1).bit_length()
+    return (n * -(-(1 << (31 + l)) // d) >> 32) >> (l - 1)
+
+
+def int8_packed_weights(wq: np.ndarray) -> np.ndarray:
+    """W's 32 x 32 tile of the packed route: row o the 27 int8 of the
+    (O, 3, 3, 3) weights' output o in (KH, KW, C) order, then zeros; rows
+    past O zero."""
+    tile = np.zeros((INT8_PACKED_N, INT8_PACKED_K), np.int8)
+    tile[:wq.shape[0], :27] = wq.reshape(wq.shape[0], 27)
+    return tile
+
+
+def _funnel(lo: int, hi: int, sh: int) -> int:
+    """CUDA's ``__funnelshift_r(lo, hi, sh)``: ``hi:lo >> sh``, low 32 bits."""
+    return ((hi << 32 | lo) >> sh) & 0xFFFFFFFF
+
+
+def int8_packed_rows(x: np.ndarray, stride: int, tile: int) -> np.ndarray:
+    """A numpy model of the A tile that ``csrc/int8_packed.cu``'s producer
+    builds for tile ``tile`` of the 3x3, pad-1 conv of NHWC int8 ``x`` (N,
+    H, W, 3) at ``stride``, step by step: the tile's geometry by the
+    kernel's divisions (:func:`_div_by`); each (segment, tap row) slice
+    copied in the 16-byte pieces of x that cover its in-image pixels, the
+    last piece cut at x's end, into a slot of stale bytes, and the slot's
+    phase (or -1 for a tap row in the padding) into the buffer's table;
+    then each row's three 9-byte runs read as three 32-bit words,
+    funnel-shifted into place, masked where a tap lies in the padding, and
+    packed into 8 words.  Returns (256, 32) int8: row i the 27 values of
+    pixel ``256 * tile + i`` in W's (KH, KW, C) order and 5 zeros; rows
+    past M zero."""
+    n, h, w, c = x.shape
+    if c != 3 or stride not in (1, 2):
+        raise ValueError(f"int8_packed_rows: (N, H, W, 3) at stride 1 or 2, got {x.shape}, "
+                         f"stride {stride}")
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    flat = np.ascontiguousarray(x).view(np.uint8).reshape(-1)
+    slot = int8_packed_slot(wo, stride)
+    buf = np.full(3 * int8_packed_max_segments(wo) * slot, 0xA5, np.uint8)  # stale bytes
+    phases = np.full(3 * int8_packed_max_segments(wo), 0x5A5A5A5A, np.int64)
+    m0 = tile * INT8_PACKED_ROWS
+    length = min(INT8_PACKED_ROWS, n * ho * wo - m0)
+    row0 = _div_by(m0, wo)
+    ow0 = m0 - row0 * wo
+    first = min(wo - ow0, length)
+    for z in range(3 * (_div_by(ow0 + length - 1, wo) + 1)):
+        j, r = divmod(z, 3)
+        img = _div_by(row0 + j, ho)
+        ih = (row0 + j - img * ho) * stride - 1 + r
+        ow_a = ow0 if j == 0 else 0
+        row = (img * h + ih) * w * 3
+        l0 = row + (ow_a * stride - 1) * 3
+        phases[z] = l0 & 15 if 0 <= ih < h else -1
+        if phases[z] < 0:
+            continue
+        seg = first if j == 0 else min(wo, length - first - (j - 1) * wo)
+        lo, hi = max(ow_a * stride - 1, 0), min((ow_a + seg - 1) * stride + 1, w - 1)
+        for g in range(row + lo * 3 & ~15, row + (hi + 1) * 3, 16):
+            piece = np.zeros(16, np.uint8)
+            piece[:min(16, flat.size - g)] = flat[g:g + 16]
+            dst = z * slot + g - (l0 & ~15)
+            buf[dst:dst + 16] = piece
+
+    def word(pos: int) -> int:
+        return int.from_bytes(buf[pos:pos + 4].tobytes(), "little")
+
+    out = np.zeros((INT8_PACKED_ROWS, INT8_PACKED_K), np.uint8)
+    for i in range(length):
+        j = _div_by(ow0 + i, wo)
+        ow = ow0 + i - j * wo
+        col = (ow - (ow0 if j == 0 else 0)) * stride * 3
+        x0, x1, x2 = [0] * 3, [0] * 3, [0] * 3
+        for r in range(3):
+            phase = int(phases[3 * j + r])
+            if phase < 0:
+                continue
+            pos = (3 * j + r) * slot + phase + col
+            at, sh = pos & ~3, (pos & 3) * 8
+            u0, u1, u2 = word(at), word(at + 4), word(at + 8)
+            x0[r], x1[r], x2[r] = _funnel(u0, u1, sh), _funnel(u1, u2, sh), (u2 >> sh) & 0xFF
+            if ow == 0:  # the run's first pixel is column -1
+                x0[r] &= 0xFF000000
+            if ow * stride + 1 >= w:  # its last pixel is column W
+                x1[r] &= 0x0000FFFF
+                x2[r] = 0
+        words = [x0[0], x1[0], x2[0] | x0[1] << 8, _funnel(x0[1], x1[1], 24),
+                 x1[1] >> 24 | x2[1] << 8 | x0[2] << 16, _funnel(x0[2], x1[2], 16),
+                 x1[2] >> 16 | x2[2] << 16, 0]
+        out[i] = np.frombuffer(b"".join((v & 0xFFFFFFFF).to_bytes(4, "little") for v in words),
+                               np.uint8)
+    return out.view(np.int8)
 
 
 def igemm_work(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: int, pad: int,
@@ -808,12 +954,15 @@ def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
                                 *[t for t in (sx, out_scale) if t is not None and t.dim() == 1])
     out = torch.empty(out_shape, dtype=out_dtype, device=xq.device)
     aligned = xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
-    core, bn = igemm_plan(c, goff, o, sxg is not None, aligned)
+    core, bn = igemm_plan(c, goff, o, sxg is not None, aligned, kh, kw, stride, pad,
+                          shortcut is not None)
     if _mma or core == "mma":
         # the mma.sync entry takes its 16-byte-copy flag, which needs what wgmma needs
-        key, arg = name + "_mma", int(core == "wgmma")
+        key, arg = name + "_mma", (int(core == "wgmma"),)
+    elif core == "packed":
+        key, arg = name + "_packed", ()
     else:  # the wgmma entry takes the tile width
-        key, arg = name, bn
+        key, arg = name, (bn,)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     pre, mul, sh = fixed if fixed is not None else (0, 0, 0)
     m = out.numel() // o
@@ -825,7 +974,7 @@ def _igemm(name: str, xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int,
         (ctypes.c_int * (MAX_SPLIT_GROUPS + 1))(*goff), mode, _ACT[activation],
         int(out_scale is not None and out_scale.dim() == 1), pre, mul, sh,
         int(shortcut is not None and shortcut.dtype == torch.bfloat16))
-    _launch(key, getattr(load_library(), "yolo_" + key), ctypes.byref(args), arg, device, stream)
+    _launch(key, getattr(load_library(), "yolo_" + key), ctypes.byref(args), *arg, device, stream)
     return out
 
 

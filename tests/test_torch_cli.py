@@ -34,6 +34,7 @@ import pytorch_yolo_tpu_torch.cli as tcli
 import pytorch_yolo_tpu_torch.serve as tserve
 import pytorch_yolo_tpu_torch.weights as tw
 from pytorch_yolo_tpu_torch.serve import decode_png, encode_png
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBCOMMANDS = ("detect", "video", "evaluate", "serve", "profile", "info", "export-cfg", "assets")

@@ -18,6 +18,7 @@ from pytorch_yolo_tpu_torch import config as tcfg
 from pytorch_yolo_tpu_torch import weights as tw
 from pytorch_yolo_tpu_torch.utils import names as tnames
 from tests.test_new_coords import MINI_CSP_CFG
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(glob.glob(os.path.join(ROOT, "cfg", "*.cfg")))

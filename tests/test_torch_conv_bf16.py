@@ -33,6 +33,7 @@ from pytorch_yolo_tpu_torch.ops import nms as tnms
 from pytorch_yolo_tpu_torch.weights import params_from_jax
 from tests.test_torch_cuda import (CONV_BF16_CASES, bf16_agreement, conv_bf16_floor,
                                    conv_bf16_input, nms_input)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jax_conv(x, w, b, stride, pad, act, shortcut=None):

@@ -89,6 +89,7 @@ from tests.test_torch_conv_bf16 import _jax_conv
 from tests.test_torch_cuda import (CSP_CONV_CASES, assert_rows_close, bf16_agreement,
                                    conv_bf16_floor, conv_bf16_input)
 from tests.test_torch_quantize_i8 import _float_cats
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MODELS = ("yolov4-csp", "yolov4x-mish")
 SIZE, BATCH = 64, 1
@@ -108,19 +109,6 @@ def _build(text, seed=3):
     jp = {k: {kk: np.asarray(vv) for kk, vv in v.items()} for k, v in jp.items()}
     x = np.random.default_rng(seed).uniform(0, 1, (BATCH, SIZE, SIZE, 3)).astype(np.float32)
     return jspec, tspec, jp, x
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one intra-op thread while this module runs: the
-    tests are small forwards, and under the suite's parallel workers a
-    full thread pool per worker oversubscribes the cores (with 6 workers
-    on 8 cores this file took 845 s of worker time so, 162 s on one
-    thread)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -377,7 +365,7 @@ def test_family_plans(name, routes, int8):
     q = [l for l in spec.layers if isinstance(l, tcfg.ConvSpec) and l.index not in skip]
     k3 = [l for l in q if l.size == 1 and l.stride == 1]
     assert (len(k3), len(q) - len(k3)) == int8[:2]
-    assert all(tk.igemm_plan(l.in_channels, [0, l.in_channels], l.filters, False, True)[0]
-               == "wgmma" for l in q)
+    assert all(tk.igemm_plan(l.in_channels, [0, l.in_channels], l.filters, False, True,
+                             l.size, l.size, l.stride, l.padding)[0] == "wgmma" for l in q)
     split = tq.concat_split_groups(spec)
     assert sum(1 for l in q if l.index in split) == int8[2]

@@ -379,16 +379,39 @@ INT8_CASES = {
                                       {"splits": (960, 640), "act": "mish"}),
     "conv3x3_split2_960_640_mish_12sq": (3, 1, (1, 12, 12, 1600), 640,
                                          {"splits": (960, 640), "act": "mish"}),
-    # the v2 ladders' int8 RGB stems at stride 1 (C = 3: igemm_plan sends
-    # them to the mma.sync byte path, whose counter the planned case's
-    # launch must raise), int8 out at the next conv's scale as their chain
-    # writes it
+    # the v2 ladders' int8 RGB stems at stride 1 and yolov4-tiny's at stride
+    # 2 (C = 3: igemm_plan sends them to K4's packed route, whose counter
+    # the planned case's launch must raise), int8 out at the next conv's
+    # scale as their chain writes it
     "conv3x3_rgb_stem_s1_416sq_3_32_int8_out": (3, 1, (2, 416, 416, 3), 32,
                                                 {"sx": "static", "act": "leaky",
                                                  "out": "scalar"}),
     "conv3x3_rgb_stem_s1_416sq_3_16_int8_out": (3, 1, (2, 416, 416, 3), 16,
                                                 {"sx": "static", "act": "leaky",
                                                  "out": "scalar"}),
+    "conv3x3_rgb_stem_s2_416sq_3_32_int8_out": (3, 2, (2, 416, 416, 3), 32,
+                                                {"sx": "static", "act": "leaky",
+                                                 "out": "scalar"}),
+    # the packed route's edges: O = 8 and 24, batch 1 at odd 417 x 415 (a
+    # tile ends in each row's middle, and the last one past M), stride 2 on
+    # odd sides (the last tap past the image), tiles crossing small images,
+    # every epilogue mode: int32 sums, fp32 out, int8 out at a scalar and a
+    # per-channel out_scale; static, dynamic and per-channel sx; leaky,
+    # mish, logistic and linear
+    "conv3x3_rgb_stem_o8_fp32_out_leaky": (3, 1, (2, 64, 64, 3), 8,
+                                           {"sx": "static", "act": "leaky"}),
+    "conv3x3_rgb_stem_o24_int8_out_vector": (3, 1, (3, 37, 41, 3), 24,
+                                             {"sx": "static", "act": "leaky", "out": "vector"}),
+    "conv3x3_rgb_stem_batch1_417x415_dynamic_fp32_out": (3, 1, (1, 417, 415, 3), 32,
+                                                         {"sx": "dynamic", "act": "leaky"}),
+    "conv3x3_rgb_stem_s2_417x415_mish_int8_out": (3, 2, (1, 417, 415, 3), 16,
+                                                  {"sx": "static", "act": "mish",
+                                                   "out": "scalar"}),
+    "conv3x3_rgb_stem_s2_vector_sx_logistic": (3, 2, (2, 33, 35, 3), 32,
+                                               {"sx": "vector", "act": "logistic"}),
+    "conv3x3_rgb_stem_small_images_linear": (3, 1, (9, 7, 5, 3), 16,
+                                             {"sx": "static", "act": "linear"}),
+    "conv3x3_rgb_stem_accumulators": (3, 1, (2, 29, 31, 3), 32, {"accumulators": True}),
     # yolov2's conv 29 after route 28 (the reorg's 256 channels + conv 24's
     # 1024) on split groups, and the same groups on a 1x1 conv
     "conv3x3_split2_256_1024_leaky_13sq": (3, 1, (2, 13, 13, 1280), 1024,
@@ -398,15 +421,19 @@ INT8_CASES = {
 }
 
 
-def int8_core_key(name):
-    """The LAUNCHES key of the core that ``igemm_plan`` picks for a case."""
+def int8_core_key(name, core="planned"):
+    """The LAUNCHES key of the core that ``igemm_plan`` picks for a case
+    (``core="mma"``: of the ``mma.sync`` core, which ``_mma=True`` forces)."""
     k, stride, shape, o, epi = (INT8_CASES.get(name) or SHORTCUT_CASES[name])[:5]
     c = shape[-1]
     splits = epi.get("splits", (c,))
     goff = [0, *np.cumsum(splits).tolist()]
-    core, _ = tk.igemm_plan(c, goff, o, "splits" in epi, True)
     base = "int8_gemm" if k == 1 else "int8_conv"
-    return base if core == "wgmma" else base + "_mma"
+    if core == "mma":
+        return base + "_mma"
+    plan, _ = tk.igemm_plan(c, goff, o, "splits" in epi, True, k, k, stride, k // 2,
+                            name in SHORTCUT_CASES)
+    return {"wgmma": base, "packed": base + "_packed", "mma": base + "_mma"}[plan]
 
 
 # K3/K4 with a [shortcut] operand in the fp32 epilogue: name -> (kernel
@@ -616,12 +643,11 @@ def test_cuda_detector_matches_cpu(cuda):
 @pytest.mark.parametrize("name", list(INT8_CASES))
 def test_cuda_int8_kernels_match_plain(cuda, name, core):
     """Each case on the core ``igemm_plan`` picks (the wgmma core unless C
-    or a group offset is not a multiple of 16) and forced onto the
-    ``mma.sync`` core; the launch goes to the counter of the core that ran."""
+    or a group offset is not a multiple of 16; the RGB stem's packed route)
+    and forced onto the ``mma.sync`` core; the launch goes to the counter of
+    the core that ran."""
     xq, wq, stride, pad, kw = int8_case(name, cuda)
-    key = int8_core_key(name)
-    if core == "mma":
-        key = key.removesuffix("_mma") + "_mma"
+    key = int8_core_key(name, core)
     before = dict(tk.LAUNCHES)
     ours = run_int8_case(name, xq, wq, stride, pad, kw, mma=core == "mma")
     torch.cuda.synchronize()
@@ -657,9 +683,7 @@ def test_cuda_int8_shortcut_epilogue_matches_plain(cuda, name, core):
     """K3/K4 adding a [shortcut] operand after the activation, on the core
     ``igemm_plan`` picks and on the ``mma.sync`` core."""
     xq, wq, stride, pad, kw = shortcut_case(name, cuda)
-    key = int8_core_key(name)
-    if core == "mma":
-        key = key.removesuffix("_mma") + "_mma"
+    key = int8_core_key(name, core)
     before = dict(tk.LAUNCHES)
     ours = run_int8_case(name, xq, wq, stride, pad, kw, mma=core == "mma")
     torch.cuda.synchronize()
@@ -1066,8 +1090,8 @@ def test_cuda_bias_deltas_match_cpu(cuda):
     _, gpu = tq.bias_correct_params(spec, params, qp, x, device=cuda)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["int8_gemm"] > before["int8_gemm"]
-    assert tk.LAUNCHES["int8_conv"] + tk.LAUNCHES["int8_conv_mma"] > (
-        before["int8_conv"] + before["int8_conv_mma"])
+    convs = ("int8_conv", "int8_conv_mma", "int8_conv_packed")
+    assert sum(tk.LAUNCHES[k] for k in convs) > sum(before[k] for k in convs)
     _, cpu = tq.bias_correct_params(spec, params, qp, x, device="cpu")
     assert gpu.keys() == cpu.keys() and gpu
     for i, d in cpu.items():
@@ -1450,7 +1474,7 @@ def test_cuda_mesh_of_two_entries_matches_single(cuda, mode):
     assert ran["conv_bf16"] == 2 * len(mesh.model.convs)
     if mode == "w8a8_dynamic":
         assert (ran["int8_gemm"] + ran["int8_conv"] + ran["int8_gemm_mma"]
-                + ran["int8_conv_mma"]) == 2 * len(mesh.model.qconvs)
+                + ran["int8_conv_mma"] + ran["int8_conv_packed"]) == 2 * len(mesh.model.qconvs)
         first = min(map(int, mesh.model.qconvs))
         x = letterbox_batch(torch.from_numpy(frames).to(cuda), 416)
         local = [float(mesh.model(x[i:i + 4], collect_conv_in_stats=lambda i, v: v.abs().amax()

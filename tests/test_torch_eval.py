@@ -33,6 +33,7 @@ from pytorch_yolo_tpu_torch.ops import nms as tnms
 from pytorch_yolo_tpu_torch.utils import draw as tdraw
 from pytorch_yolo_tpu_torch.utils import palette as tpalette
 from pytorch_yolo_tpu_torch.utils import profiling as tprof
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def random_evals(seed: int, n: int):

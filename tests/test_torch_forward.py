@@ -21,6 +21,7 @@ from pytorch_yolo_tpu_torch import config as tcfg
 from pytorch_yolo_tpu_torch.models import darknet as tdn
 from pytorch_yolo_tpu_torch.weights import params_from_jax
 from tests.test_new_coords import MINI_CSP_CFG
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CFGS = {"mini-csp": lambda: MINI_CSP_CFG, **_GENERATORS}
 

@@ -39,6 +39,7 @@ from pytorch_yolo_tpu_torch.ops import nms as tnms
 from pytorch_yolo_tpu_torch.ops.decode import decode_all, decode_head, head_decode_args
 from tests.test_torch_cuda import (ANCHORS, DECODE_CASES, NMS_CASES, assert_rows_close,
                                    crowded_boxes, decode_input, nms_input)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cfg")
 

@@ -11,7 +11,10 @@ seven convs on K5's gather route.  Both sides get the JAX package's
 port's kernels run their plain versions.  Each model's params are built
 once for the module (p7's: 338 M fp32 weights, about 1.35 GB a copy), at
 the smallest size each allows: p5 and p6 at 64 (p6's stride-64 level is
-1x1), p7 at 128.
+1x1), p7 at 128.  p7's forwards, int8 heads and detector run these
+tests' bodies from ``tests/test_torch_large_p7.py``, a file of their own,
+so that the suite's parallel workers (one file a worker) run them beside
+p5's and p6's.
 
 Tolerances, each with its reason (those of ``tests/test_torch_csp.py``):
   * the fp32 forwards (He-init): with the head convs made linear, yolov4's
@@ -85,19 +88,11 @@ from tests.test_torch_conv_bf16 import _jax_conv
 from tests.test_torch_cuda import (LARGE_CONV_CASES, assert_rows_close, bf16_agreement,
                                    conv_bf16_floor, conv_bf16_input)
 from tests.test_torch_live import _jax_equalize
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # model -> the smallest input size it allows (a multiple of its deepest stride)
 SIZES = {"yolov4-p5": 64, "yolov4-p6": 64, "yolov4-p7": 128}
 ULP1 = float(np.spacing(np.float32(1.0)))  # one fp32 ulp of 1, the sigmoid's ceiling
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one intra-op thread while this module runs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _specs(text):
@@ -117,6 +112,7 @@ def model(request):
     size = SIZES[name]
     x = np.random.default_rng(3).uniform(0, 1, (1, size, size, 3)).astype(np.float32)
     yield name, jspec, tspec, jp, params_from_jax(jp), x
+    _SCALES.pop(name, None)
     del jp
     gc.collect()
 
@@ -130,8 +126,15 @@ def _jax_heads(jspec, params, x, quant=None):
     return [np.asarray(h) for h in _jax_forward(jspec, params, x, quant)]
 
 
-def _static_scales(jspec, jp, x):
-    return jq.collect_act_scales(jspec, jax.tree_util.tree_map(jnp.asarray, jp), x)
+_SCALES: dict = {}  # model -> JAX's static scales on the module's params and input
+
+
+def _static_scales(name, jspec, jp, x):
+    """JAX's static scales of ``model``, calibrated once while its params
+    live (p6's two int8 tests share them)."""
+    if name not in _SCALES:
+        _SCALES[name] = jq.collect_act_scales(jspec, jax.tree_util.tree_map(jnp.asarray, jp), x)
+    return _SCALES[name]
 
 
 def _assert_fp32_heads(ours, ref, pre_scale=None):
@@ -149,7 +152,7 @@ def _assert_fp32_heads(ours, ref, pre_scale=None):
         assert np.abs(o - r).max() <= bound, (j, np.abs(o - r).max(), bound)
 
 
-@pytest.mark.parametrize("model", list(SIZES), indirect=True)
+@pytest.mark.parametrize("model", ["yolov4-p5", "yolov4-p6"], indirect=True)
 def test_fp32_forward_matches_jax(model):
     """The fp32 forward at the smallest size: with the head convs made
     linear (their pre-activations, the same params) at yolov4's bound, and
@@ -182,8 +185,8 @@ def test_p5_every_conv_int8_matches_jax_bit_for_bit(model, scales):
     340-channel logistic heads among them), at JAX's static scales
     (int8-resident chains) or dynamic ones: every conv's output and the
     heads equal JAX's bit for bit."""
-    _, jspec, tspec, jp, tp, x = model
-    act = _static_scales(jspec, jp, x) if scales == "static" else None
+    name, jspec, tspec, jp, tp, x = model
+    act = _static_scales(name, jspec, jp, x) if scales == "static" else None
     qp = jq.quantize_params(jspec, jp, (), act)
     jheads, jouts = _jax_forward(jspec, qp, x, "w8a8", collect_conv_out_stats=lambda i, t: t)
     net = tdn.Darknet(tspec, tq.quantize_params(tspec, tp, (), act), quant="w8a8")
@@ -201,7 +204,7 @@ def test_p5_every_conv_int8_matches_jax_bit_for_bit(model, scales):
         np.testing.assert_array_equal(o.numpy(), r)
 
 
-@pytest.mark.parametrize("model", ["yolov4-p6", "yolov4-p7"], indirect=True)
+@pytest.mark.parametrize("model", ["yolov4-p6"], indirect=True)
 def test_every_conv_int8_heads_match_jax_bit_for_bit(model):
     """p6 and p7 w8a8 with no conv skipped, at JAX's static scales: the
     heads equal JAX's bit for bit.  This runs the plain K3/K4 epilogue at
@@ -209,7 +212,7 @@ def test_every_conv_int8_heads_match_jax_bit_for_bit(model):
     (480 + 480, 960 + 640, 1280 + 640, 960 + 960), and p6's (384, 768,
     1536; 768 + 512, 384 + 384)."""
     name, jspec, tspec, jp, tp, x = model
-    act = _static_scales(jspec, jp, x)
+    act = _static_scales(name, jspec, jp, x)
     qp = jq.quantize_params(jspec, jp, (), act)
     ref = _jax_heads(jspec, qp, x, "w8a8")
     del qp
@@ -237,8 +240,8 @@ def test_p6_default_skip_int8_matches_jax(model):
     int8.  Each conv runs on JAX's own input to it (taken by the stats
     hook): the int8 convs give JAX's output bit for bit, the fp32 ones
     within 1e-5 of its scale (+ 1e-5)."""
-    _, jspec, tspec, jp, tp, x = model
-    act = _static_scales(jspec, jp, x)
+    name, jspec, tspec, jp, tp, x = model
+    act = _static_scales(name, jspec, jp, x)
     early = tq.default_early_min_stride(tspec)
     skip = jq.resolve_skip_layers(jspec, "heads", default_min_stride=early)
     assert early == jq.default_early_min_stride(jspec) == 16 and len(skip) == 71
@@ -269,7 +272,7 @@ def test_p6_default_skip_int8_matches_jax(model):
                 np.testing.assert_array_equal(ours, ref, err_msg=f"conv {i}")
 
 
-@pytest.mark.parametrize("model", ["yolov4-p6", "yolov4-p7"], indirect=True)
+@pytest.mark.parametrize("model", ["yolov4-p6"], indirect=True)
 def test_detector_matches_jax(model):
     """``Detector`` end to end, fp32, at 128: the port's CPU detector
     against the JAX ``Detector`` with its Pallas kernels (interpret mode),
@@ -403,8 +406,8 @@ def test_family_plans(name):
     q = [l for l in convs if l.index not in skip]
     k3 = [l for l in q if l.size == 1 and l.stride == 1]
     assert (len(k3), len(q) - len(k3), len(convs) - len(q)) == (k3n, k4n, k5n)
-    assert all(tk.igemm_plan(l.in_channels, [0, l.in_channels], l.filters, False, True)[0]
-               == "wgmma" for l in q)
+    assert all(tk.igemm_plan(l.in_channels, [0, l.in_channels], l.filters, False, True,
+                             l.size, l.size, l.stride, l.padding)[0] == "wgmma" for l in q)
     split = tq.concat_split_groups(spec)
     assert split == jq.concat_split_groups(jspec)
     assert sum(1 for l in q if l.index in split) == nsplit

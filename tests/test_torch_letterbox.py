@@ -16,6 +16,7 @@ from pytorch_yolo_tpu.ops import postprocess as jpost
 from pytorch_yolo_tpu.ops import preprocess as jpre
 from pytorch_yolo_tpu_torch.ops import postprocess as tpost
 from pytorch_yolo_tpu_torch.ops import preprocess as tpre
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens", "letterbox.npz")
 

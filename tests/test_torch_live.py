@@ -27,6 +27,7 @@ from pytorch_yolo_tpu_torch import weights as tw
 from pytorch_yolo_tpu_torch.models import darknet as tdn
 from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 from tests.test_new_coords import MINI_CSP_CFG
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, "cfg", "yolov3-tiny.cfg")

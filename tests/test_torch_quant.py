@@ -93,6 +93,7 @@ from pytorch_yolo_tpu_torch.ops import quant as tq
 from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 from pytorch_yolo_tpu_torch.weights import params_from_jax
 from tests.test_new_coords import MINI_CSP_CFG
+from tests.torch_threads import all_torch_threads, one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(f[:-4] for f in os.listdir(os.path.join(ROOT, "cfg")) if f.endswith(".cfg"))
@@ -285,13 +286,15 @@ def test_igemm_work_counts(x_shape, w_shape, stride, pad, ops, nbytes):
     (64, [0, 64], 16, False, True, ("wgmma", 128)),
     (384, [0, 128, 384], 256, True, True, ("wgmma", 128)),  # split: fp32 group sums
     (256, [0, 80, 256], 128, True, True, ("wgmma", 128)),   # widths not multiples of 128
-    (3, [0, 3], 16, False, True, ("mma", 128)),              # the RGB stem: byte path
+    (3, [0, 3], 16, False, True, ("mma", 128)),              # C = 3 at 1x1: byte path
     (24, [0, 24], 32, False, True, ("mma", 128)),
     (128, [0, 40, 128], 64, True, True, ("mma", 128)),       # a group offset not 16-aligned
     (256, [0, 256], 128, False, False, ("mma", 128)),        # an operand not 16-byte aligned
 ])
 def test_igemm_plan_picks_core_by_shape(c, goff, o, split, aligned, plan):
-    assert tk.igemm_plan(c, goff, o, split, aligned) == plan
+    """The cores of 1x1 stride-1 calls (the 3x3 RGB stem's packed route:
+    ``tests/test_torch_int8_stem.py``)."""
+    assert tk.igemm_plan(c, goff, o, split, aligned, 1, 1, 1, 0) == plan
 
 
 def test_int8_wrappers_ignore_core_choice_on_cpu():
@@ -453,6 +456,7 @@ def test_collect_act_scales_defaults_to_the_card(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.usefixtures("all_torch_threads")  # the fp32 head convs: oneDNN's bits
 @pytest.mark.parametrize("mode", ["w8a8_dynamic", "w8a8_static_resident", "w8"])
 def test_quantized_forward_matches_jax(mode):
     jspec, tspec = specs("yolov3-tiny")
@@ -501,6 +505,7 @@ def _agree(ref, ours, bound=0.995):
     assert stats.ref_dets > 0 and stats.set_agreement >= bound, stats.row()
 
 
+@pytest.mark.usefixtures("all_torch_threads")  # the fp32 convs: oneDNN's bits
 @pytest.mark.parametrize("static", [False, True])
 def test_int8_detector_matches_jax(static):
     cfg = os.path.join(ROOT, "cfg", "yolov3-tiny.cfg")

@@ -54,6 +54,7 @@ from pytorch_yolo_tpu_torch.ops.xla_mish import mish_factor
 from pytorch_yolo_tpu_torch.weights import params_from_jax
 from tests.test_torch_conv_bf16 import SHORTCUT_CFG
 from tests.test_torch_cuda import plant_division_traps
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SPLITS = (8, 16, 24)
 

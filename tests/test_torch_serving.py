@@ -36,6 +36,7 @@ from pytorch_yolo_tpu_torch.ops import postprocess as tpost
 from pytorch_yolo_tpu_torch.ops import preprocess as tpre
 from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 from pytorch_yolo_tpu_torch.utils.profiling import PipelineStats
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

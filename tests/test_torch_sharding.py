@@ -57,6 +57,7 @@ from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 from tests.test_new_coords import MINI_P6_CFG
 from tests.test_torch_cli import (_coco_set, _jsonl, assert_rows_match,  # noqa: F401
                                   files, run_cli)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

@@ -26,6 +26,7 @@ from pytorch_yolo_tpu import weights as jw
 from pytorch_yolo_tpu.utils import drift as jdrift
 import pytorch_yolo_tpu_torch as pt
 from pytorch_yolo_tpu_torch.utils import drift as tdrift
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = np.random.default_rng(0).integers(0, 256, size=(2, 480, 640, 3), dtype=np.uint8)

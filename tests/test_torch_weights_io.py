@@ -20,6 +20,7 @@ import pytorch_yolo_tpu_torch.weights as tw
 from pytorch_yolo_tpu.models.zoo import model_spec as jax_model_spec
 from pytorch_yolo_tpu_torch import native
 from pytorch_yolo_tpu_torch.ops import kernels
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -120,7 +121,7 @@ def test_package_data_covers_build_inputs():
     globs = project["tool"]["setuptools"]["package-data"]["pytorch_yolo_tpu_torch"]
     pkg = os.path.join(ROOT, "pytorch_yolo_tpu_torch")
     files = [*kernels.SOURCES, *kernels.HEADERS, native._SRC]
-    assert len(files) == 10 and all(os.path.isfile(p) for p in files)
+    assert len(files) == 11 and all(os.path.isfile(p) for p in files)
     for path in files:
         rel = os.path.relpath(path, pkg).replace(os.sep, "/")
         assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)

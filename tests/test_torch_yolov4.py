@@ -53,6 +53,7 @@ from pytorch_yolo_tpu_torch.utils.drift import detection_drift
 from pytorch_yolo_tpu_torch.weights import params_from_jax
 from tests.test_torch_live import _jax_equalize
 from tests.test_torch_quantize_i8 import _float_cats
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # model -> (input size, batch)
 MODELS = {"yolov4": (64, 1), "yolov4-tiny": (96, 2)}

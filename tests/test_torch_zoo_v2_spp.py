@@ -83,20 +83,12 @@ from tests.test_torch_cuda import (V2_CONV_CASES, assert_rows_close, bf16_agreem
                                    conv_bf16_floor, conv_bf16_input)
 from tests.test_torch_live import _jax_equalize
 from tests.test_torch_quantize_i8 import _float_cats
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = 64
 MODELS = ("yolov3-spp", "yolov2", "yolov2-tiny")
 # model -> the multi-source routes its int8 forward reads through
 READ_THROUGH = {"yolov3-spp": {83, 93, 105}, "yolov2": {28}, "yolov2-tiny": set()}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one intra-op thread while this module runs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -305,7 +297,7 @@ def test_equalize_matches_jax_on_yolov2():
 
 
 # name -> K5 routes of the bf16 model; int8sb (default skip): K3, K4, K5
-# convs, the int8 convs on the mma.sync core (the C = 3 stem of a ladder),
+# convs, the int8 convs on K4's packed route (the C = 3 stem of a ladder),
 # the int8 convs after a concat route with their split groups; the early
 # threshold
 PLANS = {
@@ -324,10 +316,10 @@ def test_family_plans(name):
     generator's text equal to the JAX package's, K5's route for every conv
     of the bf16 model, and int8sb's convs at the default skip, whose set
     and early threshold equal the JAX package's: 1x1 stride-1 on K3, the
-    rest on K4, the RGB stem of the v2 ladders on the ``mma.sync`` core
-    (C = 3), the split-concat convs (yolov2's conv 29 on 256 + 1024 after
+    rest on K4, the RGB stem of the v2 ladders on K4's packed route (C = 3)
+    and none on the ``mma.sync`` core, the split-concat convs (yolov2's conv 29 on 256 + 1024 after
     the reorg route), the int8-resident chains, and the pools."""
-    routes, (k3n, k4n, k5n), mma, split, early = PLANS[name]
+    routes, (k3n, k4n, k5n), packed, split, early = PLANS[name]
     assert tzoo._GENERATORS[name]() == jzoo._GENERATORS[name]()
     spec, jspec = tzoo.model_spec(name), jzoo.model_spec(name)
     convs = [l for l in spec.layers if isinstance(l, tcfg.ConvSpec)]
@@ -341,8 +333,9 @@ def test_family_plans(name):
     k3 = [l for l in q if l.size == 1 and l.stride == 1]
     assert (len(k3), len(q) - len(k3), len(convs) - len(q)) == (k3n, k4n, k5n)
     cores = {l.index: tk.igemm_plan(l.in_channels, [0, l.in_channels], l.filters, False,
-                                    True)[0] for l in q}
-    assert sorted(i for i, c in cores.items() if c != "wgmma") == mma
+                                    True, l.size, l.size, l.stride, l.padding)[0] for l in q}
+    assert sorted(i for i, c in cores.items() if c == "packed") == packed
+    assert "mma" not in cores.values()
     groups = tq.concat_split_groups(spec)
     assert groups == jq.concat_split_groups(jspec)
     assert {l.index: groups[l.index] for l in q if l.index in groups} == split

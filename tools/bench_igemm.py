@@ -3,16 +3,18 @@
 
     python3 tools/bench_igemm.py                  # the four yolov3 shapes, batch 128
     python3 tools/bench_igemm.py --batch 32 --outs f32
+    python3 tools/bench_igemm.py --outs i8 --shapes "3x3 s1 416² 3->32,3x3 s2 416² 3->32"
 
 For each shape and output (``acc``: the int32 sums; ``fixed``: the int8
 probe's fixed-point requant; ``f32[:act]`` and ``i8[:act]``: the serving
 epilogue to fp32 or int8, leaky unless an activation is named) it
-times the wgmma core and the ``mma.sync`` core in turns (old, new, new,
-old), each two ways: eager calls between CUDA events (host time between
+times the core ``igemm_plan`` picks (the wgmma core; K4's packed route
+for the int8 RGB stems) and the ``mma.sync`` core in turns (old, new,
+new, old), each two ways: eager calls between CUDA events (host time between
 launches included, as a caller sees it) and the same calls replayed from a
 CUDA graph (device time only).  It prints each with the bound (ops at
 1,979 TOPS or bytes at 3.35 TB/s) and the share of it reached, and checks
-the wgmma core against the ``mma.sync`` core bit for bit.  Imports nothing
+the planned core against the ``mma.sync`` core bit for bit.  Imports nothing
 of JAX.
 """
 
@@ -31,7 +33,10 @@ SHAPES = {"1x1 52² 256->128": (1, 1, 52, 256, 128), "3x3 s1 52² 128->256": (3,
           "3x3 s2 104²->52² 128->256": (3, 2, 104, 128, 256),
           "3x3 s1 13² 512->1024": (3, 1, 13, 512, 1024),
           # the 13² conv's GEMM on K3: both operands by TMA, no gather
-          "1x1 13² 4608->1024": (1, 1, 13, 4608, 1024)}
+          "1x1 13² 4608->1024": (1, 1, 13, 4608, 1024),
+          # the int8 RGB stems of yolov2, yolov2-tiny and yolov4-tiny (K4's packed route)
+          "3x3 s1 416² 3->32": (3, 1, 416, 3, 32), "3x3 s1 416² 3->16": (3, 1, 416, 3, 16),
+          "3x3 s2 416² 3->32": (3, 2, 416, 3, 32)}
 
 
 def eager_ms(fn, iters=20):
@@ -80,8 +85,8 @@ def main() -> None:
 
     if args.bn:  # every wgmma call at this tile width (split calls stay at 128)
         plan = kernels.igemm_plan
-        kernels.igemm_plan = lambda *a: (lambda core, bn: (core, args.bn if core == "wgmma"
-                                                           and not a[3] else bn))(*plan(*a))
+        kernels.igemm_plan = lambda *a, **kw: (lambda core, bn: (
+            core, args.bn if core == "wgmma" and not a[3] else bn))(*plan(*a, **kw))
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -105,8 +110,9 @@ def main() -> None:
                     return kernels.int8_gemm(x.view(-1, c), w.view(o, c), _mma=mma, **epi)
                 return kernels.int8_conv(x, w, stride, k // 2, _mma=mma, **epi)
 
+            core = kernels.igemm_plan(c, [0, c], o, False, True, k, k, stride, k // 2)[0]
             if not torch.equal(run(False), run(True)):
-                sys.exit(f"{name} {out}: the wgmma and mma.sync cores disagree")
+                sys.exit(f"{name} {out}: the {core} and mma.sync cores disagree")
             res = {}
             for how, timer in (("eager", eager_ms), ("graph", graph_ms)):
                 o1 = timer(lambda: run(True))
@@ -118,7 +124,7 @@ def main() -> None:
             bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
             (ne, oe), (ng, og) = res["eager"], res["graph"]
             bn = f" BN {args.bn}" if args.bn else ""
-            print(f"{name} batch {args.batch} out {out}{bn}: wgmma {ng:.4f} ms graph / {ne:.4f} "
+            print(f"{name} batch {args.batch} out {out}{bn}: {core} {ng:.4f} ms graph / {ne:.4f} "
                   f"eager ({bound / ng:.1%} of bound), mma.sync {og:.4f} / {oe:.4f}; bound "
                   f"{bound:.4f} ms ({ops / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB); {card}",
                   flush=True)

@@ -77,6 +77,7 @@ GROUPS = (("k6_tile_kernel<false", "K6 int8 input quantizer"),
           ("wgmma_kernel<true", "K4 int8 conv (wgmma)"),
           ("igemm_kernel<false", "K3 int8 GEMM (mma.sync)"),
           ("igemm_kernel<true", "K4 int8 conv (mma.sync)"),
+          ("pk::packed_kernel", "K4 int8 conv (packed RGB stem)"),
           ("conv_bf16_kernel<0", "K5 bf16 conv (gather)"),
           ("conv_bf16_kernel<1", "K5 bf16 conv (TMA A)"),
           ("conv_bf16_kernel<2", "K5 bf16 conv (im2col A)"),
