@@ -144,21 +144,27 @@ Phases, one line each (a failure in any phase exits non-zero):
      leaky at yolov4's 608² stride-2 conv, batch 64, device time in turns;
      the same gate on every distinct conv of yolov4-csp@512,
      yolov4x-mish@640, yolov4-p5@896, yolov4-p6@1280 and yolov4-p7@1536 at
-     batch 4 (the logistic heads and the gather route included), and the
-     five distinct gather convs (C % 32 != 0) of yolov4x-mish (layers 0,
-     1, 3, 5 and 10) at its path's batch 64 and of yolov4-p7 (layers 0,
-     1, 6, 11 and 16, 19, 22) at its batch 8, eager and device time beside
-     the bound, the plain version and cuDNN's bf16 ``F.conv2d`` + bf16
-     bias + mish (eager and device, in turns); the same gate on every
-     distinct conv of yolov3-spp@608, yolov2@416 and yolov2-tiny@416 at
-     batch 4, and yolov2-tiny's gather conv (layer 2, C = 16) at batch 128,
-     timed the same way beside cuDNN + bias + leaky;
+     batch 4 (the logistic heads, the 3->40 stems on the packed route and
+     the C = 40 / 80 convs on the "im2col16" route included), and the
+     distinct convs that the 16-byte gather route ran before (the 3->40
+     stem and C % 32 != 0) of yolov4x-mish (layers 0, 1, 3, 5 and 10) at
+     its path's batch 64 and of yolov4-p7 (layers 0, 1, 6, 11 and 16, 19,
+     22) at its batch 8, eager and device time beside the bound, the plain
+     version, cuDNN's bf16 ``F.conv2d`` + bf16 bias + mish (eager and
+     device, in turns), the gather route (``_route="gather"``, device, in
+     turns) and, for p7's conv 6 on the halo route, the "im2col16" route
+     (device, in turns; its output equal to the halo route's bit for
+     bit); their 3x3 "im2col32" convs (C % 64 == 32: 160, 480) the same
+     way without the gather; the same gate on every distinct conv of
+     yolov3-spp@608, yolov2@416 and yolov2-tiny@416 at batch 4, and
+     yolov2-tiny's C = 16 conv (layer 2) at batch 128, timed the same way
+     beside cuDNN + bias + leaky and the gather;
      then K5 at batch 128 at every distinct
      yolov3@416 conv shape whose A does not come by a 2-D TMA box (11:
-     the im2col, gather and packed routes) and at the largest 1x1 (52²
+     the im2col, im2col32 and packed routes) and at the largest 1x1 (52²
      256->128), eager and device time, beside its plain version, the
      library path it replaced (cuDNN bf16 ``F.conv2d`` with its bf16 bias
-     + leaky, in turns), its bound (bf16 at 989 TFLOP/s or bytes at
+     + leaky, eager and device, in turns), its bound (bf16 at 989 TFLOP/s or bytes at
      3.35 TB/s) and its launches a step; beside them, from a model of the
      shapes (``kernels.conv_bf16_traffic``, no counter), the tile loads'
      bytes and their rate, and the device time over the modelled stages of
@@ -261,7 +267,8 @@ Phases, one line each (a failure in any phase exits non-zero):
      again with ``quant_split_concat`` (13 int8 convs on split groups);
      (e) drift of bf16 and int8sb "auto" against fp32 on 4 frames: no
      degenerate row;
- 21. yolov4x-mish@640 (139 convs, 7 on K5's gather route), live weights,
+ 21. yolov4x-mish@640 (139 convs, 6 on K5's "im2col16" route and the
+     3->40 stem on its packed route, checked by route), live weights,
      batch 64: as phase 20 (int8sb: 120 int8 convs, 72 on K3 and 48 on
      K4, the CSP-SPP route 133's four 640-channel sources in one K6), plus
      (d) bf16 at batch 128 once, bit-equal to its two halves (layer 0's
@@ -274,8 +281,9 @@ Phases, one line each (a failure in any phase exits non-zero):
  23. yolov4-p6@1280 (a stride-64 head, early skip 16), batch 16: as 22
      (205 K5; 81 K3 + 53 K4, 71 on K5; route 197; 15 split convs; (d) at
      32);
- 24. yolov4-p7@1536 (a stride-128 head, early skip 32, 7 convs on K5's
-     gather route), batch 8: as 22 (247 K5; 73 K3 + 45 K4, 129 on K5; route
+ 24. yolov4-p7@1536 (a stride-128 head, early skip 32, 5 convs on K5's
+     "im2col16" route, conv 6 on its halo route, the 3->40 stem packed),
+     batch 8: as 22 (247 K5; 73 K3 + 45 K4, 129 on K5; route
      225's four 640-channel sources; 15 split convs; (d) at 16);
  25. yolov3-spp@608 (SPP in a leaky Darknet-53), live weights, batch 64:
      as 18 (bf16: 76 K5 a step; int8sb: early skip 8, 32 K3 + 31 K4, 13
@@ -912,22 +920,35 @@ def k5_agreement(ours, ref, x, w, b, stride, pad, shortcut=None) -> tuple[float,
     return equal, steps, float(gap.max())
 
 
+def was_gather(c: int, o: int, k: int, stride: int, pad: int) -> bool:
+    """True for a conv that K5's 16-byte gather route ran before the packed
+    route took the RGB stem up to 64 outputs and the "im2col16" route took C
+    % 32 != 0: C % 32 != 0, not a 1x1 stride-1 conv, not a 3x3 stem of at
+    most 32 outputs."""
+    return (c % 32 != 0 and not (k == 1 and stride == 1 and pad == 0)
+            and not (k == 3 and c == 3 and o <= 32))
+
+
 def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
     """K5 against its plain version on every distinct conv of the
     Scaled-YOLOv4 models of :data:`CSP` and :data:`LARGE` and of the
     models of :data:`ZOO_LAST` at batch 4 (their bf16 live forwards' conv
     inputs: mish and leaky, the logistic, linear and [region] heads, the
-    gather convs, a fused shortcut where the model has one); then each
-    distinct gather conv (yolov4x-mish's, yolov4-p7's and yolov2-tiny's) at
-    its path's batch, on those inputs repeated: K5's eager and device time
-    beside its bound, its plain version and cuDNN's bf16 ``F.conv2d`` +
-    bf16 bias + the conv's activation, in turns."""
+    former gather convs, a fused shortcut where the model has one); then
+    each distinct former gather conv (:func:`was_gather`: yolov4x-mish's,
+    yolov4-p7's and yolov2-tiny's) and each distinct 3x3 "im2col32" conv of
+    yolov4x-mish and yolov4-p7 at its path's batch, on those inputs
+    repeated: K5's eager and device time beside its bound, its plain
+    version and cuDNN's bf16 ``F.conv2d`` + bf16 bias + the conv's
+    activation, in turns; a former gather conv also beside the 16-byte
+    gather route it ran on before (``conv_bf16(..., _route="gather")``, device
+    time in turns)."""
     from pytorch_yolo_tpu_torch import Detector
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
 
     F = torch.nn.functional
     worst = {"equal": 1.0, "steps": 0, "abs": 0.0}
-    cases, gather = 0, {}
+    cases, gather, im2col32 = 0, {}, {}
     for name, size, batch in CSP + LARGE + ZOO_LAST:
         spec, live = scaled_live[name]
         det = Detector(spec, live, device=dev, dtype=torch.bfloat16, precision="default")
@@ -942,10 +963,12 @@ def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
             f"{sorted(collections.Counter(p[0] for p in plans.values()).items())}), worst "
             f"{w['equal']:.4%} bit-equal, {w['steps']} step")
         for key, i in keys.items():
-            if plans[i][0] != "gather":
-                continue
             c = det.model.convs[str(i)]
             (n4, h, wd, ch), ws = key[0], key[1]
+            old = was_gather(ch, ws[0], ws[1], c.stride, c.padding)
+            if not (old or (plans[i][0] == "im2col32" and ws[1] == 3
+                            and name in ("yolov4x-mish", "yolov4-p7"))):
+                continue
             ho = (h + 2 * c.padding - ws[1]) // c.stride + 1
             label = (f"{name} conv {i} {ws[1]}x{ws[2]} s{c.stride} {h}²"
                      + (f"->{ho}²" if c.stride > 1 else "") + f" {ch}->{ws[0]}")
@@ -953,7 +976,7 @@ def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
             k5 = lambda: kernels.conv_bf16(x, c.weight, c.bias, c.stride, c.padding, c.activation)  # noqa: E731
             ours = k5()
             ref = kernels.conv_bf16_ref(x, c.weight, c.bias, c.stride, c.padding, c.activation)
-            equal, steps, _ = k5_agreement(ours, ref, x, c.weight, c.bias, c.stride, c.padding)
+            equal, steps, err = k5_agreement(ours, ref, x, c.weight, c.bias, c.stride, c.padding)
             if equal < 0.999 or steps > 1:
                 fail(f"K5 {label} batch {batch}: {equal:.5%} bit-equal, {steps} steps")
             del ours, ref
@@ -972,21 +995,45 @@ def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
                                                  c.padding)
             bms, by = bound(ops, nbytes, PEAK_BF16_OPS)
             per = per_step[(key[0][1:], ws, c.stride)]
-            gather[label] = dict(launches_per_step=per, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                                 library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=bms,
-                                 bound_by=by, equal=equal, plan=list(plans[i]),
-                                 bytes=nbytes, flops=ops)
-            say(f"phase 13 K5 gather {label} batch {batch} ({per} a step, plan "
-                f"{plans[i]}): {ms:.4f} ms eager, {dev_ms:.4f} ms device ({bms / dev_ms:.1%} of "
-                f"its {bms:.4f} ms bound, {by}: {ops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB); "
-                f"cuDNN bf16 conv + bf16 bias + {c.activation} {lib_ms:.4f} ms eager, "
-                f"{lib_dev_ms:.4f} ms "
-                f"device, in turns ({lib_dev_ms / dev_ms:.2f}x K5's); plain "
-                f"{plain_ms:.4f} ms; {equal:.4%} bit-equal to the plain version; on {card}")
+            row = dict(launches_per_step=per, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=bms,
+                       bound_by=by, equal=equal, max_abs_err=err, plan=list(plans[i]),
+                       bytes=nbytes, flops=ops)
+            was = ""
+            if old:  # the 16-byte gather route it ran on before, device time in turns
+                gather_k5 = lambda: kernels.conv_bf16(  # noqa: E731
+                    x, c.weight, c.bias, c.stride, c.padding, c.activation, _route="gather")
+                new_ms, gather_ms = in_turns(gather_k5, k5, timer=graph_ms)
+                row.update(device_ms_vs_gather=new_ms, gather_device_ms=gather_ms)
+                was = (f"; the gather route it replaced {gather_ms:.4f} ms device in turns "
+                       f"({gather_ms / new_ms:.2f}x this route's {new_ms:.4f})")
+                other = "im2col16" if plans[i][0] == "halo" else None
+                if other:
+                    # the design the plan did not pick for this conv, in turns
+                    other_k5 = lambda: kernels.conv_bf16(  # noqa: E731
+                        x, c.weight, c.bias, c.stride, c.padding, c.activation, _route=other)
+                    o_out = other_k5()
+                    if not torch.equal(o_out, k5()):
+                        fail(f"K5 {label}: the {other} route's output differs from the "
+                             f"{plans[i][0]} route's (both sum in one order)")
+                    del o_out
+                    new2_ms, other_ms = in_turns(other_k5, k5, timer=graph_ms)
+                    row.update(other_route=other, other_route_device_ms=other_ms,
+                               device_ms_vs_other=new2_ms)
+                    was += (f"; the {other} route {other_ms:.4f} ms device in turns "
+                            f"({other_ms / new2_ms:.2f}x)")
+            (gather if old else im2col32)[label] = row
+            say(f"phase 13 K5 {'former gather' if old else 'im2col32'} {label} batch {batch} "
+                f"({per} a step, plan {plans[i]}): {ms:.4f} ms eager, {dev_ms:.4f} ms device "
+                f"({bms / dev_ms:.1%} of its {bms:.4f} ms bound, {by}: {ops / 1e9:.1f} GFLOP, "
+                f"{nbytes / 1e9:.3f} GB); cuDNN bf16 conv + bf16 bias + {c.activation} "
+                f"{lib_ms:.4f} ms eager, {lib_dev_ms:.4f} ms device, in turns "
+                f"({lib_dev_ms / dev_ms:.2f}x K5's){was}; plain {plain_ms:.4f} ms; "
+                f"{equal:.4%} bit-equal to the plain version; on {card}")
             del x, xc
         del det, inputs
         torch.cuda.empty_cache()
-    return dict(worst=worst, cases=cases, gather=gather)
+    return dict(worst=worst, cases=cases, gather=gather, im2col32=im2col32)
 
 
 def phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live) -> dict:
@@ -1036,7 +1083,7 @@ def phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live) -> dict:
     del x1, w1
 
     # K5 at batch 128 at every distinct conv shape of yolov3@416 whose A does
-    # not come by a 2-D TMA box (im2col, gather and packed routes), and at
+    # not come by a 2-D TMA box (im2col, im2col32 and packed routes), and at
     # its largest 1x1, each on that layer's real activations
     timed = {}
     F = torch.nn.functional
@@ -1066,7 +1113,7 @@ def phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live) -> dict:
         lib = lambda: F.leaky_relu(F.conv2d(xc, wc, bc, stride=c.stride, padding=c.padding),  # noqa: E731
                                    0.1, inplace=True)
         ms, lib_ms = in_turns(lib, k5)
-        dev_ms = graph_ms(k5)
+        dev_ms, lib_dev_ms = in_turns(lib, k5, timer=graph_ms)
         plain_ms = time_ms(lambda: kernels.conv_bf16_ref(x, c.weight, c.bias, c.stride,
                                                          c.padding, c.activation), 3, 1)
         ops, nbytes = kernels.conv_bf16_work(tuple(x.shape), tuple(c.weight.shape), c.stride,
@@ -1080,6 +1127,7 @@ def phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live) -> dict:
                                                          c.padding)
         us_stage = dev_ms * 1e3 / (tiles * ksteps / sms)
         timed[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           library_device_ms=lib_dev_ms,
                            bound_ms=bms, bound_by=by, equal=equal, plan=list(plan),
                            launches_per_step=per_step[(xs, ws, stride)],
                            model_tile_load_bytes=loads, model_us_per_stage_per_sm=us_stage)
@@ -1087,7 +1135,8 @@ def phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live) -> dict:
             f"{per_step[(xs, ws, stride)]} a step): {ms:.4f} ms eager, {dev_ms:.4f} ms device "
             f"({bms / dev_ms:.1%} of its {bms:.4f} ms bound, {by}: {ops / 1e9:.1f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB; {ops / dev_ms / 1e9:.1f} TFLOP/s); cuDNN bf16 conv + bf16 "
-            f"bias + leaky {lib_ms:.4f} ms in turns ({lib_ms / ms:.2f}x); plain {plain_ms:.4f} "
+            f"bias + leaky {lib_ms:.4f} ms in turns ({lib_ms / ms:.2f}x), {lib_dev_ms:.4f} ms "
+            f"device in turns ({lib_dev_ms / dev_ms:.2f}x); plain {plain_ms:.4f} "
             f"ms; model: {loads / 1e9:.3f} GB of tile loads ({loads / dev_ms / 1e9:.2f} TB/s "
             f"at the measured time), {us_stage:.3f} us a stage a SM ({tiles} tiles x {ksteps} "
             f"stages); "
@@ -2142,19 +2191,22 @@ def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
 # mma.sync core), the multi-source
 # route whose sources one K6 reads (SPP's four, or yolov2's reorg route 28;
 # None: the model has no such route) and the int8 convs after a concat
-# route, on split groups with quant_split_concat.  drift_guarded: a
+# route, on split groups with quant_split_concat.  boxed / halo: the bf16
+# convs on K5's "im2col16" / halo routes (C % 32 != 0; every model's RGB
+# stem runs on K5's packed route, and none on the gather).  drift_guarded: a
 # degenerate drift row is printed "DO-NOT-BANK" instead of failing the phase
 # (yolov3-spp, whose live regime was degenerate on the TPU).
 MODEL_PLAN = {"yolov4": dict(convs=110, k3=52, k4=37, route=113, split=8),
               "yolov4-csp": dict(convs=115, k3=61, k4=37, route=109, split=13),
-              "yolov4x-mish": dict(convs=139, k3=72, k4=48, route=133, split=13),
+              "yolov4x-mish": dict(convs=139, k3=72, k4=48, route=133, split=13, boxed=6),
               "yolov4-p5": dict(convs=163, k3=82, k4=58, route=169, split=13),
               "yolov4-p6": dict(convs=205, k3=81, k4=53, route=197, split=15),
-              "yolov4-p7": dict(convs=247, k3=73, k4=45, route=225, split=15),
+              "yolov4-p7": dict(convs=247, k3=73, k4=45, route=225, split=15, boxed=5, halo=1),
               "yolov3-spp": dict(convs=76, k3=32, k4=31, route=83, split=3,
                                  drift_guarded=True),
               "yolov2": dict(convs=23, k3=7, k4=15, route=28, split=1, packed=1),
-              "yolov2-tiny": dict(convs=9, k3=0, k4=8, route=None, split=0, packed=1)}
+              "yolov2-tiny": dict(convs=9, k3=0, k4=8, route=None, split=0, packed=1,
+                                  boxed=1)}
 
 
 def pool_times(spec, size: int, batch: int, dev, dtype, layers=None) -> dict:
@@ -2358,8 +2410,10 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
         return det.raw_result(part, size=size, conf=CONF, iou=IOU, max_det=MAX_DET)
 
     kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    kernels.CONV_BF16_LAUNCHES.update(dict.fromkeys(kernels.CONV_BF16_LAUNCHES, 0))
     times, res = pipeline_ms(step)
     launches = dict(kernels.LAUNCHES)
+    k5_routes = dict(kernels.CONV_BF16_LAUNCHES)
     steps = len(times) + 3
     if not (launches["decode_score"] == steps and launches["nms_keep"] == steps):
         fail(f"{name} bf16: expected one K1 and one K2 launch in each of {steps} steps: "
@@ -2368,6 +2422,12 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
             or launches["conv_bf16"] != plan["convs"] * steps):
         fail(f"{name} bf16: expected one K5 launch for each of {plan['convs']} convs in each of "
              f"{steps} steps ({len(det.model.convs)} convs): {launches}")
+    if (k5_routes["im2col16"] != plan.get("boxed", 0) * steps
+            or k5_routes["halo"] != plan.get("halo", 0) * steps or k5_routes["gather"]
+            or k5_routes["packed"] != steps):
+        fail(f"{name} bf16: expected {plan.get('boxed', 0)} K5 launch(es) a step on the "
+             f"\"im2col16\" route, {plan.get('halo', 0)} on the halo route, the stem on the "
+             f"packed route and none on the gather route in each of {steps} steps: {k5_routes}")
     check_result(res, f"{name} bf16", batch)
     bf16_dets = det._trim(res, batch)
     ms = statistics.median(times)
@@ -2377,10 +2437,12 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     # their input, bf16, on the grid of the stride at the pool
     pools = pool_times(spec, size, batch, dev, torch.bfloat16)
     out["bf16"] = dict(ms=ms, img_s=batch / ms * 1e3, min=min(times), max=max(times),
-                       launches=launches, profile=prof, pools_device_ms=pools)
+                       launches=launches, k5_routes=k5_routes, profile=prof,
+                       pools_device_ms=pools)
     say(f"{tag}b {name}@{size} bf16 batch {batch} pipeline: median {ms:.3f} ms/batch, "
         f"{batch / ms * 1e3:.1f} img/s (min {min(times):.3f}, max {max(times):.3f} ms; "
-        f"{int(res.valid.sum())} kept) on {card}; launches {launches}")
+        f"{int(res.valid.sum())} kept) on {card}; launches {launches}; K5 by route "
+        f"{k5_routes}")
     say(f"{tag}b {name} bf16 step under torch.profiler: {prof['device_ms']:.3f} ms of "
         f"{prof['operations']} device operations; top kernels {json.dumps(prof['top'])}; "
         f"maxpools alone (bf16, batch {batch}, device ms) {json.dumps(pools, ensure_ascii=False)}")
@@ -3560,6 +3622,10 @@ def main() -> None:
              "yolov2-tiny": scaled_runs["yolov2-tiny"]["int8sb"]["int8_stem"],
              "yolov4-tiny": tiny19["int8_stem"]}
 
+    # K5's launches by route in the bf16 steps of the paths that run the
+    # "im2col16" route (phases 21b, 24b, 27b)
+    launches_by_route = {name: scaled_runs[name]["bf16"]["k5_routes"]
+                         for name in ("yolov4x-mish", "yolov4-p7", "yolov2-tiny")}
     report = {"kernels": [
         {"name": "decode_score", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/decode_score.cu",
@@ -3626,13 +3692,21 @@ def main() -> None:
                                              "plan", "launches_per_step")}
                     for k, v in k5["timed"].items()},
          "yolov4_mish_vs_leaky": k5["mish_leaky"],
-         # the gather convs of yolov4x-mish@640 at batch 64, of
-         # yolov4-p7@1536 at batch 8 and of yolov2-tiny@416 at batch 128
-         # (phase 13)
-         "gather": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms",
-                                             "library_device_ms", "bound_ms", "bound_by",
-                                             "launches_per_step")}
-                    for k, v in k5c["gather"].items()}},
+         # the former gather convs (packed, "im2col16" and halo routes now)
+         # of yolov4x-mish@640 at batch 64, of yolov4-p7@1536 at batch 8 and
+         # of yolov2-tiny@416 at batch 128, beside the gather route and the
+         # "im2col16" route for the halo conv in turns; and the 3x3 "im2col32" convs
+         # of the first two (phase 13)
+         "gather": {k: {kk: v.get(kk) for kk in (
+             "ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by",
+             "launches_per_step", "plan", "max_abs_err", "device_ms_vs_gather",
+             "gather_device_ms", "other_route", "other_route_device_ms")}
+                    for k, v in k5c["gather"].items()},
+         "im2col32": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms",
+                                               "library_device_ms", "bound_ms", "bound_by",
+                                               "launches_per_step", "plan")}
+                      for k, v in k5c["im2col32"].items()},
+         "launches_by_route": launches_by_route},
         {"name": "quantize_i8", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/quantize_i8.cu",
          "replaces": "pytorch_yolo_tpu/ops/quant.py:596",

@@ -25,7 +25,9 @@
 // helpers of the int8 core (int8_wgmma.cuh):
 //   * one producer warpgroup, two consumer warpgroups, persistent blocks, a
 //     ring of stages with a full and an empty mbarrier each; a 128 x BN
-//     block tile (BN = 64 up to 64 outputs, else 128), each consumer
+//     block tile (BN = 64 up to 64 outputs, else 128; on the "im2col16",
+//     halo and packed routes fitted to O: 32, 48, 64, 80 or 128, so that
+//     40 outputs run on 48 columns and 80 or 160 on 80), each consumer
 //     warpgroup 64 x BN with wgmma.m64nBNk16.f32.bf16.bf16 from swizzled
 //     K-major tiles;
 //   * A's route, chosen from the shapes alone (ops/kernels.py:
@@ -43,14 +45,41 @@
 //         load.  A stage takes an SM 0.50-0.90 us against 0.28 of MMA
 //         time at BN = 128 (PERF.md section 6);
 //       - "tma" (1x1 stride 1): A as the (M, C) matrix it is; bound by HBM;
-//       - "packed" (the RGB stem, 3x3 x 3 channels): 27 values and 5 zeros
-//         a 64-byte row, built by the producer from the 3-channel pixels,
-//         W one 32 x 32 tile loaded once a block, 256 pixels a tile and
-//         BN = 32 (conv_bf16_packed_kernel); bound by HBM and the
-//         producer's 2-byte loads;
-//       - "gather" (C % 32 != 0: the s2d stem's packed conv; or more
-//         stages than the table holds): 16-byte
-//         cp.async copies by the producer warpgroup, K walked flat;
+//       - "im2col16" (the other C % 8 == 0: yolov4x-mish's and yolov4-p7's
+//         C = 40 and 80, yolov2-tiny's 16, the s2d stem's 12 padded to 16):
+//         four TMA im2col boxes a stage, each 128 pixels x 16 channels of
+//         one tap in its own 32-byte-swizzled sub-tile and one k16 wgmma;
+//         a tap's last box of C % 16 == 8 channels reads its last 8 as
+//         zeros (TMA's out-of-bounds fill), W is repacked once in box order
+//         with zero channels there, and W's N-tile stays in shared memory
+//         beside a ring of 4-8 stages (a conv whose W does not fit goes to
+//         the gather).  One thread issues every load; no copy of x, no
+//         proxy fence.  Bound by the boxes' traffic into shared memory (each
+//         input pixel once a tap: 2.1-2.7 TB/s over the card; 80-byte
+//         pixels' boxes straddle 32-byte sectors) and, at 80 mish outputs,
+//         by the epilogue's arithmetic (PERF.md section 6);
+//       - "halo" (3x3 pad 1 stride 1, C % 16 == 8, at most 48 outputs, a
+//         tile of BN = 32 or 48: conv_bf16_halo_kernel in
+//         conv_bf16_halo.cu): a 4 x 32 block of output pixels a tile,
+//         its input pixels brought once by one tiled TMA box, A built by
+//         ldmatrix at per-lane pixel addresses, wgmma with A from
+//         registers.  It moves a ninth of the boxes' bytes, and beats them
+//         where they bound the conv (p7's 768^2 40 -> 40, batch 8: 1.41
+//         against 2.00 ms in turns, chip_smoke.py phase 13); where an
+//         80-column mish epilogue sets the pace the boxes' deeper ring hides
+//         more of it, and they stay (yolov4x-mish's 160^2 80 -> 80, batch
+//         64: 0.91 against 1.03 ms at BN = 80, so the halo route is built
+//         only for the tiles of up to 48 outputs);
+//       - "packed" (the RGB stem, 3x3 x 3 channels, up to 64 outputs): 27
+//         values and 5 zeros a 64-byte row, built by the producer from the
+//         3-channel pixels, W one BN x 32 tile loaded once a block, 256
+//         pixels a tile, BN = 32, 48 or 64 (conv_bf16_packed_kernel in
+//         conv_bf16_packed.cu); bound by HBM and the producer's 2-byte
+//         loads, and with mish by the epilogue's arithmetic;
+//       - "gather" (only a conv with more boxes than the stage table
+//         holds, or an "im2col16" conv whose W does not fit beside the
+//         ring; no zoo conv): 16-byte cp.async copies by the producer
+//         warpgroup, K walked flat;
 //   * two-level accumulation: the tensor cores chain P = kPromote = 4
 //     stages (256 of K) into a fresh partial set, then the consumer adds it
 //     into the tile's fp32 sums with __fadd_rn, once a group: the MMAs drain
@@ -80,7 +109,10 @@
 //     each thread then turns four columns of one row into bf16 outputs,
 //     __fadd_rn(sum, bias), the activation of int8_igemm.cuh (the JAX
 //     formulas), __float2bfloat16_rn, and writes them with one 8-byte store.
-//     The store loop is compiled once per (activation, shortcut).
+//     The store loop is compiled once per (activation, shortcut).  On the
+//     tiles fitted to O a chunk of 16 or 8 live columns spreads over 4 or
+//     2 threads a row (not 8 with most idle), and each thread computes its
+//     rows' activations together before it stores them (store_chunk_fitted).
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, chip_smoke.py
 // phase 13, device time at batch 128): 3x3 s1 52^2 128->256 0.47 ms (cuDNN
 // bf16 conv + bias + leaky 0.65), 26^2 256->512 0.40 (cuDNN 0.47), 13^2
@@ -90,322 +122,10 @@
 // fp32 conv of the same bf16 operands) up to the order of the fp32 sums:
 // a bf16 output differs only where those sums straddle a rounding boundary.
 
-#include <cuda_bf16.h>
-
-#include "device_guard.cuh"
-#include "int8_igemm.cuh"
-#include "int8_wgmma.cuh"
+#include "conv_bf16.cuh"
 
 namespace {
 namespace cb {
-
-constexpr int kStageK = wg::kBK / 2;  // bf16 of K a stage: one 128-byte swizzle row
-// P: the stages of K the tensor cores chain into one partial set (the
-// tile's BN columns) before the consumer adds it into the tile's sums.
-constexpr int kPromote = 4;
-
-// CTAs of a cluster: neighbouring M-tiles of one N-tile, each loading half
-// of the B stage for both (TMA multicast).
-constexpr int kCluster = 2;
-
-// How A reaches shared memory (ops/kernels.py: conv_bf16_plan, which also
-// picks the stage width: kRouteIm2col32, for C % 64 == 32, takes one tap's
-// 32 channels a stage, rows of 64 bytes with 64-byte swizzle).
-enum Route {
-  kRouteGather = 0,
-  kRouteTma = 1,
-  kRouteIm2col = 2,
-  kRoutePacked = 3,
-  kRouteIm2col32 = 4
-};
-
-// Entries of the im2col routes' stage table (ops/kernels.py:
-// CONV_BF16_MAX_STAGES): the plan sends a conv with more stages to the gather.
-constexpr int kMaxStages = 512;
-
-// Bytes of a stage's row of A and of B: 64 bf16 of K, or 32 on kRouteIm2col32.
-__host__ __device__ constexpr int row_bytes(int route) {
-  return route == kRouteIm2col32 ? 64 : 128;
-}
-
-// Shared memory of the main kernel: a ring of stages of A (128 rows) and
-// B (BN rows), then the epilogue's staging rows, the biases, the gather's
-// row table and the barriers.
-template <int BN, int kRow>
-struct Layout {
-  static constexpr int kStages = 6 * 128 / kRow;  // 6 of 128-byte rows, 12 of 64-byte rows
-  static constexpr int kABytes = wg::kBM * kRow;
-  static constexpr int kBBytes = BN * kRow;
-  static constexpr int kOffB = kStages * kABytes;
-  static constexpr int kOffStaging = kOffB + kStages * kBBytes;        // 2 x 64 rows
-  static constexpr int kOffParams = kOffStaging + 2 * 64 * wg::kStageRow;  // 2 x BN fp32
-  static constexpr int kOffRows = kOffParams + 2 * BN * 4;             // 128 RowInfo
-  static constexpr int kOffBars = kOffRows + wg::kBM * 16;             // full, then empty
-  static constexpr int kBytes = kOffBars + 2 * kStages * 8 + 1024;     // + alignment slack
-  static_assert(kBytes <= 232448, "shared memory over the 227 KB a block may use");
-};
-
-// The packed route (a 3x3 conv of 3 channels with O <= 32: the RGB stem):
-// one stage of K = 32 a tile (27 values and 5 zeros), 64-byte rows, 256
-// output pixels a tile.
-constexpr int kPackedTaps = 3;
-constexpr int kPackedC = 3;
-constexpr int kPackedK = 32;
-constexpr int kPackedRows = 256;
-constexpr int kPackedStages = 4;
-
-// Registers a thread after setmaxnreg where one producer thread issues
-// every load (TMA and im2col routes); the gather keeps wg's split, which
-// its 128 producer threads need.  As in int8_wgmma.cuh, the consumers'
-// increase must not exceed what the producer frees, or the kernel hangs.
-constexpr int kIssueRegs = 40;
-constexpr int kIssueConsumerRegs = 232;
-static_assert(128 * (168 - kIssueRegs) >= 256 * (kIssueConsumerRegs - 168),
-              "the consumers would wait forever for registers");
-
-// Mirrors ops/kernels.py: _ConvBf16Args (ctypes).  Pointers first, then ints.
-struct ConvBf16Args {
-  const uint8_t* x;         // NHWC bf16 (batch, H, W, C), C % 8 == 0 (C = 3: packed route)
-  const uint8_t* w;         // (O, KH, KW, C) bf16
-  const float* bias;        // (O,) fp32
-  const uint8_t* shortcut;  // (M, O) bf16 added after the rounding, or null
-  uint8_t* out;             // (M, O) bf16
-  int batch, H, W, C, Ho, Wo, O, KH, KW, stride, pad, M, act;
-  // im2col routes: the pixel box's lower and upper corners (W, H), from
-  // ops/kernels.py: conv_bf16_im2col; a tile's first pixel is
-  // (n, lo_h + oh * stride, lo_w + ow * stride).
-  int lo_w, lo_h, hi_w, hi_h;
-  // im2col routes: the stages of K in order (ops/kernels.py:
-  // conv_bf16_stages), each its first channel | W offset << 16 | H offset << 24.
-  int stages;
-  uint32_t stage_tab[kMaxStages];
-};
-
-// Kernel parameters, passed by value as one __grid_constant__ (TMA needs
-// the maps in parameter or global memory).
-struct Params {
-  CUtensorMap tma_b;  // W as (O, K) bf16, addressed in bytes
-  CUtensorMap tma_a;  // TMA route: x as (M, C) bf16; im2col route: x as NHWC im2col
-  ConvBf16Args a;
-  int tiles_n, pairs, ksteps;  // pairs: the clusters' tiles, ceil(M-tiles / 2) * tiles_n
-};
-
-// One box of the im2col map (row / 2 channels x 128 pixels): channels from c, pixels
-// from (w, h, n) on along the traversal, each read at (w + off_w, h + off_h),
-// zero where that falls outside x.
-__device__ __forceinline__ void tma_im2col_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                              int c, int w, int h, int n, uint16_t off_w,
-                                              uint16_t off_h) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n),
-      "h"(off_w), "h"(off_h)
-      : "memory");
-}
-
-// Waits until at most N of this warpgroup's committed wgmma groups are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile with 64-byte swizzle:
-// rows of 64 bytes, 8-row groups 512 bytes apart (SBO).
-__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
-}
-
-// The descriptor of a K-major tile with rows of kRow bytes, swizzled to match.
-template <int kRow>
-__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
-  return kRow == 128 ? wg::sw128_desc(addr) : sw64_desc(addr);
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every live thread of the cluster: barrier initialisation before any CTA
-// may signal another's barriers, and no CTA exits while another may still.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// Arrives on the mbarrier at `bar` (a shared address of this CTA) in CTA
-// `cta` of the cluster.
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar), "r"(cta)
-      : "memory");
-}
-
-// A 2-D TMA box written to `dst` in every CTA of `mask`, each CTA's
-// barrier at `bar` credited with its bytes.
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
-                                                      uint32_t bar, int c_inner, int c_outer,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c_inner), "r"(c_outer), "h"(mask)
-      : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_f(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define CB_F8(i)                                                                      \
-  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),     \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define CB_F32(i) CB_F8(i), CB_F8(i + 8), CB_F8(i + 16), CB_F8(i + 24)
-
-// d (+)= A(64 x 16, smem) * B(N x 16, smem)^T, both K-major; scale_d = 0
-// starts from zero.
-template <int BN>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da, uint64_t db,
-                                           int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da, uint64_t db,
-                                               int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : CB_F32(0)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uint64_t db,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : CB_F32(0), CB_F32(32)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da, uint64_t db,
-                                               int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : CB_F8(0), CB_F8(8)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-#undef CB_F32
-#undef CB_F8
-
-__device__ __forceinline__ uint32_t bf16_bits(float v) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float bf16_value(uint32_t bits) {
-  return __bfloat162float(__ushort_as_bfloat16((unsigned short)bits));
-}
-
-// Writes the 32 columns [32 CH, 32 CH + 32) of a consumer warpgroup's
-// accumulators to its staging rows.  acc[4j + 2h + e] holds row
-// 16 warp + lane/4 + 8h, column 8j + 2(lane%4) + e.
-template <int CH, int N>
-__device__ __forceinline__ void stage_chunk(const float (&acc)[N], uint32_t staging, int warp,
-                                            int lane) {
-#pragma unroll
-  for (int jj = 0; jj < wg::kChunk / 8; ++jj) {
-    const int j = CH * (wg::kChunk / 8) + jj;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 16 * warp + lane / 4 + 8 * h;
-      wg::sts64(staging + row * wg::kStageRow + (8 * jj + 2 * (lane % 4)) * 4,
-                __float_as_uint(acc[4 * j + 2 * h]), __float_as_uint(acc[4 * j + 2 * h + 1]));
-    }
-  }
-}
-
-// Turns four staged columns (o0 .. o0 + 3) of the rows row0, row0 + 16, ...
-// into bf16 outputs and stores each row's four with one 8-byte store where
-// the row is whole and aligned, else one by one.
-template <int kAct, bool kShortcut>
-__device__ __forceinline__ void store_rows(const ConvBf16Args& a, bool vec_ok, uint32_t staging,
-                                           int row0, long long m0, int o0, float4 bias) {
-  const bool whole = vec_ok && o0 + 4 <= a.O;
-#pragma unroll 1
-  for (int row = row0; row < 64; row += 16) {
-    const long long m = m0 + row;
-    if (m >= a.M) break;
-    const uint4 raw = wg::lds128(staging + row * wg::kStageRow);
-    uint32_t y[4] = {bf16_bits(activate(__fadd_rn(__uint_as_float(raw.x), bias.x), kAct)),
-                     bf16_bits(activate(__fadd_rn(__uint_as_float(raw.y), bias.y), kAct)),
-                     bf16_bits(activate(__fadd_rn(__uint_as_float(raw.z), bias.z), kAct)),
-                     bf16_bits(activate(__fadd_rn(__uint_as_float(raw.w), bias.w), kAct))};
-    const long long off = (m * a.O + o0) * 2;  // bytes
-    if (whole) {
-      if constexpr (kShortcut) {
-        const uint2 s = *reinterpret_cast<const uint2*>(a.shortcut + off);
-        const uint32_t sv[4] = {s.x & 0xFFFFu, s.x >> 16, s.y & 0xFFFFu, s.y >> 16};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) y[i] = bf16_bits(__fadd_rn(bf16_value(y[i]), bf16_value(sv[i])));
-      }
-      asm volatile("st.global.v2.b32 [%0], {%1, %2};\n" ::"l"(a.out + off),
-                   "r"(y[0] | y[1] << 16), "r"(y[2] | y[3] << 16));
-    } else {
-      const unsigned short* s = reinterpret_cast<const unsigned short*>(a.shortcut + off);
-      unsigned short* dst = reinterpret_cast<unsigned short*>(a.out + off);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (o0 + i >= a.O) break;
-        uint32_t v = y[i];
-        if constexpr (kShortcut) v = bf16_bits(__fadd_rn(bf16_value(v), bf16_value(s[i])));
-        dst[i] = (unsigned short)v;
-      }
-    }
-  }
-}
-
-// store_rows for the call's activation and shortcut: one dispatch a chunk.
-__device__ __forceinline__ void store_rows_for(const ConvBf16Args& a, bool vec_ok,
-                                               uint32_t staging, int row0, long long m0, int o0,
-                                               float4 bias) {
-#define CB_ACTS(SC)                                                                  \
-  switch (a.act) {                                                                   \
-    case kLeaky:                                                                     \
-      return store_rows<kLeaky, SC>(a, vec_ok, staging, row0, m0, o0, bias);        \
-    case kMish:                                                                      \
-      return store_rows<kMish, SC>(a, vec_ok, staging, row0, m0, o0, bias);         \
-    case kRelu:                                                                      \
-      return store_rows<kRelu, SC>(a, vec_ok, staging, row0, m0, o0, bias);         \
-    case kLogistic:                                                                  \
-      return store_rows<kLogistic, SC>(a, vec_ok, staging, row0, m0, o0, bias);     \
-    default:                                                                         \
-      return store_rows<kLinear, SC>(a, vec_ok, staging, row0, m0, o0, bias);       \
-  }
-  if (a.shortcut != nullptr) {
-    CB_ACTS(true)
-  } else {
-    CB_ACTS(false)
-  }
-#undef CB_ACTS
-}
 
 // A consumer warp's release of a stage it has read: lane 0 arrives on the
 // stage's empty barrier in every CTA of the cluster, whose B loads write it.
@@ -421,13 +141,21 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
   using L = Layout<BN, kRow>;
   constexpr int kStages = L::kStages;
   constexpr bool kGather = kRoute == kRouteGather;
-  constexpr bool kIm2col = kRoute == kRouteIm2col || kRoute == kRouteIm2col32;
+  constexpr bool kBoxed = kRoute == kRouteIm2col16;  // W's N-tile resident
+  constexpr bool kIm2col = kRoute == kRouteIm2col || kRoute == kRouteIm2col32 || kBoxed;
+  constexpr int kChunks = (BN + wg::kChunk - 1) / wg::kChunk;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = wg::smem_u32(smem_raw);
   const uint32_t base = (raw_addr + 1023) & ~1023u;  // swizzled tiles need 1024-byte alignment
   uint8_t* smem = smem_raw + (base - raw_addr);
-  const uint32_t full0 = base + L::kOffBars;
-  const uint32_t empty0 = full0 + 8 * kStages;
+  // the Layout's offsets, or kRouteIm2col16's from the host
+  const int nstages = kBoxed ? p.ring : kStages;
+  const uint32_t off_b = kBoxed ? p.off_w : L::kOffB;
+  const uint32_t off_staging = kBoxed ? p.off_staging : L::kOffStaging;
+  const uint32_t off_params = kBoxed ? p.off_params : L::kOffParams;
+  const uint32_t full0 = base + (kBoxed ? p.off_bars : L::kOffBars);
+  const uint32_t empty0 = full0 + 8 * nstages;
+  const uint32_t wbar = empty0 + 8 * nstages;  // kRouteIm2col16: W's load
   const ConvBf16Args& a = p.a;
   const int role = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
@@ -435,13 +163,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
   const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < nstages; ++s) {
       // full: the TMA thread's expect_tx arrival (+ 128 cp.async arrivals for
       // the gather); empty: lane 0 of each of the 8 consumer warps of both
       // CTAs, since either CTA's B load writes both CTAs' stage.
       wg::mbar_init(full0 + 8 * s, kGather ? 129 : 1);
       wg::mbar_init(empty0 + 8 * s, 8 * kCluster);
     }
+    if (kBoxed) wg::mbar_init(wbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_sync();
@@ -459,6 +188,17 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
     const uint32_t swz = (uint32_t)((chunk ^ ((tid >> 3) & 7)) * 16);
     const int taps = a.KH * a.KW;
     const int hw = a.Ho * a.Wo;
+    if constexpr (kBoxed) {
+      // W's N-tile, once: the host makes the cluster count a multiple of
+      // tiles_n, so every pair of this cluster has the same N-tile.  K past
+      // W's end and rows past O read as zero.
+      const int n0 = (cluster % p.tiles_n) * BN;
+      wg::mbar_arrive_expect_tx(wbar, p.ksteps * L::kBBytes);
+      for (int j = 0; j < p.ksteps; ++j)
+        for (int h = 0; h < kCluster; ++h)
+          wg::tma_load_2d(base + off_b + j * L::kBBytes + h * (BN / kCluster) * kRow, &p.tma_b,
+                          wbar, j * kRow, n0 + h * (BN / kCluster));
+    }
     int stage = 0;
     uint32_t phase = 0;
     for (int pair = cluster; pair < p.pairs; pair += clusters) {
@@ -500,16 +240,28 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
         wg::mbar_wait(empty0 + 8 * stage, phase ^ 1);
         const uint32_t full = full0 + 8 * stage;
         const uint32_t sa = base + stage * L::kABytes;
-        const uint32_t sb = base + L::kOffB + stage * L::kBBytes;
+        const uint32_t sb = base + off_b + stage * L::kBBytes;
         if (tid == 0) {
-          wg::mbar_arrive_expect_tx(full, kGather ? L::kBBytes : L::kABytes + L::kBBytes);
+          // the last stage of kRouteIm2col16 may hold fewer than kBoxes boxes
+          const int boxes = kBoxed ? min(kBoxes, a.stages - s * kBoxes) : 0;
+          wg::mbar_arrive_expect_tx(full, kGather  ? L::kBBytes
+                                          : kBoxed ? boxes * kBoxBytes
+                                                   : L::kABytes + L::kBBytes);
           // This CTA's half of the B stage, for both CTAs; K past its end
           // reads as zero (TMA's out-of-bounds fill).
-          tma_load_2d_multicast(sb + rank * (BN / kCluster) * kRow, &p.tma_b, full, s * kRow,
-                                n0 + (int)rank * (BN / kCluster),
-                                (uint16_t)((1 << kCluster) - 1));
+          if constexpr (!kBoxed)
+            tma_load_2d_multicast(sb + rank * (BN / kCluster) * kRow, &p.tma_b, full, s * kRow,
+                                  n0 + (int)rank * (BN / kCluster),
+                                  (uint16_t)((1 << kCluster) - 1));
           if constexpr (kRoute == kRouteTma) wg::tma_load_2d(sa, &p.tma_a, full, s * wg::kBK, m0);
-          if constexpr (kIm2col) {
+          if constexpr (kBoxed) {
+            // 16 channels of one tap a box; channels past C read as zero
+            for (int j = 0; j < boxes; ++j) {
+              const uint32_t e = a.stage_tab[s * kBoxes + j];
+              tma_im2col_4d(sa + j * kBoxBytes, &p.tma_a, full, (int)(e & 0xFFFF), w0, h0, img,
+                            (uint16_t)((e >> 16) & 0xFF), (uint16_t)(e >> 24));
+            }
+          } else if constexpr (kIm2col) {
             const uint32_t e = a.stage_tab[s];  // kRow / 2 channels of one tap
             tma_im2col_4d(sa, &p.tma_a, full, (int)(e & 0xFFFF), w0, h0, img,
                           (uint16_t)((e >> 16) & 0xFF), (uint16_t)(e >> 24));
@@ -535,7 +287,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
           }
           wg::cp_async_arrive_noinc(full);
         }
-        if (++stage == kStages) {
+        if (++stage == nstages) {
           stage = 0;
           phase ^= 1;
         }
@@ -552,8 +304,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int bar_id = 1 + cw;
-    const uint32_t staging = base + L::kOffStaging + cw * 64 * wg::kStageRow;
-    float* prm = reinterpret_cast<float*>(smem + L::kOffParams) + cw * BN;
+    const uint32_t staging = base + off_staging + cw * 64 * wg::kStageRow;
+    float* prm = reinterpret_cast<float*>(smem + off_params) + cw * BN;
     const uint32_t prm_addr = wg::smem_u32(prm);
     const bool vec_ok = a.O % 4 == 0;  // a row of bf16 outputs is 8-byte aligned
 
@@ -562,6 +314,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.0f;
 
+    if (kBoxed) wg::mbar_wait(wbar, 0);  // W's N-tile is in
     int stage = 0;
     uint32_t phase = 0;
     for (int pair = cluster; pair < p.pairs; pair += clusters) {
@@ -583,19 +336,32 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
             // cp.async wrote the gathered A through the generic proxy; wgmma
             // reads through the async proxy.
             if (kGather) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-            const uint32_t sa = base + stage * L::kABytes + cw * 64 * kRow;
-            const uint32_t sb = base + L::kOffB + stage * L::kBBytes;
+            // B: the ring's stage, or the K step's chunk of the resident W
+            const uint32_t sb = base + off_b + (kBoxed ? s + pp : stage) * L::kBBytes;
+            if constexpr (kBoxed) {
+              // box kk: this warpgroup's 64 rows of its sub-tile, against
+              // the 16 of K at byte 32 kk of B's rows
+              const uint32_t sa = base + stage * L::kABytes + cw * 64 * kBoxRow;
+              const int boxes = min(kBoxes, a.stages - (s + pp) * kBoxes);
 #pragma unroll
-            for (int kk = 0; kk < kRow / 32; ++kk)
-              wgmma_bf16<BN>(part, sw_desc<kRow>(sa + 32 * kk), sw_desc<kRow>(sb + 32 * kk),
-                             (pp == 0 && kk == 0) ? 0 : 1);
+              for (int kk = 0; kk < kBoxes; ++kk)
+                if (kk < boxes)
+                  wgmma_bf16<BN>(part, sw32_desc(sa + kk * kBoxBytes), sw_desc<kRow>(sb + 32 * kk),
+                                 (pp == 0 && kk == 0) ? 0 : 1);
+            } else {
+              const uint32_t sa = base + stage * L::kABytes + cw * 64 * kRow;
+#pragma unroll
+              for (int kk = 0; kk < kRow / 32; ++kk)
+                wgmma_bf16<BN>(part, sw_desc<kRow>(sa + 32 * kk), sw_desc<kRow>(sb + 32 * kk),
+                               (pp == 0 && kk == 0) ? 0 : 1);
+            }
             wg::wgmma_commit();
             if (pp > 0) {
               wgmma_wait<1>();  // the stage before is read: free it
               release(done, lane);
             }
             done = empty0 + 8 * stage;
-            if (++stage == kStages) {
+            if (++stage == nstages) {
               stage = 0;
               phase ^= 1;
             }
@@ -608,33 +374,41 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
         for (int i = 0; i < BN / 2; ++i) acc[i] = s == 0 ? part[i] : __fadd_rn(acc[i], part[i]);
       }
 
-      // Epilogue: the tile's biases, then 32-column chunks: stage the fp32
-      // sums, then turn them into bf16 outputs four columns a thread.
+      // Epilogue: the tile's biases, then 32-column chunks (the last one of
+      // a 48- or 80-column tile 16 wide): stage the fp32 sums, then turn
+      // them into bf16 outputs four columns a thread.
       wg::named_barrier(bar_id, 128);  // the last tile's pieces are written
       for (int c = tid; c < BN; c += 128) prm[c] = n0 + c < a.O ? a.bias[n0 + c] : 0.0f;
 #pragma unroll 1
-      for (int ch = 0; ch < BN / wg::kChunk; ++ch) {
+      for (int ch = 0; ch < kChunks; ++ch) {
         if (n0 + ch * wg::kChunk >= a.O) break;  // uniform over the warpgroup
         if (ch > 0) wg::named_barrier(bar_id, 128);  // the last chunk's pieces are written
         switch (ch) {
-#define CB_STAGE(CH)                                                       \
-  case CH:                                                                 \
-    if constexpr (CH < BN / wg::kChunk) stage_chunk<CH>(acc, staging, warp, lane); \
+#define CB_STAGE(CH)                                                                   \
+  case CH:                                                                             \
+    if constexpr (CH < kChunks)                                                        \
+      stage_chunk<CH, BN / 2, chunk_width<BN, CH>()>(acc, staging, warp, lane);         \
     break;
           CB_STAGE(0) CB_STAGE(1) CB_STAGE(2) CB_STAGE(3)
-          CB_STAGE(4) CB_STAGE(5) CB_STAGE(6) CB_STAGE(7)
 #undef CB_STAGE
         }
         wg::named_barrier(bar_id, 128);
-        // 8 pieces of 4 columns per staged row; a quarter-warp reads one row.
-        const int q = tid % 8;
-        const int col = ch * wg::kChunk + 4 * q;
-        const int o0 = n0 + col;
-        if (o0 < a.O) {
-          const uint4 bb = wg::lds128(prm_addr + 4 * col);
-          const float4 bias = make_float4(__uint_as_float(bb.x), __uint_as_float(bb.y),
-                                          __uint_as_float(bb.z), __uint_as_float(bb.w));
-          store_rows_for(a, vec_ok, staging + 16 * q, tid / 8, (long long)m0 + 64 * cw, o0, bias);
+        if constexpr (BN % wg::kChunk != 0) {
+          const int live = min(min(wg::kChunk, BN - ch * wg::kChunk), a.O - n0 - ch * wg::kChunk);
+          store_chunk_fitted(a, vec_ok, staging, prm_addr + 4 * ch * wg::kChunk, tid,
+                             LinearRows{(long long)m0 + 64 * cw, a.M}, n0 + ch * wg::kChunk, live);
+        } else {
+          // 8 pieces of 4 columns per staged row; a quarter-warp reads one row.
+          const int q = tid % 8;
+          const int col = ch * wg::kChunk + 4 * q;
+          const int o0 = n0 + col;
+          if (o0 < a.O) {
+            const uint4 bb = wg::lds128(prm_addr + 4 * col);
+            const float4 bias = make_float4(__uint_as_float(bb.x), __uint_as_float(bb.y),
+                                            __uint_as_float(bb.z), __uint_as_float(bb.w));
+            store_rows_for(a, vec_ok, staging + 16 * q, tid / 8,
+                           LinearRows{(long long)m0 + 64 * cw, a.M}, o0, bias);
+          }
         }
       }
     }
@@ -645,6 +419,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
 template <int kRoute, int BN>
 cudaError_t launch_one(const Params& p, int device, int sms, cudaStream_t s) {
   constexpr int kDevices = 64;
+  constexpr bool kBoxed = kRoute == kRouteIm2col16;
   static std::mutex mu;
   static bool ready[kDevices] = {};
   auto kernel = conv_bf16_kernel<kRoute, BN>;
@@ -653,15 +428,20 @@ cudaError_t launch_one(const Params& p, int device, int sms, cudaStream_t s) {
     std::lock_guard<std::mutex> lock(mu);
     if (!ready[device]) {  // once per instantiation and device
       const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<BN, row_bytes(kRoute)>::kBytes);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kBoxed ? kSmemLimit : Layout<BN, row_bytes(kRoute)>::kBytes);
       if (err != cudaSuccess) return err;
       ready[device] = true;
     }
   }
-  // whole clusters, at most one CTA an SM
-  const int most = sms / kCluster;
+  // whole clusters, at most one CTA an SM; with W resident, a multiple of
+  // tiles_n clusters, so that each keeps one N-tile (more N-tiles than the
+  // SMs hold clusters: one cluster each, in waves)
+  int most = sms / kCluster;
+  if (kBoxed) most = (most < p.tiles_n ? 1 : most / p.tiles_n) * p.tiles_n;
   const int grid = kCluster * (p.pairs < most ? p.pairs : most);
-  kernel<<<grid, wg::kThreads, Layout<BN, row_bytes(kRoute)>::kBytes, s>>>(p);
+  kernel<<<grid, wg::kThreads, kBoxed ? p.smem_bytes : Layout<BN, row_bytes(kRoute)>::kBytes,
+           s>>>(p);
   return cudaGetLastError();
 }
 
@@ -671,296 +451,90 @@ cudaError_t launch_bn(const Params& p, int bn, int device, int sms, cudaStream_t
   return launch_one<kRoute, 128>(p, device, sms, s);
 }
 
-// Byte offset of the 16-byte chunk `chunk` of row `row` in a 64-byte-swizzled
-// tile: the chunk index XOR address bits 7-8.
-__device__ __forceinline__ uint32_t sw64_chunk(int row, int chunk) {
-  return (uint32_t)(row * 64 + ((chunk ^ ((row >> 1) & 3)) * 16));
-}
-
-struct PackedLayout {
-  static constexpr int kRowBytes = 2 * kPackedK;
-  static constexpr int kABytes = kPackedRows * kRowBytes;
-  static constexpr int kOffB = kPackedStages * kABytes;                      // 32 rows of W
-  static constexpr int kOffStaging = kOffB + 32 * kRowBytes;                 // 2 x 64 rows
-  static constexpr int kOffParams = kOffStaging + 2 * 64 * wg::kStageRow;    // 32 fp32 biases
-  static constexpr int kOffBars = kOffParams + 32 * 4;                       // full, then empty
-  static constexpr int kBytes = kOffBars + 2 * kPackedStages * 8 + 1024;     // + alignment slack
-  static_assert(kBytes <= 232448, "shared memory over the 227 KB a block may use");
-};
-
-// K5's packed route.  The RGB stem has K = 27 (3 taps x 3 taps x 3
-// channels): the other routes pad C to 8 (K = 72, two 128-byte stages) and
-// spend a 64-column tile on 32 outputs.  Here a row of A is the 27 values
-// of one output pixel's window and 5 zeros, 64 bytes, built by the
-// producer warpgroup from 2-byte loads of the 3-channel pixels (no padded
-// copy of x), and W is one 32 x 32 tile loaded once a block.  A tile is 256
-// output pixels: each consumer warpgroup runs two m64n32k16 pairs on one
-// stage, so the per-tile costs (barriers, the epilogue's hand-offs) are paid
-// once per 256 pixels, not per 128.
-__global__ void __launch_bounds__(wg::kThreads, 1) conv_bf16_packed_kernel(__grid_constant__ const Params p) {
-  using L = PackedLayout;
-  constexpr int kBlocks = kPackedRows / 2 / 64;  // m64 blocks a consumer warpgroup
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw_addr = wg::smem_u32(smem_raw);
-  const uint32_t base = (raw_addr + 1023) & ~1023u;
-  uint8_t* smem = smem_raw + (base - raw_addr);
-  const uint32_t full0 = base + L::kOffBars;
-  const uint32_t empty0 = full0 + 8 * kPackedStages;
-  const ConvBf16Args& a = p.a;
-  const int role = threadIdx.x / 128;
-  const int tid = threadIdx.x % 128;
-  constexpr int k_real = kPackedTaps * kPackedTaps * kPackedC;
-  const int tiles = (a.M + kPackedRows - 1) / kPackedRows;
-
-  // W as 32 rows of 32 bf16 of K, zero past O and past K
-  const unsigned short* w = reinterpret_cast<const unsigned short*>(a.w);
-  for (int i = threadIdx.x; i < 32 * 4; i += wg::kThreads) {
-    const int o = i / 4, chunk = i % 4;
-    uint32_t v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k0 = chunk * 8 + 2 * e;
-      const uint32_t lo = o < a.O && k0 < k_real ? w[o * k_real + k0] : 0u;
-      const uint32_t hi = o < a.O && k0 + 1 < k_real ? w[o * k_real + k0 + 1] : 0u;
-      v[e] = lo | hi << 16;
-    }
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(base + L::kOffB +
-                                                                      sw64_chunk(o, chunk)),
-                 "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]));
-  }
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kPackedStages; ++s) {
-      wg::mbar_init(full0 + 8 * s, 128);  // every producer thread's rows
-      wg::mbar_init(empty0 + 8 * s, 8);   // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // W for wgmma
-  __syncthreads();
-
-  // No setmaxnreg: every warp keeps 168 registers, which lets a producer
-  // thread build its four rows at once (108 loads in flight).
-  if (role == 0) {
-    // ---------------- producer warpgroup: builds A ----------------
-    const unsigned short* x = reinterpret_cast<const unsigned short*>(a.x);
-    const int hw = a.Ho * a.Wo;
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      wg::mbar_wait(empty0 + 8 * stage, phase ^ 1);
-      const uint32_t sa = base + stage * L::kABytes;
-      uint32_t v[kPackedRows / 128][kPackedK / 2];
-#pragma unroll
-      for (int j = 0; j < kPackedRows / 128; ++j) {
-        const int m = t * kPackedRows + tid + 128 * j;  // neighbouring threads, neighbouring pixels
-#pragma unroll
-        for (int i = 0; i < kPackedK / 2; ++i) v[j][i] = 0;
-        if (m < a.M) {
-          const int n = m / hw;
-          const int rem = m - n * hw;
-          const int oh = rem / a.Wo;
-          const int ih0 = oh * a.stride - a.pad;
-          const int iw0 = (rem - oh * a.Wo) * a.stride - a.pad;
-          const unsigned short* img = x + (long long)n * a.H * a.W * kPackedC;
-          // K = (tap row r, tap column q, channel c), as W's (O, 3, 3, 3)
-#pragma unroll
-          for (int r = 0; r < kPackedTaps; ++r) {
-            const int ih = ih0 + r;
-#pragma unroll
-            for (int q = 0; q < kPackedTaps; ++q) {
-              const int iw = iw0 + q;
-              const bool ok = (unsigned)ih < (unsigned)a.H && (unsigned)iw < (unsigned)a.W;
-              const unsigned short* px = img + ((long long)ih * a.W + iw) * kPackedC;
-#pragma unroll
-              for (int c = 0; c < kPackedC; ++c) {
-                const int k = (r * kPackedTaps + q) * kPackedC + c;
-                const uint32_t val = ok ? (uint32_t)__ldg(px + c) : 0u;
-                v[j][k / 2] |= val << (16 * (k % 2));
-              }
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kPackedRows / 128; ++j)
-#pragma unroll
-        for (int chunk = 0; chunk < 4; ++chunk)
-          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                           sa + sw64_chunk(tid + 128 * j, chunk)),
-                       "r"(v[j][4 * chunk]), "r"(v[j][4 * chunk + 1]), "r"(v[j][4 * chunk + 2]),
-                       "r"(v[j][4 * chunk + 3]));
-      // the generic proxy's writes, before the async proxy's wgmma reads
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      wg::mbar_arrive(full0 + 8 * stage);
-      if (++stage == kPackedStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-  } else {
-    // ---------------- consumer warpgroups ----------------
-    const int cw = role - 1;  // rows [kPackedRows / 2 cw, kPackedRows / 2 (cw + 1)) of the tile
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    const int bar_id = 1 + cw;
-    const uint32_t staging = base + L::kOffStaging + cw * 64 * wg::kStageRow;
-    const uint32_t prm_addr = base + L::kOffParams;
-    const bool vec_ok = a.O % 4 == 0;
-    if (cw == 0 && tid < 32)
-      reinterpret_cast<float*>(smem + L::kOffParams)[tid] = tid < a.O ? a.bias[tid] : 0.0f;
-    wg::named_barrier(4, 256);  // both consumer warpgroups see the biases
-    const int q = tid % 8;      // the four columns 4q .. 4q + 3 of this thread's stores
-    const uint4 bb = wg::lds128(prm_addr + 16 * q);
-    const float4 bias = make_float4(__uint_as_float(bb.x), __uint_as_float(bb.y),
-                                    __uint_as_float(bb.z), __uint_as_float(bb.w));
-    float acc[kBlocks][16];
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      wg::mbar_wait(full0 + 8 * stage, phase);
-      const uint32_t sa = base + stage * L::kABytes + cw * (kPackedRows / 2) * L::kRowBytes;
-      const uint32_t sb = base + L::kOffB;
-      wg::wgmma_fence();
-#pragma unroll
-      for (int b = 0; b < kBlocks; ++b) {
-        fence_f(acc[b]);
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-          wgmma_bf16<32>(acc[b], sw64_desc(sa + b * 64 * L::kRowBytes + 32 * kk),
-                         sw64_desc(sb + 32 * kk), kk);
-      }
-      wg::wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int b = 0; b < kBlocks; ++b) fence_f(acc[b]);
-      if (lane == 0) wg::mbar_arrive(empty0 + 8 * stage);
-      if (++stage == kPackedStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-      // Epilogue, one m64 block at a time through the staging rows.
-      const long long m0 = (long long)t * kPackedRows + cw * (kPackedRows / 2);
-#pragma unroll
-      for (int b = 0; b < kBlocks; ++b) {
-        wg::named_barrier(bar_id, 128);  // the last block's pieces are written
-        stage_chunk<0>(acc[b], staging, warp, lane);
-        wg::named_barrier(bar_id, 128);
-        if (4 * q < a.O) store_rows_for(a, vec_ok, staging + 16 * q, tid / 8, m0 + 64 * b, 4 * q, bias);
-      }
-    }
+// kRouteIm2col16's tiles: BN fitted to O (ops/kernels.py: conv_bf16_plan).
+template <int kRoute>
+cudaError_t launch_boxed(const Params& p, int bn, int device, int sms, cudaStream_t s) {
+  switch (bn) {
+    case 32:
+      return launch_one<kRoute, 32>(p, device, sms, s);
+    case 48:
+      return launch_one<kRoute, 48>(p, device, sms, s);
+    case 64:
+      return launch_one<kRoute, 64>(p, device, sms, s);
+    case 80:
+      return launch_one<kRoute, 80>(p, device, sms, s);
+    default:
+      return launch_one<kRoute, 128>(p, device, sms, s);
   }
 }
 
-cudaError_t launch_packed(const Params& p, int device, int sms, cudaStream_t s) {
-  constexpr int kDevices = 64;
-  static std::mutex mu;
-  static bool ready[kDevices] = {};
-  if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (!ready[device]) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          conv_bf16_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PackedLayout::kBytes);
-      if (err != cudaSuccess) return err;
-      ready[device] = true;
-    }
-  }
-  const int tiles = (p.a.M + kPackedRows - 1) / kPackedRows;
-  conv_bf16_packed_kernel<<<tiles < sms ? tiles : sms, wg::kThreads, PackedLayout::kBytes, s>>>(p);
-  return cudaGetLastError();
-}
-
-typedef CUresult (*EncodeIm2colFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const int*, const int*,
-                                   cuuint32_t, cuuint32_t, const cuuint32_t*,
-                                   CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeIm2col from the driver, through the runtime (as
-// wg::encode_tiled).
-inline EncodeIm2colFn encode_im2col_fn() {
-  static const EncodeIm2colFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeIm2col", &ptr, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &ptr, cudaEnableDefault, &status);
-#endif
-    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeIm2colFn>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-inline CUtensorMapSwizzle swizzle_of(int row) {
-  return row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-}
-
-// A 2-D bf16 map over (rows, cols bytes) with row stride `pitch` bytes, in
-// boxes of `row` bytes x box_rows rows, swizzled to match; out-of-bounds
-// elements read as zero.
-inline bool encode_rows(CUtensorMap* map, const void* ptr, long long cols, long long rows,
-                        long long pitch, int row, int box_rows) {
-  const wg::EncodeTiledFn fn = wg::encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
-  const cuuint32_t box[2] = {(cuuint32_t)row, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(row),
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The im2col map of NHWC x: boxes of row / 2 channels x 128 output pixels,
-// swizzled as a 2-D box of (128 rows, `row` bytes), the pixels walked at the
-// conv's stride over the box between the corners; out-of-bounds pixels read
-// as zero.
-inline bool encode_im2col(CUtensorMap* map, const ConvBf16Args& a, int row) {
-  const EncodeIm2colFn fn = encode_im2col_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)a.C, (cuuint64_t)a.W, (cuuint64_t)a.H,
-                              (cuuint64_t)a.batch};
-  const cuuint64_t strides[3] = {2ull * a.C, 2ull * a.C * a.W, 2ull * a.C * a.W * a.H};
-  const int lo[2] = {a.lo_w, a.lo_h};
-  const int hi[2] = {a.hi_w, a.hi_h};
-  const cuuint32_t elem[4] = {1, (cuuint32_t)a.stride, (cuuint32_t)a.stride, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<uint8_t*>(a.x), dims, strides,
-            lo, hi, row / 2, wg::kBM, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(row),
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// kRouteIm2col16's shared memory for a bn-column tile and K of p.ksteps
+// 64-wide chunks: as many A stages (up to kMaxRing) as fit beside W's
+// N-tile; false where fewer than kMinRing fit (ops/kernels.py:
+// conv_bf16_ring mirrors it, and the plan sends such a conv to the gather).
+inline bool resident_layout(Params& p, int bn) {
+  const int w_bytes = p.ksteps * bn * 128;
+  const int fixed = 2 * 64 * wg::kStageRow + 2 * bn * 4 + wg::kBM * 16 + 8 * (2 * kMaxRing + 1);
+  const int ring = (kSmemLimit - 1024 - w_bytes - fixed) / (wg::kBM * kBoxRow * kBoxes);
+  if (ring < kMinRing) return false;
+  p.ring = ring < kMaxRing ? ring : kMaxRing;
+  p.off_w = p.ring * wg::kBM * kBoxRow * kBoxes;
+  p.off_staging = p.off_w + w_bytes;
+  p.off_params = p.off_staging + 2 * 64 * wg::kStageRow;
+  p.off_bars = p.off_params + 2 * bn * 4 + wg::kBM * 16;
+  p.smem_bytes = p.off_bars + 8 * (2 * p.ring + 1) + 1024;
+  return true;
 }
 
 }  // namespace cb
 }  // namespace
 
-// Launches K5 on `stream` with a `bn`-column tile (64 or 128) and A by
-// `route` (cb::Route: 0 the 16-byte gather, 1 TMA for a 1x1 stride-1
-// unpadded conv, 2 TMA im2col for C % 64 == 0, 3 the packed RGB stem, 4 TMA
-// im2col a tap's 32 channels a stage); returns a CUDA error code (0 = ok).  `args` points to a ConvBf16Args (ops/kernels.py:
-// _ConvBf16Args).  Requires C % 8 == 0 and x, w, shortcut and out 16-byte
-// aligned (ops/kernels.py: conv_bf16 checks and pads).
+// csrc/conv_bf16_packed.cu and conv_bf16_halo.cu: the packed and halo
+// routes' launches.
+extern "C" int yolo_conv_bf16_packed(const void* args, int bn, int device, int sms,
+                                     void* stream);
+extern "C" int yolo_conv_bf16_halo(const void* args, int bn, int device, int sms,
+                                   void* stream);
+
+// Launches K5 on `stream` with a `bn`-column tile and A by `route`
+// (cb::Route: 0 the 16-byte gather, 1 TMA for a 1x1 stride-1 unpadded conv,
+// 2 TMA im2col for C % 64 == 0, 3 the packed RGB stem, 4 TMA im2col a tap's
+// 32 channels a stage, 5 TMA im2col boxes of 16 channels, four a stage,
+// beside W's N-tile resident in shared memory (ops/kernels.py:
+// conv_bf16_ring says where it fits), 6 a 3x3 stride-1 conv from halo
+// tiles (ops/kernels.py: conv_bf16_halo)); returns a CUDA error code (0 =
+// ok).  `bn`: 64 or 128; 32, 48 or 64 (>= O) on the packed route; 32, 48,
+// 64, 80 or 128 on route 5; 32 or 48 (>= O) on route 6.  `args` points to a
+// ConvBf16Args (ops/kernels.py: _ConvBf16Args).  Requires C % 8 == 0 (C = 3
+// on the packed route), on routes 5-6 W as (O, KH, KW, 16 ceil(C / 16)) with
+// zero channels past C (ops/kernels.py: conv_bf16 repacks it), and x, w,
+// shortcut and out 16-byte aligned (ops/kernels.py: conv_bf16 checks and
+// pads).
 extern "C" int yolo_conv_bf16(const void* args, int bn, int route, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaError_t err = cudaSuccess;
   const cb::ConvBf16Args& a = *static_cast<const cb::ConvBf16Args*>(args);
   const bool packed = route == cb::kRoutePacked;
+  const bool halo = route == cb::kRouteHalo;
+  const bool boxed = route == cb::kRouteIm2col16;
   const bool im2col = route == cb::kRouteIm2col || route == cb::kRouteIm2col32;
   const int row = cb::row_bytes(route);
-  if ((!packed && a.C % 8 != 0) || (!packed && bn != 64 && bn != 128) || route < 0 ||
-      route > 4 ||
-      (packed && (a.KH != cb::kPackedTaps || a.KW != cb::kPackedTaps || a.C != cb::kPackedC ||
-                  a.O > 32)) ||
+  const int box_c = boxed ? 16 : row / 2;  // channels of a stage-table entry
+  const long long taps = (long long)a.KH * a.KW;
+  const bool bn_ok = packed ? (bn == 32 || bn == 48 || bn == 64) && a.O <= bn
+                     : halo ? (bn == 32 || bn == 48) && a.O <= bn
+                     : boxed ? bn == 32 || bn == 48 || bn == 64 || bn == 80 || bn == 128
+                             : bn == 64 || bn == 128;
+  if ((!packed && a.C % 8 != 0) || !bn_ok || route < 0 || route > 6 ||
+      (halo && (a.KH != 3 || a.KW != 3 || a.pad != 1 || a.stride != 1)) ||
+      (packed && (a.KH != cb::kPackedTaps || a.KW != cb::kPackedTaps || a.C != cb::kPackedC)) ||
       reinterpret_cast<uintptr_t>(a.x) % 16 || reinterpret_cast<uintptr_t>(a.w) % 16 ||
       reinterpret_cast<uintptr_t>(a.out) % 16 || reinterpret_cast<uintptr_t>(a.shortcut) % 16 ||
       (route == cb::kRouteTma && (a.KH != 1 || a.KW != 1 || a.stride != 1 || a.pad != 0)) ||
-      (im2col && (a.C % (row / 2) != 0 || a.stages > cb::kMaxStages ||
-                  (long long)a.stages * (row / 2) != (long long)a.KH * a.KW * a.C)))
+      (im2col && (a.C % box_c != 0 || (long long)a.stages * box_c != taps * a.C)) ||
+      ((im2col || boxed) && a.stages > cb::kMaxStages) ||
+      (boxed && (long long)a.stages != taps * ((a.C + box_c - 1) / box_c)))
     return (int)cudaErrorInvalidValue;
   if (a.M == 0 || a.O == 0) return 0;
   cb::Params p{};
@@ -969,21 +543,27 @@ extern "C" int yolo_conv_bf16(const void* args, int bn, int route, int device, v
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (packed) return (int)cb::launch_packed(p, device, sms, s);
-  const long long k = (long long)a.KH * a.KW * a.C;
+  if (packed) return yolo_conv_bf16_packed(args, bn, device, sms, stream);
+  if (halo) return yolo_conv_bf16_halo(args, bn, device, sms, stream);
+  // K of W's rows: KH KW C, or the boxes' 16 channels each on route 5
+  const long long k = boxed ? (long long)a.stages * box_c : taps * a.C;
   // B in boxes of half a stage: each CTA of a cluster loads one half for both
   if (!cb::encode_rows(&p.tma_b, a.w, 2 * k, a.O, 2 * k, row, bn / cb::kCluster))
     return (int)cudaErrorInvalidValue;
   if (route == cb::kRouteTma &&
       !cb::encode_rows(&p.tma_a, a.x, 2LL * a.C, a.M, 2LL * a.C, row, wg::kBM))
     return (int)cudaErrorInvalidValue;
-  if (im2col && !cb::encode_im2col(&p.tma_a, a, row))
+  if ((im2col || boxed) && !cb::encode_im2col(&p.tma_a, a, 2 * box_c))
     return (int)cudaErrorInvalidValue;
   p.ksteps = (int)((2 * k + row - 1) / row);
   p.tiles_n = (a.O + bn - 1) / bn;
   const int tiles_m = (a.M + wg::kBM - 1) / wg::kBM;
   p.pairs = (tiles_m + cb::kCluster - 1) / cb::kCluster * p.tiles_n;
   if (route == cb::kRouteTma) return (int)cb::launch_bn<cb::kRouteTma>(p, bn, device, sms, s);
+  if (boxed) {
+    if (!cb::resident_layout(p, bn)) return (int)cudaErrorInvalidValue;
+    return (int)cb::launch_boxed<cb::kRouteIm2col16>(p, bn, device, sms, s);
+  }
   if (route == cb::kRouteIm2col32)
     return (int)cb::launch_bn<cb::kRouteIm2col32>(p, bn, device, sms, s);
   if (route == cb::kRouteIm2col) return (int)cb::launch_bn<cb::kRouteIm2col>(p, bn, device, sms, s);

@@ -19,11 +19,12 @@
   C = 3) takes K4's packed route (``csrc/int8_packed.cu``): a 32-byte row
   of A a pixel, one ``wgmma`` k32 step (:func:`int8_packed_rows` models
   its rows).
-* **K5** :func:`conv_bf16` (``csrc/conv_bf16.cu``): bf16 implicit-GEMM conv
+* **K5** :func:`conv_bf16` (``csrc/conv_bf16.cu``, ``conv_bf16_packed.cu``,
+  ``conv_bf16_halo.cu`` over ``conv_bf16.cuh``): bf16 implicit-GEMM conv
   with fp32 accumulators and the JAX epilogue (fp32 bias, activation, one
   rounding to bf16, optional shortcut add) on the wgmma core
   (``pytorch_yolo_tpu/models/darknet.py: _conv``); every fp conv of a bf16
-  detector.
+  detector, A's route from :func:`conv_bf16_plan`.
 * **K6** :func:`quantize_i8` and :func:`absmax` (``csrc/quantize_i8.cu``):
   the int8 input quantizer ``clamp(round(x / sx), -127, 127)`` of a bf16 or
   fp32 input at a scalar or per-channel scale, or of a route's sources
@@ -61,6 +62,7 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -74,9 +76,10 @@ from .xla_mish import logistic, mish_factor
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f) for f in
                 ("decode_score.cu", "nms_keep.cu", "gemm_i8.cu", "int8_conv.cu",
-                  "int8_packed.cu", "conv_bf16.cu", "quantize_i8.cu"))
+                  "int8_packed.cu", "conv_bf16.cu", "conv_bf16_packed.cu", "conv_bf16_halo.cu",
+                  "quantize_i8.cu"))
 HEADERS = tuple(os.path.join(CSRC, f) for f in ("int8_igemm.cuh", "int8_wgmma.cuh",
-                                                "device_guard.cuh"))
+                                                "device_guard.cuh", "conv_bf16.cuh"))
 BUILD_DIR = os.path.join(CSRC, "_build")
 LIBRARY = os.path.join(BUILD_DIR, "libyolo_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
@@ -1027,17 +1030,27 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int, _mma: b
 # ---------------------------------------------------------------------------
 
 
-CONV_BF16_ROUTES = {"gather": 0, "tma": 1, "im2col": 2, "packed": 3,  # conv_bf16.cu: cb::Route
-                    "im2col32": 4}
-CONV_BF16_STAGE_K = 64  # csrc/conv_bf16.cu: kStageK, bf16 of K a stage
+CONV_BF16_ROUTES = {"gather": 0, "tma": 1, "im2col": 2, "packed": 3,  # conv_bf16.cuh: cb::Route
+                    "im2col32": 4, "im2col16": 5, "halo": 6}
+CONV_BF16_STAGE_K = 64  # csrc/conv_bf16.cuh: kStageK, bf16 of K a stage
 CONV_BF16_TILE_M = 128  # int8_wgmma.cuh: kBM, output pixels a block tile
-CONV_BF16_PACKED_K = 32  # csrc/conv_bf16.cu: kPackedK, K of the packed route's one stage
-CONV_BF16_PACKED_ROWS = 256  # csrc/conv_bf16.cu: kPackedRows, output pixels a packed tile
-CONV_BF16_MAX_STAGES = 512  # csrc/conv_bf16.cu: kMaxStages, entries of the im2col stage table
+CONV_BF16_PACKED_K = 32  # csrc/conv_bf16.cuh: kPackedK, K of the packed route's one stage
+CONV_BF16_PACKED_ROWS = 256  # csrc/conv_bf16.cuh: kPackedRows, output pixels a packed tile
+CONV_BF16_MAX_STAGES = 512  # csrc/conv_bf16.cuh: kMaxStages, entries (boxes) of the stage table
+CONV_BF16_BOXES = 4  # csrc/conv_bf16.cuh: kBoxes, 16-channel boxes a stage of "im2col16"
+CONV_BF16_BOX_BN = (32, 48, 64, 80, 128)  # csrc/conv_bf16.cu: launch_boxed's tiles
+CONV_BF16_PACKED_BN = (32, 48, 64)  # csrc/conv_bf16_packed.cu: launch_packed's tiles
+CONV_BF16_RING = (4, 8)  # csrc/conv_bf16.cuh: kMinRing, kMaxRing, A stages beside a resident W
+CONV_BF16_SMEM = 232448  # csrc/conv_bf16.cuh: kSmemLimit, shared memory a block may use
+CONV_BF16_SMS = 132  # SMs of an H100 SXM, for the traffic model's count of resident W loads
+CONV_BF16_HALO_OUT = 48  # outputs the halo route takes at most (csrc/conv_bf16_halo.cu: BN 32, 48)
+CONV_BF16_HALO_TILE = (4, 32)  # csrc/conv_bf16.cuh: kHaloTH, kHaloTW, output pixels a halo tile
+# K5's launches by route (each also counts in LAUNCHES["conv_bf16"])
+CONV_BF16_LAUNCHES = dict.fromkeys(CONV_BF16_ROUTES, 0)
 
 
 class _ConvBf16Args(ctypes.Structure):
-    """csrc/conv_bf16.cu: ConvBf16Args, field for field."""
+    """csrc/conv_bf16.cuh: ConvBf16Args, field for field."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "w", "bias", "shortcut", "out")]
                 + [(n, ctypes.c_int) for n in
@@ -1074,36 +1087,55 @@ def conv_bf16_plan(channels: int, out_channels: int, kh: int, kw: int, stride: i
                    pad: int) -> tuple[str, int, int]:
     """K5's launch for a conv, from its shapes alone: ``(A's route, BN,
     padded C)``.  A comes by a 2-D TMA box for a 1x1 stride-1 unpadded conv
-    (``"tma"``); for a 3x3 conv of 3 channels with at most 32 outputs, the
+    (``"tma"``); for a 3x3 conv of 3 channels with at most 64 outputs, the
     RGB stem, it is built from x's 3-channel pixels (``"packed"``: 27 values
-    and 5 zeros a row, one 32-wide K stage, a 32-column tile, C as it is);
-    by a TMA im2col box for every other conv with C % 32 == 0 and at most
-    ``CONV_BF16_MAX_STAGES`` stages of K (``"im2col"``: a stage is 64
-    channels of one tap; ``"im2col32"`` where C % 64 == 32: the 32
-    channels of one tap in 64-byte rows); else by the 16-byte gather
-    (``"gather"``).  Off the packed route C is padded with zero channels to
-    a multiple of 8 (one copy is 8 channels) and the block tile is BN = 64
-    output columns up to 64 outputs, else 128."""
+    and 5 zeros a row, one 32-wide K stage, a tile of 32, 48 or 64 columns,
+    C as it is); by TMA im2col boxes for every other conv with at most
+    ``CONV_BF16_MAX_STAGES`` boxes of K: ``"im2col"`` where C % 64 == 0 (a
+    stage is 64 channels of one tap), ``"im2col32"`` where C % 64 == 32 (the
+    32 channels of one tap in 64-byte rows), else ``"im2col16"`` (boxes of
+    16 channels of one tap, ``CONV_BF16_BOXES`` a stage, channels past C
+    read as zero; W repacked in box order, its N-tile resident beside the
+    ring where :func:`conv_bf16_ring` fits it), except a 3x3 pad-1
+    stride-1 conv with C % 16 == 8 and at most ``CONV_BF16_HALO_OUT``
+    outputs that :func:`conv_bf16_halo` fits (``"halo"``: a 4 x 32 block of
+    output pixels a tile from one box of its input pixels, A built by
+    ldmatrix; measured faster than the 16-channel boxes at p7's 768^2 40 ->
+    40, whose 32-byte rows straddle the sectors of 80-byte pixels: PERF.md
+    section 6); else (more boxes than the table holds, or W too large to
+    stay resident) by the 16-byte gather (``"gather"``).
+    Off the packed route C is padded with zero channels to a multiple of 8
+    (TMA's rows and the gather's copies are 16 bytes).  The block tile is
+    BN = 64 output columns up to 64 outputs, else 128; on ``"im2col16"`` and
+    ``"halo"`` the tile of ``CONV_BF16_BOX_BN`` that leaves the fewest zero
+    columns (40 -> 48, 80 -> 80, 160 -> 2 x 80)."""
     bn, cp = 64 if out_channels <= 64 else 128, -(-channels // 8) * 8
     if kh == kw == 1 and stride == 1 and pad == 0:
         return "tma", bn, cp
-    if kh == kw == 3 and channels == 3 and out_channels <= 32:
-        return "packed", 32, channels
+    if kh == kw == 3 and channels == 3 and out_channels <= CONV_BF16_PACKED_BN[-1]:
+        return "packed", next(n for n in CONV_BF16_PACKED_BN if n >= out_channels), channels
     for route in ("im2col", "im2col32"):
-        stage_k = _stage_k(route)
-        if channels % stage_k == 0 and kh * kw * channels // stage_k <= CONV_BF16_MAX_STAGES:
+        if cp % _stage_k(route) == 0 and kh * kw * cp // _stage_k(route) <= CONV_BF16_MAX_STAGES:
             return route, bn, cp
+    boxes = kh * kw * -(-cp // _stage_k("im2col16"))
+    bn16 = min(CONV_BF16_BOX_BN, key=lambda n: (-(-out_channels // n) * n, -n))
+    if (kh == kw == 3 and pad == 1 and stride == 1 and cp % 16 == 8
+            and out_channels <= CONV_BF16_HALO_OUT and conv_bf16_halo(cp, bn16) is not None):
+        return "halo", bn16, cp
+    if boxes <= CONV_BF16_MAX_STAGES and conv_bf16_ring(bn16, -(-boxes // CONV_BF16_BOXES)):
+        return "im2col16", bn16, cp
     return "gather", bn, cp
 
 
 def _stage_k(route: str) -> int:
-    """bf16 of K a stage of K5's ``route``: 32 on ``"im2col32"`` and
-    ``"packed"``, else 64 (one 128-byte row)."""
-    return CONV_BF16_STAGE_K // 2 if route in ("im2col32", "packed") else CONV_BF16_STAGE_K
+    """bf16 of K an entry of K5's stage table on ``route`` (a box): 32 on
+    ``"im2col32"`` and ``"packed"``, 16 on ``"im2col16"`` (whose stage holds
+    ``CONV_BF16_BOXES`` boxes), else 64 (one 128-byte row)."""
+    return {"im2col32": 32, "packed": 32, "im2col16": 16}.get(route, CONV_BF16_STAGE_K)
 
 
 class Im2colPlan(NamedTuple):
-    """The TMA im2col map of K5's ``"im2col"`` route (``csrc/conv_bf16.cu:
+    """The TMA im2col map of K5's ``"im2col"`` route (``csrc/conv_bf16.cuh:
     encode_im2col``): the pixel box's corners, (W, H) offsets from x's
     first and last pixel, and the traversal's (W, H) strides.  The box spans
     pixels ``lower .. size - 1 + upper`` of each spatial dimension: the
@@ -1121,10 +1153,12 @@ def conv_bf16_im2col(kh: int, kw: int, stride: int, pad: int) -> Im2colPlan:
 
 
 def conv_bf16_stages(route: str, channels: int, kh: int, kw: int) -> list[tuple[int, int, int]]:
-    """The stages of K of an im2col ``route``, in order: ``(first channel, W
-    offset, H offset)`` of each box, the tap (r, q) and a slice of
-    ``_stage_k(route)`` channels, K's flat (tap, channel) order.  The
-    wrapper passes them to the kernel (``ConvBf16Args.stage_tab``)."""
+    """The boxes of K of an im2col ``route``, in order: ``(first channel, W
+    offset, H offset)`` of each, the tap (r, q) and a slice of
+    ``_stage_k(route)`` channels, K's flat (tap, channel) order (on
+    ``"im2col16"`` the last box of a tap may run past C: those channels read
+    as zero, and W has zero channels there, :func:`conv_bf16_weights`).
+    The wrapper passes them to the kernel (``ConvBf16Args.stage_tab``)."""
     return [(c0, q, r) for r in range(kh) for q in range(kw)
             for c0 in range(0, channels, _stage_k(route))]
 
@@ -1139,7 +1173,7 @@ def _conv_bf16_args(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: 
     o, kh, kw, _ = w_shape
     ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
     args = _ConvBf16Args(*ptrs, n, h, w, c, ho, wo, o, kh, kw, stride, pad, n * ho * wo, _ACT[act])
-    if route in ("im2col", "im2col32"):
+    if route in ("im2col", "im2col32", "im2col16"):
         box = conv_bf16_im2col(kh, kw, stride, pad)
         args.lo_w, args.lo_h = box.lower
         args.hi_w, args.hi_h = box.upper
@@ -1149,6 +1183,75 @@ def _conv_bf16_args(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: 
     return args
 
 
+_PADDED_W: dict = {}  # (id(w), width) -> (weakref to w, w._version, w padded)
+
+
+def conv_bf16_weights(w: torch.Tensor, route: str, cp: int) -> torch.Tensor:
+    """(O, KH, KW, C) ``w`` as K5 reads it on ``route`` with x padded to
+    ``cp`` channels: zero channels up to ``cp``, on ``"im2col16"`` and
+    ``"halo"`` up to 16 ceil(cp / 16) (box order: each box's channels past
+    C are zero).  ``w`` itself where nothing is added; else made once a
+    weight tensor and width and kept while ``w`` lives and is not written
+    to, so a conv does not pad its weights every call."""
+    width = -(-cp // 16) * 16 if route in ("im2col16", "halo") else cp
+    if width == w.shape[3]:
+        return w
+    key = (id(w), width)
+    hit = _PADDED_W.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    padded = F.pad(w, (0, width - w.shape[3])).contiguous()
+    _PADDED_W[key] = (weakref.ref(w, lambda _, k=key: _PADDED_W.pop(k, None)), w._version,
+                      padded)
+    return padded
+
+
+class HaloPlan(NamedTuple):
+    """K5's halo route for a conv (``csrc/conv_bf16_halo.cu: halo_layout``): a
+    halo pixel's channels (C, then zeros), the halo's pixels a row and
+    rows, 16-channel blocks a tap, W's 64-wide K chunks, a halo buffer's
+    bytes and the block's shared memory."""
+    cp: int
+    hw: int
+    hr: int
+    nb: int
+    ksteps: int
+    halo_bytes: int
+    smem: int
+
+
+def conv_bf16_halo(channels: int, bn: int) -> "HaloPlan | None":
+    """The halo route's geometry for a 3x3 pad-1 stride-1 conv of
+    ``channels`` (a multiple of 8) with a ``bn``-column tile of 32 or 48, or
+    None where two halo buffers, W and the epilogue's staging do not fit in
+    a block's shared memory, or BN is another width (the route is built for
+    those two only).  A halo pixel holds an odd number of 16-byte pieces, so
+    that the 8 rows of an ldmatrix phase (neighbouring pixels) fall in 8
+    bank groups."""
+    th, tw = CONV_BF16_HALO_TILE
+    nb = -(-channels // 16)
+    cp = 16 * nb + 8
+    hw, hr = tw + 2, th + 2
+    ksteps = -(-9 * nb // CONV_BF16_BOXES)
+    halo = -(-cp * hw * hr * 2 // 1024) * 1024
+    smem = ksteps * bn * 128 + 2 * halo + 2 * 64 * 160 + 2 * bn * 4 + 8 * 5 + 1024
+    fits = smem <= CONV_BF16_SMEM and cp <= 256 and bn in (32, 48)
+    return HaloPlan(cp, hw, hr, nb, ksteps, halo, smem) if fits else None
+
+
+def conv_bf16_ring(bn: int, ksteps: int) -> int:
+    """A stages of K5's "im2col16" ring beside W's N-tile held in shared
+    memory (``csrc/conv_bf16.cu: resident_layout``): as many as fit, up to
+    ``CONV_BF16_RING[1]``; 0 where fewer than ``CONV_BF16_RING[0]`` fit (the
+    plan then sends the conv to the gather).  W's N-tile is ``ksteps``
+    chunks of BN rows x 128 bytes."""
+    lo, hi = CONV_BF16_RING
+    fixed = 2 * 64 * 160 + 2 * bn * 4 + CONV_BF16_TILE_M * 16 + 8 * (2 * hi + 1)
+    ring = (CONV_BF16_SMEM - 1024 - ksteps * bn * 128 - fixed) // (
+        CONV_BF16_TILE_M * 32 * CONV_BF16_BOXES)
+    return min(ring, hi) if ring >= lo else 0
+
+
 def conv_bf16_traffic(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: int,
                       pad: int) -> tuple[int, int, int]:
     """(block tiles, stages of K a tile, tile-load bytes) of one K5 launch,
@@ -1156,9 +1259,14 @@ def conv_bf16_traffic(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride
     pairs of M-tiles (``csrc/conv_bf16.cu``: an odd M-tile count runs one
     tile past M), and the bytes their loads bring into shared memory, each
     stage a 128-row A box and half of the BN-row B box, which the TMA unit
-    multicasts to both CTAs; rows of 128 bytes (64 on ``"im2col32"``).  The
-    packed route: 256-pixel tiles of one stage, its A rows (64 bytes) built
-    from x."""
+    multicasts to both CTAs; rows of 128 bytes (64 on ``"im2col32"``; on
+    ``"im2col16"`` A is ``CONV_BF16_BOXES`` boxes of 32-byte rows a stage,
+    fewer in the last, and each of at most ``CONV_BF16_SMS`` blocks loads
+    W's resident N-tile once instead).  The halo route: 4 x 32-pixel tiles,
+    one halo box each (``conv_bf16_halo``), W's ``ksteps`` 64-wide K chunks,
+    loaded once a block.  The packed
+    route: 256-pixel tiles of one stage, its A rows (64 bytes) built from
+    x."""
     n, h, w, c = x_shape
     o, kh, kw, _ = w_shape
     route, bn, cp = conv_bf16_plan(c, o, kh, kw, stride, pad)
@@ -1168,6 +1276,17 @@ def conv_bf16_traffic(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride
         return tiles, 1, tiles * CONV_BF16_PACKED_ROWS * 2 * CONV_BF16_PACKED_K
     stage_k = _stage_k(route)
     tiles = -(-m // (2 * CONV_BF16_TILE_M)) * 2 * -(-o // bn)
+    if route == "halo":  # a halo box a 4 x 32 tile (stride 1), W once a block
+        th, tw = CONV_BF16_HALO_TILE
+        hp = conv_bf16_halo(cp, bn)
+        tiles = n * -(-h // th) * -(-w // tw)
+        return tiles, hp.ksteps, (tiles * hp.cp * hp.hw * hp.hr * 2
+                                  + min(tiles, CONV_BF16_SMS) * hp.ksteps * bn * 128)
+    if route == "im2col16":
+        boxes = kh * kw * -(-cp // stage_k)
+        ksteps = -(-boxes // CONV_BF16_BOXES)
+        return tiles, ksteps, (tiles * boxes * CONV_BF16_TILE_M * 32
+                               + min(tiles, CONV_BF16_SMS) * ksteps * bn * 128)
     ksteps = -(-kh * kw * cp // stage_k)
     return tiles, ksteps, tiles * ksteps * 2 * stage_k * (CONV_BF16_TILE_M + bn // 2)
 
@@ -1185,13 +1304,18 @@ def conv_bf16_work(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: i
 
 
 def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pad: int,
-              act: str = "linear", shortcut: "torch.Tensor | None" = None) -> torch.Tensor:
+              act: str = "linear", shortcut: "torch.Tensor | None" = None,
+              _route: "str | None" = None) -> torch.Tensor:
     """K5: NHWC bf16 ``x`` (N, H, W, C) conv (O, KH, KW, C) bf16 ``w``, zero
     padding ``pad`` on each side, + (O,) fp32 bias ``b``, activation
     ``act`` in fp32 -> NHWC bf16 (N, Ho, Wo, O), rounded once; ``shortcut``
     (N, Ho, Wo, O) bf16 is then added as a bf16 add (a Darknet
     [shortcut] whose first operand is this conv).  A CPU tensor takes
-    :func:`conv_bf16_ref`; a CUDA tensor launches the kernel or raises."""
+    :func:`conv_bf16_ref`; a CUDA tensor launches the kernel or raises.
+    ``_route`` runs another route than the plan's, for A/B timings:
+    ``"gather"`` (the 16-byte gather with BN = 64 / 128, as before the
+    packed and "im2col16" routes took C % 32 != 0) or ``"im2col16"`` (on a
+    conv the plan gives the halo route)."""
     if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[3]:
         raise ValueError(f"conv_bf16: (N, H, W, C) and (O, KH, KW, C) expected, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -1214,17 +1338,24 @@ def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pa
         if t is not None and t.dtype != torch.bfloat16:
             raise ValueError(f"conv_bf16: {what} must be bfloat16, got {t.dtype}")
     route, bn, cp = conv_bf16_plan(c, o, kh, kw, stride, pad)
-    if cp != c:  # zero channels: the gather copies 8 channels at a time
-        x, w = F.pad(x, (0, cp - c)), F.pad(w, (0, cp - c))
-    x, w = _on_grid(x), _on_grid(w)
+    if _route == "gather":
+        route, bn, cp = "gather", 64 if o <= 64 else 128, -(-c // 8) * 8
+    elif _route is not None:
+        if (_route, route) != ("im2col16", "halo"):
+            raise ValueError(f"conv_bf16: no {_route!r} route for this conv (plan {route!r})")
+        route = _route
+    if cp != c:  # zero channels: TMA's rows and the gather's copies are 16 bytes
+        x = F.pad(x, (0, cp - c))
+    x, w = _on_grid(x), _on_grid(conv_bf16_weights(w, route, cp))
     if shortcut is not None:
         shortcut = _on_grid(shortcut)
     device, stream = _cuda_args("conv_bf16", x, w, b, shortcut)
     out = torch.empty((n, ho, wo, o), dtype=torch.bfloat16, device=x.device)
     ptrs = tuple(None if t is None else t.data_ptr() for t in (x, w, b, shortcut, out))
-    args = _conv_bf16_args(tuple(x.shape), tuple(w.shape), stride, pad, act, route, ptrs)
+    args = _conv_bf16_args(tuple(x.shape), (o, kh, kw, cp), stride, pad, act, route, ptrs)
     _launch("conv_bf16", load_library().yolo_conv_bf16, ctypes.byref(args), bn,
             CONV_BF16_ROUTES[route], device, stream)
+    CONV_BF16_LAUNCHES[route] += 1
     return out
 
 

@@ -31,8 +31,8 @@ from pytorch_yolo_tpu_torch.models import darknet as tdn
 from pytorch_yolo_tpu_torch.ops import kernels as tk
 from pytorch_yolo_tpu_torch.ops import nms as tnms
 from pytorch_yolo_tpu_torch.weights import params_from_jax
-from tests.test_torch_cuda import (CONV_BF16_CASES, bf16_agreement, conv_bf16_floor,
-                                   conv_bf16_input, nms_input)
+from tests.test_torch_cuda import (BOX_CONV_CASES, CONV_BF16_CASES, bf16_agreement,
+                                   conv_bf16_floor, conv_bf16_input, nms_input)
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -51,9 +51,12 @@ def _jax_conv(x, w, b, stride, pad, act, shortcut=None):
     return np.asarray(y.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("name", list(CONV_BF16_CASES))
+@pytest.mark.parametrize("name", list(CONV_BF16_CASES) + list(BOX_CONV_CASES))
 def test_conv_bf16_plain_matches_jax_conv(name):
     x, w, b, stride, pad, act, sc = conv_bf16_input(name)
+    if name in BOX_CONV_CASES:  # the packed and "im2col16" routes' shapes
+        assert tk.conv_bf16_plan(x.shape[-1], w.shape[0], w.shape[1], w.shape[2], stride,
+                                 pad)[0] == BOX_CONV_CASES[name][0]
     ours = tk.conv_bf16(x, w, b, stride, pad, act, sc)  # CPU: the plain version
     assert ours.dtype == torch.bfloat16 and ours.is_contiguous()
     ref = _jax_conv(x.float().numpy(), w.float().numpy(), b.numpy(), stride, pad, act,
@@ -92,19 +95,35 @@ def test_conv_bf16_checks_its_arguments():
 
 @pytest.mark.parametrize("shape,want", [
     ((3, 32, 3, 3, 1, 1), ("packed", 32, 3)),      # the RGB stem: K = 27 in one 32-wide stage
-    ((12, 128, 3, 3, 1, 1), ("gather", 128, 16)),  # the s2d stem's packed conv: K = 108
-    ((3, 64, 3, 3, 1, 1), ("gather", 64, 8)),      # 64 outputs: C padded to 8
+    ((3, 40, 3, 3, 1, 1), ("packed", 48, 3)),      # yolov4x-mish's and p7's stem: 48 columns
+    ((3, 64, 3, 3, 1, 1), ("packed", 64, 3)),      # up to 64 outputs, no padded copy of x
+    ((3, 80, 3, 3, 1, 1), ("im2col16", 80, 8)),    # past 64: C padded to 8, one box a tap
+    ((12, 128, 3, 3, 1, 1), ("im2col16", 128, 16)),  # the s2d stem's packed conv: K = 108
     ((512, 1024, 3, 3, 1, 1), ("im2col", 128, 512)),  # C % 64 == 0: A by TMA im2col
     ((256, 128, 1, 1, 1, 0), ("tma", 128, 256)),   # 1x1 stride 1: A by TMA
     ((128, 256, 3, 3, 2, 1), ("im2col", 128, 128)),  # stride 2 too
     ((1024, 255, 1, 1, 1, 0), ("tma", 128, 1024)),  # a yolov3 head
     ((32, 64, 3, 3, 1, 1), ("im2col32", 64, 32)),  # C = 32: one tap a 64-byte stage
     ((32, 64, 3, 3, 2, 1), ("im2col32", 64, 32)),
-    ((24, 32, 3, 3, 1, 1), ("gather", 64, 24)),    # C % 32 != 0: the 16-byte gather
+    ((24, 32, 3, 3, 1, 1), ("halo", 32, 24)),      # C % 16 == 8: the halo route
+    ((24, 32, 1, 1, 2, 0), ("im2col16", 32, 24)),  # a 1x1 stride-2 conv: boxes
+    ((16, 32, 3, 3, 1, 1), ("im2col16", 32, 16)),  # yolov2-tiny's conv 2: one box a tap
+    ((40, 40, 3, 3, 1, 1), ("halo", 48, 40)),      # p7's conv 6: C % 16 == 8, <= 48 outputs
+    ((40, 40, 3, 3, 2, 1), ("im2col16", 48, 40)),  # the halo route is stride 1 only
+    ((40, 48, 3, 3, 1, 1), ("halo", 48, 40)),
+    ((40, 56, 3, 3, 1, 1), ("im2col16", 64, 40)),  # past 48 outputs: 3 boxes a tap
+    ((40, 96, 3, 3, 1, 1), ("im2col16", 48, 40)),  # two 48-column tiles, on the boxes
+    ((40, 80, 3, 3, 1, 1), ("im2col16", 80, 40)),
+    ((40, 80, 3, 3, 2, 1), ("im2col16", 80, 40)),
+    ((80, 80, 3, 3, 1, 1), ("im2col16", 80, 80)),  # 5 boxes a tap
+    ((80, 160, 3, 3, 2, 1), ("im2col16", 80, 80)),  # two 80-column tiles
     ((64, 128, 3, 3, 2, 1), ("im2col", 128, 64)),
     ((64, 128, 3, 3, 1, 1), ("im2col", 128, 64)),
     ((96, 128, 3, 3, 1, 1), ("im2col32", 128, 96)),  # C % 64 == 32
-    ((4096, 256, 3, 3, 1, 1), ("gather", 128, 4096)),  # 576 stages: more than the table holds
+    ((88, 80, 3, 3, 1, 1), ("gather", 128, 88)),   # W (14 K chunks x 80 rows) too large to
+    ((120, 64, 3, 3, 1, 1), ("gather", 64, 120)),  # stay beside 4 stages of boxes
+    ((1000, 64, 3, 3, 1, 1), ("gather", 64, 1000)),  # 567 boxes: more than the table holds
+    ((4096, 256, 3, 3, 1, 1), ("gather", 128, 4096)),  # 576 stages, 2304 boxes
 ])
 def test_conv_bf16_plan(shape, want):
     assert tk.conv_bf16_plan(*shape) == want
@@ -117,7 +136,8 @@ def _tma_im2col_box(x, args, start, stage, width, rows=tk.CONV_BF16_TILE_M):
     W, then H, then N order at the conv's stride (the map's element
     strides) inside the box ``lower .. size - 1 + upper`` of the kernel's
     arguments; each read at (w + off_w, h + off_h), zero where that falls
-    outside x."""
+    outside x, and zero in the channels past x's last (TMA's out-of-bounds
+    fill, which the "im2col16" route's last box of a tap meets)."""
     nb, hh, ww, c = x.shape
     n, h, w = start
     c0, off_w, off_h = stage
@@ -125,7 +145,8 @@ def _tma_im2col_box(x, args, start, stage, width, rows=tk.CONV_BF16_TILE_M):
     for r in range(rows):
         ih, iw = h + off_h, w + off_w
         if n < nb and 0 <= ih < hh and 0 <= iw < ww:
-            box[r] = x[n, ih, iw, c0:c0 + width]
+            v = x[n, ih, iw, c0:c0 + width]
+            box[r, :len(v)] = v
         w += args.stride
         if w > ww - 1 + args.hi_w:
             w, h = args.lo_w, h + args.stride
@@ -195,6 +216,186 @@ def test_conv_bf16_im2col_plan_walks_the_im2col(n, h, w, c, stride):
     if tiles % 2:  # a cluster's second M-tile past M reads zeros
         start = _tile_start(args, tiles * tk.CONV_BF16_TILE_M)
         assert not _tma_im2col_box(x, args, start, stages[0], width).any()
+
+
+@pytest.mark.parametrize("n,h,w,c,o,stride", [
+    (1, 17, 17, 40, 80, 1),   # 289 pixels: 3 M-tiles, the cluster's fourth past M
+    (2, 13, 13, 80, 160, 1),  # tiles across the two images, two 80-column tiles
+    (1, 20, 20, 40, 80, 2),   # stride 2, 3 boxes a tap (the third half past C)
+    (1, 12, 12, 16, 32, 1),   # one box a tap: 9 boxes, the last stage holds one
+    (3, 9, 14, 24, 56, 2),    # H != W across three images, 2 boxes a tap, 48-column tiles
+])
+def test_conv_bf16_im2col16_boxes_walk_the_conv(n, h, w, c, o, stride):
+    """K5's "im2col16" route: the boxes of 16 channels of one tap that the
+    TMA unit loads from the kernel's arguments (the corners and the stage
+    table, ``CONV_BF16_BOXES`` boxes a stage, the last stage holding the
+    rest), each against its 16 of K of W in box order
+    (``conv_bf16_weights``: zero channels past C), give the flat conv's
+    sums tile by tile; channels past C read as zeros and rows past M give
+    zero sums.  The traffic model counts the same tiles and stages."""
+    k, pad = 3, 1
+    route, bn, cp = tk.conv_bf16_plan(c, o, k, k, stride, pad)
+    assert route == "im2col16" and cp == c
+    rng = np.random.default_rng(c + h)
+    x = rng.integers(-8, 9, (n, h, w, c)).astype(np.float32)
+    wt = rng.integers(-4, 5, (o, k, k, c)).astype(np.float32)
+    a, ho, wo = _im2col(x, k, stride, pad)
+    m = a.shape[0]
+    want = a @ wt.reshape(o, -1).T  # the flat conv, exact on small integers
+    args = tk._conv_bf16_args((n, h, w, c), (o, k, k, c), stride, pad, "linear", route)
+    assert (args.M, args.Ho, args.Wo, args.C) == (m, ho, wo, c)
+    boxes = k * k * -(-c // 16)
+    assert args.stages == boxes and not any(args.stage_tab[boxes:])
+    entries = [(e & 0xFFFF, e >> 16 & 0xFF, e >> 24) for e in args.stage_tab[:boxes]]
+    wb = tk.conv_bf16_weights(torch.from_numpy(wt), route, cp).numpy().reshape(o, -1)
+    assert wb.shape[1] == boxes * 16
+    past = [j for j, (c0, _, _) in enumerate(entries) if c0 + 16 > c]
+    assert len(past) == (k * k if c % 16 else 0)
+    for j in past:  # W's channels of a box past C are zero
+        assert not wb[:, 16 * j + c - entries[j][0]:16 * (j + 1)].any()
+    ksteps = -(-boxes // tk.CONV_BF16_BOXES)
+    tiles = -(-m // tk.CONV_BF16_TILE_M)
+    assert tk.conv_bf16_traffic((n, h, w, c), (o, k, k, c), stride, pad)[:2] == (
+        -(-tiles // 2) * 2 * -(-o // bn), ksteps)
+    for t in range(-(-tiles // 2) * 2):
+        m0 = t * tk.CONV_BF16_TILE_M
+        start = _tile_start(args, m0)
+        sums = np.zeros((tk.CONV_BF16_TILE_M, o), np.float32)
+        for s in range(ksteps):
+            js = range(s * tk.CONV_BF16_BOXES, min(boxes, (s + 1) * tk.CONV_BF16_BOXES))
+            for j in js:
+                box = _tma_im2col_box(x, args, start, entries[j], 16)
+                if j in past:
+                    assert not box[:, c - entries[j][0]:].any()
+                sums += box @ wb[:, 16 * j:16 * (j + 1)].T
+        rows = max(0, min(tk.CONV_BF16_TILE_M, m - m0))
+        np.testing.assert_array_equal(sums[:rows], want[m0:m0 + rows], err_msg=f"tile {t}")
+        assert not sums[rows:].any()
+
+
+@pytest.mark.parametrize("bn,ksteps,want", [
+    (48, 7, 8),    # C = 40, 40 outputs: W 42 KB beside 8 stages of A
+    (80, 7, 8),    # C = 40, 80 or 160 outputs
+    (80, 12, 5),   # C = 80: W 120 KB beside 5 stages
+    (80, 13, 4),   # C = 88, 80 outputs: the last W that fits beside 4
+    (80, 14, 0),   # C = 96 boxes' W: the plan sends such a conv to the gather
+    (128, 3, 8),   # the s2d stem's C = 12 (padded to 16)
+    (128, 20, 0),  # W 320 KB
+])
+def test_conv_bf16_ring(bn, ksteps, want):
+    """The "im2col16" ring beside W's resident N-tile, as the kernel's
+    ``resident_layout`` sizes it: whatever fits of 8 A stages, at least 4."""
+    assert tk.conv_bf16_ring(bn, ksteps) == want
+    if want:  # the shared memory it leaves room for
+        fixed = 2 * 64 * 160 + 2 * bn * 4 + 128 * 16 + 8 * (2 * want + 1) + 1024
+        assert want * 16384 + ksteps * bn * 128 + fixed <= tk.CONV_BF16_SMEM
+
+
+def _halo_box(x, plan, n, th, tw):
+    """numpy model of the halo route's 4-D tiled TMA box: ``plan.hr`` rows
+    of ``plan.hw`` pixels of ``plan.cp`` channels from input pixel
+    (th * 4 - 1, tw * 32 - 1) of image n, zero outside x and past its C
+    channels."""
+    nb_, hh, ww, c = x.shape
+    th_, tw_ = tk.CONV_BF16_HALO_TILE
+    h0, w0 = th * th_ - 1, tw * tw_ - 1
+    box = np.zeros((plan.hr, plan.hw, plan.cp), x.dtype)
+    for i in range(plan.hr):
+        for j in range(plan.hw):
+            if 0 <= h0 + i < hh and 0 <= w0 + j < ww:
+                box[i, j, :c] = x[n, h0 + i, w0 + j]
+    return box
+
+
+def _ldmatrix_a(flat, plan, j, cw, warp):
+    """The 16 x 16 A block that a consumer warp's ldmatrix.x4 gives k16 step
+    ``j`` (tap j // nb, channel block j % nb), read back through the
+    m16n8k16 A fragment layout: lane L names row (L % 8) + 8 (L // 8 % 2)
+    at channel half L // 16, as the kernel's lane offset does; thread t
+    gets matrix i's row t // 4, columns 2 (t % 4) and + 1."""
+    th_, tw_ = tk.CONV_BF16_HALO_TILE
+    tap, blk = divmod(j, plan.nb)
+    r, q = divmod(tap, 3)
+    addr = []
+    for lane in range(32):
+        prow = 64 * cw + 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)
+        off = ((prow // tw_) * plan.hw + prow % tw_) * plan.cp + 8 * (lane >> 4)
+        addr.append(off + (r * plan.hw + q) * plan.cp + 16 * blk)  # in elements
+    a = np.zeros((16, 16), flat.dtype)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for i, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+            src = addr[8 * i + g]  # matrix i's row g
+            a[g + dr, 2 * t + dk:2 * t + dk + 2] = flat[src + 2 * t:src + 2 * t + 2]
+    return a
+
+
+@pytest.mark.parametrize("n,h,w,c,o", [
+    (1, 9, 40, 40, 40),   # 9 x 40 -> tiles of 4 x 32 past the right and bottom edges
+    (2, 8, 64, 80, 48),   # two images, C = 80 (5 blocks a tap)
+    (1, 10, 70, 24, 32),  # C = 24, a 32-column tile
+    (1, 5, 33, 16, 32),   # C = 16: one block a tap
+])
+def test_conv_bf16_halo_fragments_walk_the_conv(n, h, w, c, o):
+    """K5's halo route: the halo box each block tile loads (numpy model of
+    the tiled TMA box, zeros past x's edges and past C), read through the
+    consumers' ldmatrix lane addresses and the wgmma A fragment layout,
+    times W in box order (``conv_bf16_weights``), gives the flat conv's
+    sums at every output pixel of the tile that lies inside the image; the
+    geometry is the kernel's (``conv_bf16_halo``)."""
+    k, stride, pad = 3, 1, 1
+    bn = 32 if o <= 32 else 48
+    plan = tk.conv_bf16_halo(c, bn)
+    assert plan is not None and plan.cp >= 16 * plan.nb and plan.cp % 8 == 0
+    # 8 neighbouring pixels' 16-byte rows in 8 bank groups
+    assert len({(i * plan.cp * 2 // 16) % 8 for i in range(8)}) == 8
+    rng = np.random.default_rng(c + w)
+    x = rng.integers(-8, 9, (n, h, w, c)).astype(np.float32)
+    wt = rng.integers(-4, 5, (o, k, k, c)).astype(np.float32)
+    a, ho, wo = _im2col(x, k, stride, pad)
+    want = (a @ wt.reshape(o, -1).T).reshape(n, ho, wo, o)
+    wb = tk.conv_bf16_weights(torch.from_numpy(wt), "halo", c).numpy().reshape(o, -1)
+    steps = 9 * plan.nb
+    assert wb.shape[1] == 16 * steps and plan.ksteps == -(-steps // 4)
+    th_, tw_ = tk.CONV_BF16_HALO_TILE
+    for img in range(n):
+        for th in range(-(-ho // th_)):
+            for tw in range(-(-wo // tw_)):
+                flat = _halo_box(x, plan, img, th, tw).reshape(-1)
+                sums = np.zeros((128, o), np.float32)
+                for cw in range(2):
+                    for warp in range(4):
+                        rows = slice(64 * cw + 16 * warp, 64 * cw + 16 * warp + 16)
+                        for j in range(steps):
+                            sums[rows] += _ldmatrix_a(flat, plan, j, cw, warp) @ \
+                                wb[:, 16 * j:16 * (j + 1)].T
+                for p_ in range(128):
+                    oh, ow = th * th_ + p_ // tw_, tw * tw_ + p_ % tw_
+                    if oh < ho and ow < wo:
+                        np.testing.assert_array_equal(sums[p_], want[img, oh, ow])
+
+
+def test_conv_bf16_weights_padded_once():
+    """W as K5 reads it: zero channels up to the box width on "im2col16"
+    (40 -> 48), to the padded C elsewhere (12 -> 16), ``w`` itself where
+    nothing is added; made once a weight tensor and width, again after the
+    tensor is written to, and dropped with it."""
+    w = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 3, 3, 40))
+                         .astype(np.float32)).to(torch.bfloat16)
+    boxed = tk.conv_bf16_weights(w, "im2col16", 40)
+    assert tuple(boxed.shape) == (8, 3, 3, 48) and boxed.is_contiguous()
+    assert torch.equal(boxed[..., :40], w) and not boxed[..., 40:].any()
+    assert tk.conv_bf16_weights(w, "im2col16", 40) is boxed
+    assert tk.conv_bf16_weights(w, "gather", 40) is w
+    assert tuple(tk.conv_bf16_weights(w[..., :12].contiguous(), "gather", 16).shape) == (
+        8, 3, 3, 16)
+    w.mul_(2)
+    again = tk.conv_bf16_weights(w, "im2col16", 40)
+    assert again is not boxed and torch.equal(again[..., :40], w)
+    key = (id(w), 48)
+    assert key in tk._PADDED_W
+    del w
+    assert key not in tk._PADDED_W
 
 
 SHORTCUT_CFG = """

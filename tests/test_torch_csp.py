@@ -5,8 +5,8 @@ what no earlier model ran: mish over the whole body, CSP splits and
 concats everywhere (the CSP-SPP block's routes ``-1,-3,-5,-6`` and
 ``-1,-13``), bias-only ``activation=logistic`` head convs, ``[yolo]
 new_coords=1, scale_x_y=2.0`` heads decoded without K1's own sigmoid, and
-in yolov4x-mish convs of 40 and 80 channels that K5 sends down its gather
-route.  Both sides get the JAX package's ``random_raw_params`` +
+in yolov4x-mish convs of 40 and 80 channels that K5 sends down its
+"im2col16" route (16-channel boxes).  Both sides get the JAX package's ``random_raw_params`` +
 ``fold_batchnorm`` and the same numpy inputs; the port's kernels run their
 plain versions.
 
@@ -300,8 +300,9 @@ def test_letterbox_matches_jax(size):
 
 @pytest.mark.parametrize("name", list(CSP_CONV_CASES))
 def test_conv_bf16_plain_matches_jax_conv(name):
-    """K5's plain version against JAX's ``_conv`` in bf16 at the gather
-    convs, the C = 80 1x1 conv and the logistic heads of the family, each
+    """K5's plain version against JAX's ``_conv`` in bf16 at the 3->40 stem
+    and the C = 40 / 80 3x3 convs (the packed and "im2col16" routes), the
+    C = 80 1x1 conv and the logistic heads of the family, each
     at a reduced spatial size (24², or 48² before a stride-2 conv)."""
     n, h, w, *rest = CSP_CONV_CASES[name]
     side = 48 if rest[3] == 2 else 24
@@ -345,21 +346,23 @@ def test_decode_new_coords_heads_match_pallas(name, size):
 
 @pytest.mark.parametrize("name,routes,int8", [
     ("yolov4-csp", {"tma": 71, "im2col": 41, "im2col32": 2, "packed": 1}, (61, 37, 13)),
-    ("yolov4x-mish", {"tma": 83, "im2col": 32, "im2col32": 17, "gather": 7}, (72, 48, 13)),
+    ("yolov4x-mish", {"tma": 83, "im2col": 32, "im2col32": 17, "packed": 1, "im2col16": 6},
+     (72, 48, 13)),
 ])
 def test_family_plans(name, routes, int8):
     """What the family sends to each kernel: K5's route for every conv of
-    the bf16 model (yolov4x-mish's seven gather convs: layers 0, 1, 3, 5,
-    10, 13, 16), and int8sb's convs (default skip): 1x1 stride-1 on K3, the
-    rest on K4, none on the ``mma.sync`` core, and the split-concat convs
-    that ``concat_split_groups`` lists among them."""
+    the bf16 model (yolov4x-mish's six C % 32 != 0 convs on 16-channel
+    boxes: layers 1, 3, 5, 10, 13, 16; its 3->40 stem on the packed route),
+    and int8sb's convs (default skip): 1x1 stride-1 on K3, the rest on K4,
+    none on the ``mma.sync`` core, and the split-concat convs that
+    ``concat_split_groups`` lists among them."""
     spec = model_spec(name)
     plans = {l.index: tk.conv_bf16_plan(l.in_channels, l.filters, l.size, l.size, l.stride,
                                         l.padding)
              for l in spec.layers if isinstance(l, tcfg.ConvSpec)}
     assert dict(collections.Counter(p[0] for p in plans.values())) == routes
-    gather = sorted(i for i, p in plans.items() if p[0] == "gather")
-    assert gather == ([0, 1, 3, 5, 10, 13, 16] if "gather" in routes else [])
+    boxed = sorted(i for i, p in plans.items() if p[0] == "im2col16")
+    assert boxed == ([1, 3, 5, 10, 13, 16] if "im2col16" in routes else [])
     skip = tq.resolve_skip_layers(spec, "heads",
                                   default_min_stride=tq.default_early_min_stride(spec))
     q = [l for l in spec.layers if isinstance(l, tcfg.ConvSpec) and l.index not in skip]

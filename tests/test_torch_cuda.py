@@ -168,11 +168,12 @@ CONV_BF16_CASES = {
 
 
 # K5 at the Scaled-YOLOv4 convs that no earlier model ran, at batch 1 and
-# the published input sizes: yolov4x-mish@640's gather convs (C % 32 != 0:
-# the 3->40 stem, C = 40 and 80; 40 outputs on a 64-column tile), its 1x1
-# convs at C = 80 (A by TMA, K past C zero-filled), and the bias-only
-# logistic head convs of both models (1x1, A by TMA).  Same layout as
-# CONV_BF16_CASES.
+# the published input sizes: yolov4x-mish@640's convs that the gather route
+# ran before the "im2col16" route (C % 32 != 0: C = 40 and 80, 16-channel
+# boxes, tiles of 48 and 80 columns) and its 3->40 stem (the packed route,
+# a 48-column tile), its 1x1 convs at C = 80 (A by TMA, K past C
+# zero-filled), and the bias-only logistic head convs of both models (1x1,
+# A by TMA).  Same layout as CONV_BF16_CASES.
 CSP_CONV_CASES = {
     "x-mish conv 0 3x3 s1 640² 3->40 mish": (1, 640, 640, 3, 40, 3, 1, "mish", "normal", False),
     "x-mish conv 1 3x3 s2 640²->320² 40->80 mish": (1, 640, 640, 40, 80, 3, 2, "mish", "normal",
@@ -196,12 +197,13 @@ CSP_CONV_CASES = {
 # K5 at the Scaled-YOLOv4 large family's convs that no earlier model ran,
 # at batch 1 and yolov4-p7@1536's shapes: name -> (the route
 # conv_bf16_plan must name, a CONV_BF16_CASES-style tuple).  Its 3x3 s1
-# 40->40 gather conv at 768² (with the [shortcut] its residual block fuses),
+# 40->40 conv at 768² (the halo route, a 48-column tile; with the
+# [shortcut] its residual block fuses),
 # a C = 480 residual conv (480 % 64 = 32: the im2col32 route) and the
 # 340-output logistic head convs at stride 8 and 128.
 LARGE_CONV_CASES = {
     "p7 conv 6 3x3 s1 768² 40->40 mish + shortcut": (
-        "gather", (1, 768, 768, 40, 40, 3, 1, "mish", "normal", True)),
+        "halo", (1, 768, 768, 40, 40, 3, 1, "mish", "normal", True)),
     "p7 3x3 s1 48² 480->480 mish + shortcut": (
         "im2col32", (1, 48, 48, 480, 480, 3, 1, "mish", "normal", True)),
     "p7 head 1x1 192² 320->340 logistic": (
@@ -216,7 +218,8 @@ LARGE_CONV_CASES = {
 # conv_bf16_plan must name, a CONV_BF16_CASES-style tuple).  yolov2's conv 29
 # after the reorg route (1280 = 256 + 1024 channels), its 1x1 conv before the
 # reorg and its 425-output [region] head conv; yolov2-tiny's stride-1 RGB stem
-# (3 -> 16, the packed route) and its C = 16 conv (the gather route);
+# (3 -> 16, the packed route) and its C = 16 conv (one 16-channel box a
+# tap, the "im2col16" route);
 # yolov3-spp's 2048 -> 512 conv after the SPP route.
 V2_CONV_CASES = {
     "yolov2 conv 29 3x3 s1 13² 1280->1024 leaky": (
@@ -228,20 +231,70 @@ V2_CONV_CASES = {
     "yolov2-tiny stem 3x3 s1 416² 3->16 leaky": (
         "packed", (1, 416, 416, 3, 16, 3, 1, "leaky", "normal", False)),
     "yolov2-tiny conv 2 3x3 s1 208² 16->32 leaky": (
-        "gather", (1, 208, 208, 16, 32, 3, 1, "leaky", "normal", False)),
+        "im2col16", (1, 208, 208, 16, 32, 3, 1, "leaky", "normal", False)),
     "yolov3-spp conv 84 1x1 19² 2048->512 leaky": (
         "tma", (2, 19, 19, 2048, 512, 1, 1, "leaky", "normal", False)),
 }
 
 
+# K5's packed route past 32 outputs, its "im2col16" route (C % 32 != 0,
+# 16-channel boxes of one tap, four a stage, W repacked in box order) and
+# its halo route (C % 16 == 8, at most 48 outputs: 4 x 32-pixel tiles from
+# one box of their input pixels) at small grids: name -> (the route
+# conv_bf16_plan must name, a CONV_BF16_CASES-style tuple).  The former
+# gather convs' shapes at 24² (48² before a stride-2 conv): the 3->40
+# stem, 40->80 s2, 80->160 s2 with and without a [shortcut], 16->32; and
+# the edges: an odd M-tile count (17² = 289 pixels: 3 tiles, one past M;
+# on the halo route tiles past the right and bottom edges), tiles that
+# cross images, O = 40 / 80 / 160 (tiles of 48, 80, 2 x 80), C = 24 and 40
+# (a last box of a tap half past C), C = 12 padded to 16, a stride-2 40->40
+# conv (the halo route takes stride 1 only) with a [shortcut], the halo
+# route on a 9 x 70 grid, 67 N-tiles of 128 (more than an H100's 66
+# clusters: one cluster each, in two waves); and two convs the plan sends
+# to the 16-byte gather, whose W (88 or 120 channels, 80 or 64 outputs)
+# does not fit beside the "im2col16" ring.
+BOX_CONV_CASES = {
+    "stem 3x3 s1 24² 3->40 mish": ("packed", (1, 24, 24, 3, 40, 3, 1, "mish", "normal", False)),
+    "stem 3x3 s2 48² 3->64 leaky": ("packed", (1, 48, 48, 3, 64, 3, 2, "leaky", "normal", False)),
+    "stem 3x3 s1 17² 3->48 leaky, 2 images": (
+        "packed", (2, 17, 17, 3, 48, 3, 1, "leaky", "normal", False)),
+    "3x3 s2 48² 40->80 mish": ("im2col16", (1, 48, 48, 40, 80, 3, 2, "mish", "normal", False)),
+    "3x3 s2 48² 80->160 mish": ("im2col16", (1, 48, 48, 80, 160, 3, 2, "mish", "normal", False)),
+    "3x3 s2 48² 80->160 mish + shortcut": (
+        "im2col16", (1, 48, 48, 80, 160, 3, 2, "mish", "normal", True)),
+    "3x3 s1 24² 16->32 leaky": ("im2col16", (1, 24, 24, 16, 32, 3, 1, "leaky", "normal", False)),
+    "3x3 s1 17² 40->40 mish, odd M-tiles": (
+        "halo", (1, 17, 17, 40, 40, 3, 1, "mish", "normal", False)),
+    "3x3 s2 37² 40->40 mish + shortcut, 2 images": (
+        "im2col16", (2, 37, 37, 40, 40, 3, 2, "mish", "normal", True)),
+    "3x3 s1 9x70 24->32 leaky cancelling bias": (
+        "halo", (1, 9, 70, 24, 32, 3, 1, "leaky", "cancel", False)),
+    "3x3 s1 13² 40->80 mish, 2 images": (
+        "im2col16", (2, 13, 13, 40, 80, 3, 1, "mish", "normal", False)),
+    "3x3 s1 13² 80->80 mish + shortcut, 2 images": (
+        "im2col16", (2, 13, 13, 80, 80, 3, 1, "mish", "normal", True)),
+    "3x3 s1 11² 40->80 leaky cancelling bias, 3 images": (
+        "im2col16", (3, 11, 11, 40, 80, 3, 1, "leaky", "cancel", False)),
+    "3x3 s2 21² 24->56 linear": ("im2col16", (1, 21, 21, 24, 56, 3, 2, "linear", "normal", False)),
+    "3x3 s1 20² 12->128 leaky (C padded to 16)": (
+        "im2col16", (1, 20, 20, 12, 128, 3, 1, "leaky", "normal", False)),
+    "3x3 s1 5² 16->8576 linear, 67 N-tiles": (
+        "im2col16", (1, 5, 5, 16, 8576, 3, 1, "linear", "normal", False)),
+    "3x3 s1 13² 88->80 mish, W past the ring": (
+        "gather", (1, 13, 13, 88, 80, 3, 1, "mish", "normal", False)),
+    "3x3 s1 15² 120->64 leaky + shortcut, 2 images, W past the ring": (
+        "gather", (2, 15, 15, 120, 64, 3, 1, "leaky", "normal", True)),
+}
+
+
 def conv_bf16_input(name, device="cpu", case=None):
     """(x, w, b, stride, pad, activation, shortcut) of a K5 case (an entry of
-    CONV_BF16_CASES, CSP_CONV_CASES, LARGE_CONV_CASES or V2_CONV_CASES, or
-    ``case``, such an entry's tuple): NHWC bf16 x ~ N(0, 1), (O, KH, KW, C)
-    bf16 He-scaled weights, fp32 bias."""
+    CONV_BF16_CASES, CSP_CONV_CASES, LARGE_CONV_CASES, V2_CONV_CASES or
+    BOX_CONV_CASES, or ``case``, such an entry's tuple): NHWC bf16 x ~ N(0,
+    1), (O, KH, KW, C) bf16 He-scaled weights, fp32 bias."""
     n, h, w_, c, o, k, stride, act, bias, shortcut = (
         case or CONV_BF16_CASES.get(name) or CSP_CONV_CASES.get(name)
-        or {**LARGE_CONV_CASES, **V2_CONV_CASES}[name][1])
+        or {**LARGE_CONV_CASES, **V2_CONV_CASES, **BOX_CONV_CASES}[name][1])
     rng = np.random.default_rng(sum(map(ord, name)))
     bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
     x = bf(rng.normal(0, 1, (n, h, w_, c)))
@@ -1175,25 +1228,56 @@ def test_cuda_conv_bf16_matches_plain(cuda, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CSP_CONV_CASES) + list(LARGE_CONV_CASES)
-                         + list(V2_CONV_CASES))
+                         + list(V2_CONV_CASES) + list(BOX_CONV_CASES))
 def test_cuda_conv_bf16_csp_shapes(cuda, name):
-    """K5 at the Scaled-YOLOv4 family's new convs (yolov4x-mish's gather
-    convs at 640² and 320², its C = 80 1x1 conv, the logistic heads of
-    both models; yolov4-p7's of :data:`LARGE_CONV_CASES`) and at the
-    yolov2, yolov2-tiny and yolov3-spp convs of :data:`V2_CONV_CASES`,
-    each on the route ``conv_bf16_plan`` names, against its plain version:
-    the gate of :func:`test_cuda_conv_bf16_matches_plain`."""
+    """K5 at the Scaled-YOLOv4 family's new convs (yolov4x-mish's 3->40
+    stem and C = 40 / 80 convs at 640² and 320², its C = 80 1x1 conv, the
+    logistic heads of both models; yolov4-p7's of
+    :data:`LARGE_CONV_CASES`), at the yolov2, yolov2-tiny and yolov3-spp
+    convs of :data:`V2_CONV_CASES` and at the packed and "im2col16" edges
+    of :data:`BOX_CONV_CASES`, each on the route ``conv_bf16_plan`` names,
+    against its plain version: the gate of
+    :func:`test_cuda_conv_bf16_matches_plain`."""
     x, w, b, stride, pad, act, sc = conv_bf16_input(name, cuda)
     route = tk.conv_bf16_plan(x.shape[-1], w.shape[0], w.shape[1], w.shape[2], stride, pad)[0]
-    routes = {**LARGE_CONV_CASES, **V2_CONV_CASES}
-    assert route == (routes[name][0] if name in routes
-                     else "tma" if w.shape[1] == 1 else "gather")
+    routes = {**LARGE_CONV_CASES, **V2_CONV_CASES, **BOX_CONV_CASES}
+    assert route == (routes[name][0] if name in routes else "tma" if w.shape[1] == 1
+                     else "packed" if x.shape[-1] == 3 else "im2col16")
     before = tk.LAUNCHES["conv_bf16"]
     ours = tk.conv_bf16(x, w, b, stride, pad, act, sc)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["conv_bf16"] == before + 1
     ref = tk.conv_bf16_ref(x, w, b, stride, pad, act, sc)
     assert ours.dtype == torch.bfloat16 and ours.shape == ref.shape
+    equal, ulps = bf16_agreement(ours, ref, conv_bf16_floor(x, w, b, stride, pad, sc))
+    assert equal >= 0.999 and ulps <= 1, (equal, ulps)
+
+
+def _other_routes():
+    """(case, route) pairs of :data:`BOX_CONV_CASES` for the routes the plan
+    does not give: the 16-byte gather that the packed, "im2col16" and halo
+    routes took these convs from (BN 64 / 128, C padded to 8), and
+    "im2col16" where the plan gives the halo route."""
+    pairs = []
+    for name, (route, _) in BOX_CONV_CASES.items():
+        if route != "gather":
+            pairs.append((name, "gather"))
+        if route == "halo":
+            pairs.append((name, "im2col16"))
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,route", _other_routes())
+def test_cuda_conv_bf16_other_routes(cuda, name, route):
+    """The routes the plan does not give these convs (``_route``: the
+    gather they left, "im2col16" for a halo conv), still against the
+    plain version: phase 13 of ``chip_smoke.py`` times them in turns with
+    the planned ones."""
+    x, w, b, stride, pad, act, sc = conv_bf16_input(name, cuda)
+    ours = tk.conv_bf16(x, w, b, stride, pad, act, sc, _route=route)
+    torch.cuda.synchronize()
+    ref = tk.conv_bf16_ref(x, w, b, stride, pad, act, sc)
     equal, ulps = bf16_agreement(ours, ref, conv_bf16_floor(x, w, b, stride, pad, sc))
     assert equal >= 0.999 and ulps <= 1, (equal, ulps)
 

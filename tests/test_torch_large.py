@@ -6,7 +6,8 @@ logistic head convs), four and five heads in one K1 launch, stride-64 and
 stride-128 heads with the early-skip thresholds 16 and 32, int8 convs at
 widths 384-1920 (480, 960 and 1600 are not multiples of 128) on split
 groups no model sent before (480 + 480, 960 + 640, 768 + 512), and on p7
-seven convs on K5's gather route.  Both sides get the JAX package's
+six convs on K5's "im2col16" and halo routes (C = 40 and 80) and a 3->40
+stem on its packed route.  Both sides get the JAX package's
 ``random_raw_params`` + ``fold_batchnorm`` and the same numpy inputs; the
 port's kernels run their plain versions.  Each model's params are built
 once for the module (p7's: 338 M fp32 weights, about 1.35 GB a copy), at
@@ -355,7 +356,7 @@ def test_letterbox_matches_jax(size):
 @pytest.mark.parametrize("name", list(LARGE_CONV_CASES))
 def test_conv_bf16_plain_matches_jax_conv(name):
     """K5's plain version against JAX's ``_conv`` in bf16 at p7's new
-    shapes (the 3x3 s1 40->40 gather conv, a C = 480 conv on the im2col32
+    shapes (the 3x3 s1 40->40 halo-route conv, a C = 480 conv on the im2col32
     route, the 340-output logistic head convs), each at a reduced spatial
     size (24², or 48² before a stride-2 conv)."""
     route, (n, h, w, *rest) = LARGE_CONV_CASES[name]
@@ -377,8 +378,8 @@ def test_conv_bf16_plain_matches_jax_conv(name):
 PLANS = {
     "yolov4-p5": ({"tma": 97, "im2col": 63, "im2col32": 2, "packed": 1}, (82, 58, 23, 13), 8),
     "yolov4-p6": ({"tma": 123, "im2col": 79, "im2col32": 2, "packed": 1}, (81, 53, 71, 15), 16),
-    "yolov4-p7": ({"tma": 149, "im2col": 68, "im2col32": 23, "gather": 7}, (73, 45, 129, 15),
-                  32),
+    "yolov4-p7": ({"tma": 149, "im2col": 68, "im2col32": 23, "packed": 1, "im2col16": 5,
+                   "halo": 1}, (73, 45, 129, 15), 32),
 }
 
 
@@ -386,7 +387,9 @@ PLANS = {
 def test_family_plans(name):
     """What each model sends to each kernel: the generator's text equal to
     the JAX package's, K5's route for every conv of the bf16 model (p7's
-    seven gather convs: layers 0, 1, 6, 11, 16, 19, 22), and int8sb's
+    six C % 32 != 0 convs: layers 1, 11, 16, 19, 22 on 16-channel boxes,
+    the 40 -> 40 layer 6 on the halo route; its 3->40 stem on the packed
+    route), and int8sb's
     convs at the default skip, whose set and early threshold equal the JAX
     package's: 1x1 stride-1 on K3, the rest on K4, none on the
     ``mma.sync`` core; the split-concat convs among them; the SPP block's
@@ -398,8 +401,9 @@ def test_family_plans(name):
     plans = {l.index: tk.conv_bf16_plan(l.in_channels, l.filters, l.size, l.size, l.stride,
                                         l.padding) for l in convs}
     assert dict(collections.Counter(p[0] for p in plans.values())) == routes
-    gather = sorted(i for i, p in plans.items() if p[0] == "gather")
-    assert gather == ([0, 1, 6, 11, 16, 19, 22] if "gather" in routes else [])
+    boxed = sorted(i for i, p in plans.items() if p[0] in ("im2col16", "halo"))
+    assert boxed == ([1, 6, 11, 16, 19, 22] if "im2col16" in routes else [])
+    assert [i for i, p in plans.items() if p[0] == "halo"] == ([6] if "halo" in routes else [])
     assert tq.default_early_min_stride(spec) == jq.default_early_min_stride(jspec) == early
     skip = tq.resolve_skip_layers(spec, "heads", default_min_stride=early)
     assert skip == jq.resolve_skip_layers(jspec, "heads", default_min_stride=early)

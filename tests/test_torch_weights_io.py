@@ -121,7 +121,7 @@ def test_package_data_covers_build_inputs():
     globs = project["tool"]["setuptools"]["package-data"]["pytorch_yolo_tpu_torch"]
     pkg = os.path.join(ROOT, "pytorch_yolo_tpu_torch")
     files = [*kernels.SOURCES, *kernels.HEADERS, native._SRC]
-    assert len(files) == 11 and all(os.path.isfile(p) for p in files)
+    assert len(files) == 14 and all(os.path.isfile(p) for p in files)
     for path in files:
         rel = os.path.relpath(path, pkg).replace(os.sep, "/")
         assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)

@@ -263,7 +263,7 @@ def test_decode_region_softmax_matches_pallas(name, size):
 def test_conv_bf16_plain_matches_jax_conv(name):
     """K5's plain version against JAX's ``_conv`` in bf16 at the three
     models' new shapes (yolov2's 3x3 1280 -> 1024 conv 29 after the reorg
-    route, the [region] head conv, yolov2-tiny's C = 16 gather conv and its
+    route, the [region] head conv, yolov2-tiny's C = 16 "im2col16" conv and its
     stride-1 stem, yolov3-spp's 2048 -> 512 conv after route 83), each at a
     reduced spatial size (at most 24²), on the route ``conv_bf16_plan``
     names."""
@@ -305,7 +305,7 @@ PLANS = {
                    {84: (512,) * 4, 94: (256, 512), 106: (128, 256)}, 8),
     "yolov2": ({"tma": 8, "im2col": 13, "im2col32": 1, "packed": 1}, (7, 15, 1), [0],
                {29: (256, 1024)}, 0),
-    "yolov2-tiny": ({"tma": 1, "im2col": 5, "im2col32": 1, "gather": 1, "packed": 1},
+    "yolov2-tiny": ({"tma": 1, "im2col": 5, "im2col32": 1, "im2col16": 1, "packed": 1},
                     (0, 8, 1), [0], {}, 0),
 }
 

@@ -5,7 +5,8 @@
 
 Copies ``pytorch_yolo_tpu_torch/`` (without its build) and ``cfg/`` into
 DIR and rewrites ``kPromote`` (P: the stages the tensor cores chain before
-one promotion) in DIR's ``csrc/conv_bf16.cu``, so that
+one promotion) in DIR's ``csrc/conv_bf16.cuh`` (the main kernel's; the
+halo route chains 16 k16 steps, a constant of its own), so that
 ``tools/k5_accuracy.py --root DIR`` and ``tools/profile_torch_step.py
 --kernels --root DIR`` measure that P beside this one in one call on the
 card.  DIR must lie under ``_scratch/`` (listed in ``.gitignore``), which
@@ -37,7 +38,7 @@ def main() -> None:
                     os.path.join(dest, "pytorch_yolo_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copytree(os.path.join(ROOT, "cfg"), os.path.join(dest, "cfg"))
-    src = os.path.join(dest, "pytorch_yolo_tpu_torch", "csrc", "conv_bf16.cu")
+    src = os.path.join(dest, "pytorch_yolo_tpu_torch", "csrc", "conv_bf16.cuh")
     with open(src, encoding="utf-8") as f:
         text = f.read()
     text, n = re.subn(r"constexpr int kPromote = \d+;", f"constexpr int kPromote = {args.promote};",

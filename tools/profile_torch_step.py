@@ -82,6 +82,8 @@ GROUPS = (("k6_tile_kernel<false", "K6 int8 input quantizer"),
           ("conv_bf16_kernel<1", "K5 bf16 conv (TMA A)"),
           ("conv_bf16_kernel<2", "K5 bf16 conv (im2col A)"),
           ("conv_bf16_kernel<4", "K5 bf16 conv (im2col A, C = 32)"),
+          ("conv_bf16_kernel<5", "K5 bf16 conv (16-channel boxes)"),
+          ("conv_bf16_halo", "K5 bf16 conv (halo)"),
           ("conv_bf16_packed", "K5 bf16 conv (packed stem)"),
           ("conv_bf16_kernel<true", "K5 bf16 conv (gather)"),  # before the im2col route
           ("conv_bf16_kernel<false", "K5 bf16 conv (TMA A)"),
