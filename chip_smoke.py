@@ -154,8 +154,11 @@ Phases, one line each (a failure in any phase exits non-zero):
      device, in turns), the gather route (``_route="gather"``, device, in
      turns) and, for p7's conv 6 on the halo route, the "im2col16" route
      (device, in turns; its output equal to the halo route's bit for
-     bit); their 3x3 "im2col32" convs (C % 64 == 32: 160, 480) the same
-     way without the gather; the same gate on every distinct conv of
+     bit); their "im2col_pad" convs (C % 64 == 32: 160, 480; 64-channel
+     boxes, 80-column tiles of one M-tile a cluster) the same way, beside
+     the "im2col32" route they ran on before (``_route="im2col32"``, device,
+     in turns) instead of the gather, and yolov4x-mish's 80² 160->160 conv
+     with leaky against its mish, in turns; the same gate on every distinct conv of
      yolov3-spp@608, yolov2@416 and yolov2-tiny@416 at batch 4, and
      yolov2-tiny's C = 16 conv (layer 2) at batch 128, timed the same way
      beside cuDNN + bias + leaky and the gather;
@@ -168,7 +171,8 @@ Phases, one line each (a failure in any phase exits non-zero):
      3.35 TB/s) and its launches a step; beside them, from a model of the
      shapes (``kernels.conv_bf16_traffic``, no counter), the tile loads'
      bytes and their rate, and the device time over the modelled stages of
-     an SM;
+     an SM; and yolov3's C = 32 pair (still "im2col32") at batch 128 on
+     seeded inputs, its output digests equal to the parent tree's;
  14. K2 past K = 1024 (the bitmask in global memory) against its plain
      version: crowded boxes at K = 1025, 2048 and 10,647 (class-wise and
      not), a 1025-long chain, and the live bf16 detector at
@@ -225,10 +229,9 @@ Phases, one line each (a failure in any phase exits non-zero):
      128, meshless and mesh in turns (a reading, not a gate); (e) 17a over
      every card where there is more than one, else one line saying so.
      The current device is what it was before the phase;
- 18. yolov4@608 (the published cfg's size), live weights: (a)
-     ``Detector.load("yolov4", synthetic="live")`` fp32 / "highest" on the
-     card equal to the detector on the same equalized weights, and against
-     the CPU on 2 frames (set agreement >= 0.995, the worst matched box
+ 18. yolov4@608 (the published cfg's size), live weights: (a) fp32 /
+     "highest" on the card (one K1 and one K2 launch) against the CPU on
+     2 frames (set agreement >= 0.995, the worst matched box
      printed; CUDA's and the CPU's mish differ in their last ulps); (b)
      bf16 at batch 64 (23.7 M pixels a step), phase 6's frames and method:
      median ms/batch and img/s, one K5 launch for each of the 110 convs
@@ -267,8 +270,9 @@ Phases, one line each (a failure in any phase exits non-zero):
      again with ``quant_split_concat`` (13 int8 convs on split groups);
      (e) drift of bf16 and int8sb "auto" against fp32 on 4 frames: no
      degenerate row;
- 21. yolov4x-mish@640 (139 convs, 6 on K5's "im2col16" route and the
-     3->40 stem on its packed route, checked by route), live weights,
+ 21. yolov4x-mish@640 (139 convs, 6 on K5's "im2col16" route, 17 on its
+     "im2col_pad" route, none on "im2col32" and the 3->40 stem on its
+     packed route, checked by route), live weights,
      batch 64: as phase 20 (int8sb: 120 int8 convs, 72 on K3 and 48 on
      K4, the CSP-SPP route 133's four 640-channel sources in one K6), plus
      (d) bf16 at batch 128 once, bit-equal to its two halves (layer 0's
@@ -282,7 +286,8 @@ Phases, one line each (a failure in any phase exits non-zero):
      (205 K5; 81 K3 + 53 K4, 71 on K5; route 197; 15 split convs; (d) at
      32);
  24. yolov4-p7@1536 (a stride-128 head, early skip 32, 5 convs on K5's
-     "im2col16" route, conv 6 on its halo route, the 3->40 stem packed),
+     "im2col16" route, conv 6 on its halo route, 23 on "im2col_pad", the
+     3->40 stem packed),
      batch 8: as 22 (247 K5; 73 K3 + 45 K4, 129 on K5; route
      225's four 640-channel sources; 15 split convs; (d) at 16);
  25. yolov3-spp@608 (SPP in a leaky Darknet-53), live weights, batch 64:
@@ -323,6 +328,7 @@ in 10-27; frames from numpy seed 0 (phase 16: seed 16; phase 17b: seed 17;
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import os
 import statistics
@@ -367,6 +373,16 @@ LARGE = (("yolov4-p5", 896, 32), ("yolov4-p6", 1280, 16), ("yolov4-p7", 1536, 8)
 # as yolov4@608), yolov2 and yolov2-tiny at 416 (their cfgs' size, the
 # YOLO9000 paper's 13x13 grid) and batch 128 (22.2 M, as yolov3)
 ZOO_LAST = (("yolov3-spp", 608, 64), ("yolov2", 416, 128), ("yolov2-tiny", 416, 128))
+# phase 13: yolov3's C = 32 pair on the "im2col32" route at batch 128 (name
+# -> (H = W, C, O, stride)), on inputs seeded as tools/profile_torch_step.py
+# --k5 seeds them, and the sha1 digests (first 16 hex digits) of the
+# outputs of the parent tree 4c693ce, which ran the pair on the same route
+# (that tool, on an NVIDIA H100 80GB HBM3 with torch C32_TORCH): this tree
+# must give the same bits where the torch version is that one.
+YOLOV3_C32 = {"3x3 s2 416²->208² 32->64": (416, 32, 64, 2), "3x3 s1 208² 32->64": (208, 32, 64, 1)}
+C32_DIGESTS = {"3x3 s2 416²->208² 32->64": "462f67e68e4fd1f3",
+               "3x3 s1 208² 32->64": "db4192978a3f69a7"}
+C32_TORCH = "2.11.0+cu128"
 LAPS: list = []  # (phase, perf_counter at its start)
 
 
@@ -936,19 +952,22 @@ def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
     inputs: mish and leaky, the logistic, linear and [region] heads, the
     former gather convs, a fused shortcut where the model has one); then
     each distinct former gather conv (:func:`was_gather`: yolov4x-mish's,
-    yolov4-p7's and yolov2-tiny's) and each distinct 3x3 "im2col32" conv of
-    yolov4x-mish and yolov4-p7 at its path's batch, on those inputs
-    repeated: K5's eager and device time beside its bound, its plain
-    version and cuDNN's bf16 ``F.conv2d`` + bf16 bias + the conv's
-    activation, in turns; a former gather conv also beside the 16-byte
-    gather route it ran on before (``conv_bf16(..., _route="gather")``, device
-    time in turns)."""
+    yolov4-p7's and yolov2-tiny's) and each distinct "im2col_pad" conv
+    (C % 64 == 32, C > 32: yolov4x-mish's and yolov4-p7's) at its path's
+    batch, on those inputs repeated: K5's eager and device time beside its
+    bound, its plain version and cuDNN's bf16 ``F.conv2d`` + bf16 bias +
+    the conv's activation, in turns; a former gather conv also beside the
+    16-byte gather route it ran on before (``conv_bf16(...,
+    _route="gather")``, device time in turns), an "im2col_pad" conv beside
+    the "im2col32" route it ran on before (``_route="im2col32"``, the same),
+    and yolov4x-mish's 80² 160->160 conv also with leaky against its mish,
+    in turns."""
     from pytorch_yolo_tpu_torch import Detector
     from pytorch_yolo_tpu_torch.ops.preprocess import letterbox_batch
 
     F = torch.nn.functional
     worst = {"equal": 1.0, "steps": 0, "abs": 0.0}
-    cases, gather, im2col32 = 0, {}, {}
+    cases, gather, padded = 0, {}, {}
     for name, size, batch in CSP + LARGE + ZOO_LAST:
         spec, live = scaled_live[name]
         det = Detector(spec, live, device=dev, dtype=torch.bfloat16, precision="default")
@@ -966,8 +985,7 @@ def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
             c = det.model.convs[str(i)]
             (n4, h, wd, ch), ws = key[0], key[1]
             old = was_gather(ch, ws[0], ws[1], c.stride, c.padding)
-            if not (old or (plans[i][0] == "im2col32" and ws[1] == 3
-                            and name in ("yolov4x-mish", "yolov4-p7"))):
+            if not (old or plans[i][0] == "im2col_pad"):
                 continue
             ho = (h + 2 * c.padding - ws[1]) // c.stride + 1
             label = (f"{name} conv {i} {ws[1]}x{ws[2]} s{c.stride} {h}²"
@@ -1022,8 +1040,23 @@ def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
                                device_ms_vs_other=new2_ms)
                     was += (f"; the {other} route {other_ms:.4f} ms device in turns "
                             f"({other_ms / new2_ms:.2f}x)")
-            (gather if old else im2col32)[label] = row
-            say(f"phase 13 K5 {'former gather' if old else 'im2col32'} {label} batch {batch} "
+            else:  # the "im2col32" route it ran on before, device time in turns
+                old_k5 = lambda: kernels.conv_bf16(  # noqa: E731
+                    x, c.weight, c.bias, c.stride, c.padding, c.activation, _route="im2col32")
+                new_ms, old_ms = in_turns(old_k5, k5, timer=graph_ms)
+                row.update(device_ms_vs_im2col32=new_ms, im2col32_device_ms=old_ms)
+                was = (f"; the im2col32 route it replaced {old_ms:.4f} ms device in turns "
+                       f"({old_ms / new_ms:.2f}x this route's {new_ms:.4f})")
+                if name == "yolov4x-mish" and (h, ch, ws[0], c.stride) == (80, 160, 160, 1):
+                    # mish's epilogue against leaky's on this route, in turns
+                    leaky = lambda: kernels.conv_bf16(  # noqa: E731
+                        x, c.weight, c.bias, c.stride, c.padding, "leaky")
+                    mish_ms, leaky_ms = in_turns(leaky, k5, timer=graph_ms)
+                    row.update(mish_device_ms=mish_ms, leaky_device_ms=leaky_ms)
+                    was += (f"; with leaky {leaky_ms:.4f} ms device against mish "
+                            f"{mish_ms:.4f} in turns ({mish_ms / leaky_ms - 1:+.1%})")
+            (gather if old else padded)[label] = row
+            say(f"phase 13 K5 {'former gather' if old else 'im2col_pad'} {label} batch {batch} "
                 f"({per} a step, plan {plans[i]}): {ms:.4f} ms eager, {dev_ms:.4f} ms device "
                 f"({bms / dev_ms:.1%} of its {bms:.4f} ms bound, {by}: {ops / 1e9:.1f} GFLOP, "
                 f"{nbytes / 1e9:.3f} GB); cuDNN bf16 conv + bf16 bias + {c.activation} "
@@ -1033,7 +1066,7 @@ def k5_scaled(kernels, frames, dev, card, scaled_live) -> dict:
             del x, xc
         del det, inputs
         torch.cuda.empty_cache()
-    return dict(worst=worst, cases=cases, gather=gather, im2col32=im2col32)
+    return dict(worst=worst, cases=cases, gather=gather, im2col_pad=padded)
 
 
 def phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live) -> dict:
@@ -1144,7 +1177,29 @@ def phase13_k5(kernels, v3, live, frames, dev, card, v4, v4_live) -> dict:
         del x, xc
     say(f"phase 13 timings: {json.dumps(timed, ensure_ascii=False)}")
     del det, inputs
-    return dict(timed=timed, worst=worst, cases=n3 + n4, mish_leaky=mish_leaky)
+    # yolov3's C = 32 pair keeps the "im2col32" route: its outputs' bits
+    # against the parent tree's
+    digests = {}
+    for name, (h, c, o, stride) in YOLOV3_C32.items():
+        g = torch.Generator(device=dev).manual_seed(sum(map(ord, name)))
+        x = torch.randn((BATCH, h, h, c), device=dev, generator=g).to(torch.bfloat16)
+        w = (torch.randn((o, 3, 3, c), device=dev, generator=g) * (2.0 / (9 * c)) ** 0.5).to(
+            torch.bfloat16)
+        b = torch.randn(o, device=dev, generator=g) * 0.5
+        if kernels.conv_bf16_plan(c, o, 3, 3, stride, 1)[0] != "im2col32":
+            fail(f"K5 yolov3 {name}: planned off the \"im2col32\" route")
+        y = kernels.conv_bf16(x, w, b, stride, 1, "leaky")
+        digests[name] = hashlib.sha1(y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+        del x, w, b, y
+    same = digests == C32_DIGESTS
+    if not same and torch.__version__ == C32_TORCH:
+        fail(f"K5 yolov3's C = 32 pair: output digests {digests}, the parent tree's "
+             f"{C32_DIGESTS}")
+    say(f"phase 13 K5 yolov3's C = 32 pair (\"im2col32\", batch {BATCH}): output digests "
+        f"{digests}, {'equal to' if same else 'not compared with (torch ' + torch.__version__ + ')'}"
+        f" the parent tree's")
+    return dict(timed=timed, worst=worst, cases=n3 + n4, mish_leaky=mish_leaky,
+                c32_digests=digests, c32_equal_to_parent=same)
 
 
 def phase14_k2_large(kernels, v3, live, frames, dev, rng, card) -> dict:
@@ -2193,20 +2248,24 @@ def phase19_yolov4_tiny(kernels, frames, frames4, calib, dev, card) -> dict:
 # None: the model has no such route) and the int8 convs after a concat
 # route, on split groups with quant_split_concat.  boxed / halo: the bf16
 # convs on K5's "im2col16" / halo routes (C % 32 != 0; every model's RGB
-# stem runs on K5's packed route, and none on the gather).  drift_guarded: a
+# stem runs on K5's packed route, and none on the gather); padded / c32: the
+# bf16 convs with C % 64 == 32 on K5's "im2col_pad" route (C > 32) and on
+# its "im2col32" route (C = 32).  drift_guarded: a
 # degenerate drift row is printed "DO-NOT-BANK" instead of failing the phase
 # (yolov3-spp, whose live regime was degenerate on the TPU).
-MODEL_PLAN = {"yolov4": dict(convs=110, k3=52, k4=37, route=113, split=8),
-              "yolov4-csp": dict(convs=115, k3=61, k4=37, route=109, split=13),
-              "yolov4x-mish": dict(convs=139, k3=72, k4=48, route=133, split=13, boxed=6),
-              "yolov4-p5": dict(convs=163, k3=82, k4=58, route=169, split=13),
-              "yolov4-p6": dict(convs=205, k3=81, k4=53, route=197, split=15),
-              "yolov4-p7": dict(convs=247, k3=73, k4=45, route=225, split=15, boxed=5, halo=1),
-              "yolov3-spp": dict(convs=76, k3=32, k4=31, route=83, split=3,
+MODEL_PLAN = {"yolov4": dict(convs=110, k3=52, k4=37, route=113, split=8, c32=2),
+              "yolov4-csp": dict(convs=115, k3=61, k4=37, route=109, split=13, c32=2),
+              "yolov4x-mish": dict(convs=139, k3=72, k4=48, route=133, split=13, boxed=6,
+                                   padded=17),
+              "yolov4-p5": dict(convs=163, k3=82, k4=58, route=169, split=13, c32=2),
+              "yolov4-p6": dict(convs=205, k3=81, k4=53, route=197, split=15, c32=2),
+              "yolov4-p7": dict(convs=247, k3=73, k4=45, route=225, split=15, boxed=5, halo=1,
+                                padded=23),
+              "yolov3-spp": dict(convs=76, k3=32, k4=31, route=83, split=3, c32=2,
                                  drift_guarded=True),
-              "yolov2": dict(convs=23, k3=7, k4=15, route=28, split=1, packed=1),
+              "yolov2": dict(convs=23, k3=7, k4=15, route=28, split=1, packed=1, c32=1),
               "yolov2-tiny": dict(convs=9, k3=0, k4=8, route=None, split=0, packed=1,
-                                  boxed=1)}
+                                  boxed=1, c32=1)}
 
 
 def pool_times(spec, size: int, batch: int, dev, dtype, layers=None) -> dict:
@@ -2368,22 +2427,17 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
     tag = f"phase {phase}"
     bf16 = dict(dtype=torch.bfloat16, precision="default")
     out: dict = {}
-    # (a) fp32 "highest", card vs CPU; the zoo entry point equalizes again
+    # (a) fp32 "highest", card vs CPU (phase 10 holds Detector.load's
+    # synthetic="live" to the same equalized weights on the card; running
+    # the equalizer again a model cost ~150 s a run)
     frames2 = frames[:2].cpu().numpy()
     det_ref = Detector(spec, live, device=dev, precision="highest")
-    det_load = Detector.load(name, device=dev, precision="highest", synthetic="live")
     kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
-    gpu = det_load.detect_batch(frames2, size=size, conf=0.5, iou=IOU, max_det=MAX_DET)
+    gpu = det_ref.detect_batch(frames2, size=size, conf=0.5, iou=IOU, max_det=MAX_DET)
     torch.cuda.synchronize()
     launches_a = dict(kernels.LAUNCHES)
     if not (launches_a["decode_score"] == 1 and launches_a["nms_keep"] == 1):
         fail(f"{name} fp32 detect_batch: expected one K1 and one K2 launch: {launches_a}")
-    same = detection_drift(det_ref.detect_batch(frames2, size=size, conf=0.5, iou=IOU,
-                                                max_det=MAX_DET), gpu)
-    if not (same.ref_dets > 0 and same.set_agreement == 1.0):
-        fail(f'Detector.load("{name}", synthetic="live") differs from the equalized weights: '
-             f"{same.row()}")
-    del det_load
     t0 = time.perf_counter()
     cpu = Detector(spec, live, device="cpu", precision="highest").detect_batch(
         frames2, size=size, conf=0.5, iou=IOU, max_det=MAX_DET)
@@ -2424,10 +2478,14 @@ def phase_model(kernels, phase, name, size, batch, spec, live, info, frames, cal
              f"{steps} steps ({len(det.model.convs)} convs): {launches}")
     if (k5_routes["im2col16"] != plan.get("boxed", 0) * steps
             or k5_routes["halo"] != plan.get("halo", 0) * steps or k5_routes["gather"]
-            or k5_routes["packed"] != steps):
+            or k5_routes["packed"] != steps
+            or k5_routes["im2col_pad"] != plan.get("padded", 0) * steps
+            or k5_routes["im2col32"] != plan.get("c32", 0) * steps):
         fail(f"{name} bf16: expected {plan.get('boxed', 0)} K5 launch(es) a step on the "
-             f"\"im2col16\" route, {plan.get('halo', 0)} on the halo route, the stem on the "
-             f"packed route and none on the gather route in each of {steps} steps: {k5_routes}")
+             f"\"im2col16\" route, {plan.get('halo', 0)} on the halo route, "
+             f"{plan.get('padded', 0)} on the \"im2col_pad\" route, {plan.get('c32', 0)} on "
+             f"the \"im2col32\" route, the stem on the packed route and none on the gather "
+             f"route in each of {steps} steps: {k5_routes}")
     check_result(res, f"{name} bf16", batch)
     bf16_dets = det._trim(res, batch)
     ms = statistics.median(times)
@@ -3692,20 +3750,24 @@ def main() -> None:
                                              "plan", "launches_per_step")}
                     for k, v in k5["timed"].items()},
          "yolov4_mish_vs_leaky": k5["mish_leaky"],
+         # yolov3's C = 32 pair on the "im2col32" route: output digests
+         "yolov3_c32_digests": k5["c32_digests"],
+         "yolov3_c32_equal_to_parent": k5["c32_equal_to_parent"],
          # the former gather convs (packed, "im2col16" and halo routes now)
          # of yolov4x-mish@640 at batch 64, of yolov4-p7@1536 at batch 8 and
          # of yolov2-tiny@416 at batch 128, beside the gather route and the
-         # "im2col16" route for the halo conv in turns; and the 3x3 "im2col32" convs
-         # of the first two (phase 13)
+         # "im2col16" route for the halo conv in turns; and the "im2col_pad"
+         # convs of the first two beside the "im2col32" route in turns (phase 13)
          "gather": {k: {kk: v.get(kk) for kk in (
              "ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by",
              "launches_per_step", "plan", "max_abs_err", "device_ms_vs_gather",
              "gather_device_ms", "other_route", "other_route_device_ms")}
                     for k, v in k5c["gather"].items()},
-         "im2col32": {k: {kk: v[kk] for kk in ("ms", "device_ms", "library_ms",
-                                               "library_device_ms", "bound_ms", "bound_by",
-                                               "launches_per_step", "plan")}
-                      for k, v in k5c["im2col32"].items()},
+         "im2col_pad": {k: {kk: v.get(kk) for kk in (
+             "ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by",
+             "launches_per_step", "plan", "max_abs_err", "device_ms_vs_im2col32",
+             "im2col32_device_ms", "mish_device_ms", "leaky_device_ms")}
+                        for k, v in k5c["im2col_pad"].items()},
          "launches_by_route": launches_by_route},
         {"name": "quantize_i8", "route": "cuda",
          "source": "pytorch_yolo_tpu_torch/csrc/quantize_i8.cu",

@@ -27,23 +27,31 @@
 //     ring of stages with a full and an empty mbarrier each; a 128 x BN
 //     block tile (BN = 64 up to 64 outputs, else 128; on the "im2col16",
 //     halo and packed routes fitted to O: 32, 48, 64, 80 or 128, so that
-//     40 outputs run on 48 columns and 80 or 160 on 80), each consumer
+//     40 outputs run on 48 columns and 80 or 160 on 80; on "im2col_pad" 80
+//     where O is a multiple of 160), each consumer
 //     warpgroup 64 x BN with wgmma.m64nBNk16.f32.bf16.bf16 from swizzled
 //     K-major tiles;
 //   * A's route, chosen from the shapes alone (ops/kernels.py:
 //     conv_bf16_plan), and what bounds it:
-//       - "im2col" (every 3x3 conv with C % 64 == 0) and "im2col32" (C % 64
-//         == 32): one TMA im2col box a stage, 128 output pixels x 64
-//         channels of one tap (128-byte rows, 128-byte swizzle; im2col32:
-//         one tap's 32 channels, 64-byte rows), the tap as the box's
-//         offsets, the conv's stride as the traversal stride, the padding as
-//         the box's corners.  The wrapper passes the corners and a table of
-//         each stage's (first channel, tap) (ops/kernels.py:
-//         conv_bf16_im2col, conv_bf16_stages); the producer works out only
-//         its tile's first pixel.  A tile that crosses an image walks on
-//         into the next; one past M reads zeros.  One thread issues every
-//         load.  A stage takes an SM 0.50-0.90 us against 0.28 of MMA
-//         time at BN = 128 (PERF.md section 6);
+//       - "im2col" (every 3x3 conv with C % 64 == 0), "im2col_pad" (C % 64
+//         == 32, C >= 160) and "im2col32" (C = 32 and 96): one TMA im2col
+//         box a stage, 128 output pixels x 64 channels of one tap (128-byte
+//         rows, 128-byte swizzle; im2col32: one tap's 32 channels, 64-byte
+//         rows), the tap as the box's offsets, the conv's stride as the
+//         traversal stride, the padding as the box's corners.  The wrapper
+//         passes the corners and a table of each stage's (first channel,
+//         tap) (ops/kernels.py: conv_bf16_im2col, conv_bf16_stages); the
+//         producer works out only its tile's first pixel.  A tile that
+//         crosses an image walks on into the next; one past M reads zeros.
+//         One thread issues every load.  A stage takes an SM 0.50-0.90 us
+//         against 0.28 of MMA time at BN = 128 (PERF.md section 6).
+//         "im2col_pad" reads a tap's C channels in ceil(C / 64) such boxes,
+//         the last one's upper 32 channels TMA's zero fill (x keeps its real
+//         C in the map; W is repacked once to 64 ceil(C / 64) channels, zero
+//         past C): C = 160 takes 27 stages a tile instead of 45, for 20 %
+//         more MMA work, 4-13 % faster at the same tiles; at C = 96 (every
+//         second box half zero) it gained nothing, and im2col32 keeps those
+//         convs and C = 32;
 //       - "tma" (1x1 stride 1): A as the (M, C) matrix it is; bound by HBM;
 //       - "im2col16" (the other C % 8 == 0: yolov4x-mish's and yolov4-p7's
 //         C = 40 and 80, yolov2-tiny's 16, the s2d stem's 12 padded to 16):
@@ -104,7 +112,15 @@
 //     halve; the empty barriers count both CTAs' consumers (remote arrives
 //     without a cluster-scope release: with one the kernel ran far slower).
 //     Along M because N-tiles exist only from 256 outputs on; A stays per
-//     CTA.  Without the cluster the bf16 step ran 6 % slower (PERF.md);
+//     CTA.  Without the cluster the bf16 step ran 6 % slower (PERF.md).
+//     On "im2col_pad" at BN = kPairBN (80; O a multiple of 160) the cluster
+//     runs along N instead: both CTAs take one M-tile and neighbouring
+//     80-column tiles, each loads half of A's rows (a 64-pixel box from
+//     its half's first pixel) by multicast for both and its own B, so a
+//     CTA's im2col requests halve and A crosses L2 once an M-tile, not once
+//     an N-tile; at yolov4x-mish's 80^2 160 -> 160 conv, batch 64, 0.60 ms
+//     against 1.04 at BN = 128 (whose second tile held 32 live columns)
+//     and cuDNN's 0.76 (PERF.md section 6);
 //   * the epilogue stages 32-column chunks of fp32 sums in shared memory;
 //     each thread then turns four columns of one row into bf16 outputs,
 //     __fadd_rn(sum, bias), the activation of int8_igemm.cuh (the JAX
@@ -142,7 +158,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
   constexpr int kStages = L::kStages;
   constexpr bool kGather = kRoute == kRouteGather;
   constexpr bool kBoxed = kRoute == kRouteIm2col16;  // W's N-tile resident
-  constexpr bool kIm2col = kRoute == kRouteIm2col || kRoute == kRouteIm2col32 || kBoxed;
+  constexpr bool kIm2col = kRoute == kRouteIm2col || kRoute == kRouteIm2col32 ||
+                           kRoute == kRouteIm2colPad || kBoxed;
+  // the cluster's CTAs on one M-tile and neighbouring N-tiles, A's halves
+  // multicast (else on neighbouring M-tiles of one N-tile, B's halves)
+  constexpr bool kPairN = kRoute == kRouteIm2colPad && BN == kPairBN;
   constexpr int kChunks = (BN + wg::kChunk - 1) / wg::kChunk;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = wg::smem_u32(smem_raw);
@@ -161,6 +181,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
   const int tid = threadIdx.x % 128;
   const uint32_t rank = cluster_rank();
   const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
+  // a pair's N-tiles: one, or kCluster neighbours on kPairN
+  const int pair_n = kPairN ? (p.tiles_n + kCluster - 1) / kCluster : p.tiles_n;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < nstages; ++s) {
@@ -202,17 +224,19 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
     int stage = 0;
     uint32_t phase = 0;
     for (int pair = cluster; pair < p.pairs; pair += clusters) {
-      // this CTA's M-tile of the cluster's pair; an M-tile past M (an odd
-      // count) reads zeros and stores nothing
-      const int m0 = (kCluster * (pair / p.tiles_n) + (int)rank) * wg::kBM;
-      const int n0 = (pair % p.tiles_n) * BN;
-      // im2col: the tile's first pixel; the box walks on from it, into the
-      // next image where the tile crosses one, and past the last image
-      // (zeros) where it ends past M.
+      // this CTA's M-tile and N-tile of the cluster's pair; an M-tile past M
+      // (an odd count) reads zeros and stores nothing, as does an N-tile
+      // past O on kPairN (an odd count)
+      const int m0 = (kPairN ? pair / pair_n : kCluster * (pair / p.tiles_n) + (int)rank) * wg::kBM;
+      const int n0 = (kPairN ? kCluster * (pair % pair_n) + (int)rank : pair % p.tiles_n) * BN;
+      // im2col: the first pixel of the tile (of its half on kPairN); the box
+      // walks on from it, into the next image where the tile crosses one,
+      // and past the last image (zeros) where it ends past M.
       int img = 0, h0 = 0, w0 = 0;
       if constexpr (kIm2col) {
-        img = m0 / hw;
-        const int rem = m0 - img * hw;
+        const int row0 = m0 + (kPairN ? (int)rank * (wg::kBM / kCluster) : 0);
+        img = row0 / hw;
+        const int rem = row0 - img * hw;
         const int oh = rem / a.Wo;
         h0 = a.lo_h + oh * a.stride;
         w0 = a.lo_w + (rem - oh * a.Wo) * a.stride;
@@ -247,9 +271,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
           wg::mbar_arrive_expect_tx(full, kGather  ? L::kBBytes
                                           : kBoxed ? boxes * kBoxBytes
                                                    : L::kABytes + L::kBBytes);
-          // This CTA's half of the B stage, for both CTAs; K past its end
-          // reads as zero (TMA's out-of-bounds fill).
-          if constexpr (!kBoxed)
+          // This CTA's half of the B stage, for both CTAs (kPairN: its own
+          // B); K past its end reads as zero (TMA's out-of-bounds fill).
+          if constexpr (kPairN)
+            wg::tma_load_2d(sb, &p.tma_b, full, s * kRow, n0);
+          else if constexpr (!kBoxed)
             tma_load_2d_multicast(sb + rank * (BN / kCluster) * kRow, &p.tma_b, full, s * kRow,
                                   n0 + (int)rank * (BN / kCluster),
                                   (uint16_t)((1 << kCluster) - 1));
@@ -261,6 +287,13 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
               tma_im2col_4d(sa + j * kBoxBytes, &p.tma_a, full, (int)(e & 0xFFFF), w0, h0, img,
                             (uint16_t)((e >> 16) & 0xFF), (uint16_t)(e >> 24));
             }
+          } else if constexpr (kPairN) {
+            // this CTA's half of the tile's rows, for both CTAs
+            const uint32_t e = a.stage_tab[s];
+            tma_im2col_4d_multicast(sa + rank * (wg::kBM / kCluster) * kRow, &p.tma_a, full,
+                                    (int)(e & 0xFFFF), w0, h0, img,
+                                    (uint16_t)((e >> 16) & 0xFF), (uint16_t)(e >> 24),
+                                    (uint16_t)((1 << kCluster) - 1));
           } else if constexpr (kIm2col) {
             const uint32_t e = a.stage_tab[s];  // kRow / 2 channels of one tap
             tma_im2col_4d(sa, &p.tma_a, full, (int)(e & 0xFFFF), w0, h0, img,
@@ -318,8 +351,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(wg::kThreads,
     int stage = 0;
     uint32_t phase = 0;
     for (int pair = cluster; pair < p.pairs; pair += clusters) {
-      const int m0 = (kCluster * (pair / p.tiles_n) + (int)rank) * wg::kBM;
-      const int n0 = (pair % p.tiles_n) * BN;
+      const int m0 = (kPairN ? pair / pair_n : kCluster * (pair / p.tiles_n) + (int)rank) * wg::kBM;
+      const int n0 = (kPairN ? kCluster * (pair % pair_n) + (int)rank : pair % p.tiles_n) * BN;
       // Groups of g <= kPromote stages: the tensor cores chain a group's MMAs
       // into `part` from zero, each stage committed on its own so that it is
       // released as soon as its MMAs are done; then the consumer adds `part`
@@ -499,16 +532,19 @@ extern "C" int yolo_conv_bf16_halo(const void* args, int bn, int device, int sms
 // Launches K5 on `stream` with a `bn`-column tile and A by `route`
 // (cb::Route: 0 the 16-byte gather, 1 TMA for a 1x1 stride-1 unpadded conv,
 // 2 TMA im2col for C % 64 == 0, 3 the packed RGB stem, 4 TMA im2col a tap's
-// 32 channels a stage, 5 TMA im2col boxes of 16 channels, four a stage,
-// beside W's N-tile resident in shared memory (ops/kernels.py:
+// 32 channels a stage (C % 64 == 32), 5 TMA im2col boxes of 16 channels,
+// four a stage, beside W's N-tile resident in shared memory (ops/kernels.py:
 // conv_bf16_ring says where it fits), 6 a 3x3 stride-1 conv from halo
-// tiles (ops/kernels.py: conv_bf16_halo)); returns a CUDA error code (0 =
-// ok).  `bn`: 64 or 128; 32, 48 or 64 (>= O) on the packed route; 32, 48,
-// 64, 80 or 128 on route 5; 32 or 48 (>= O) on route 6.  `args` points to a
-// ConvBf16Args (ops/kernels.py: _ConvBf16Args).  Requires C % 8 == 0 (C = 3
-// on the packed route), on routes 5-6 W as (O, KH, KW, 16 ceil(C / 16)) with
-// zero channels past C (ops/kernels.py: conv_bf16 repacks it), and x, w,
-// shortcut and out 16-byte aligned (ops/kernels.py: conv_bf16 checks and
+// tiles (ops/kernels.py: conv_bf16_halo), 7 TMA im2col boxes of 64 channels
+// for C % 64 == 32, C > 32, the last of a tap half past C); returns a CUDA
+// error code (0 = ok).  `bn`: 64 or 128; on route 7 also 80 (the cluster on
+// one M-tile, A's halves multicast); 32, 48 or 64 (>= O) on the packed
+// route; 32, 48, 64, 80 or 128 on route 5; 32 or 48 (>= O) on route 6.
+// `args` points to a ConvBf16Args (ops/kernels.py: _ConvBf16Args).
+// Requires C % 8 == 0 (C = 3 on the packed route), on routes 5-6 W as (O,
+// KH, KW, 16 ceil(C / 16)) and on route 7 as (O, KH, KW, 64 ceil(C / 64))
+// with zero channels past C (ops/kernels.py: conv_bf16 repacks it), and x,
+// w, shortcut and out 16-byte aligned (ops/kernels.py: conv_bf16 checks and
 // pads).
 extern "C" int yolo_conv_bf16(const void* args, int bn, int route, int device, void* stream) {
   const DeviceGuard guard(device);
@@ -518,23 +554,27 @@ extern "C" int yolo_conv_bf16(const void* args, int bn, int route, int device, v
   const bool packed = route == cb::kRoutePacked;
   const bool halo = route == cb::kRouteHalo;
   const bool boxed = route == cb::kRouteIm2col16;
+  const bool padded = route == cb::kRouteIm2colPad;
   const bool im2col = route == cb::kRouteIm2col || route == cb::kRouteIm2col32;
+  const bool pair_n = padded && bn == cb::kPairBN;
   const int row = cb::row_bytes(route);
   const int box_c = boxed ? 16 : row / 2;  // channels of a stage-table entry
   const long long taps = (long long)a.KH * a.KW;
   const bool bn_ok = packed ? (bn == 32 || bn == 48 || bn == 64) && a.O <= bn
                      : halo ? (bn == 32 || bn == 48) && a.O <= bn
                      : boxed ? bn == 32 || bn == 48 || bn == 64 || bn == 80 || bn == 128
+                     : padded ? bn == 64 || bn == cb::kPairBN || bn == 128
                              : bn == 64 || bn == 128;
-  if ((!packed && a.C % 8 != 0) || !bn_ok || route < 0 || route > 6 ||
+  if ((!packed && a.C % 8 != 0) || !bn_ok || route < 0 || route > 7 ||
       (halo && (a.KH != 3 || a.KW != 3 || a.pad != 1 || a.stride != 1)) ||
       (packed && (a.KH != cb::kPackedTaps || a.KW != cb::kPackedTaps || a.C != cb::kPackedC)) ||
       reinterpret_cast<uintptr_t>(a.x) % 16 || reinterpret_cast<uintptr_t>(a.w) % 16 ||
       reinterpret_cast<uintptr_t>(a.out) % 16 || reinterpret_cast<uintptr_t>(a.shortcut) % 16 ||
       (route == cb::kRouteTma && (a.KH != 1 || a.KW != 1 || a.stride != 1 || a.pad != 0)) ||
       (im2col && (a.C % box_c != 0 || (long long)a.stages * box_c != taps * a.C)) ||
-      ((im2col || boxed) && a.stages > cb::kMaxStages) ||
-      (boxed && (long long)a.stages != taps * ((a.C + box_c - 1) / box_c)))
+      ((im2col || boxed || padded) && a.stages > cb::kMaxStages) ||
+      (padded && (a.C % 64 != 32 || a.C < 96)) ||
+      ((boxed || padded) && (long long)a.stages != taps * ((a.C + box_c - 1) / box_c)))
     return (int)cudaErrorInvalidValue;
   if (a.M == 0 || a.O == 0) return 0;
   cb::Params p{};
@@ -545,25 +585,32 @@ extern "C" int yolo_conv_bf16(const void* args, int bn, int route, int device, v
   cudaStream_t s = (cudaStream_t)stream;
   if (packed) return yolo_conv_bf16_packed(args, bn, device, sms, stream);
   if (halo) return yolo_conv_bf16_halo(args, bn, device, sms, stream);
-  // K of W's rows: KH KW C, or the boxes' 16 channels each on route 5
-  const long long k = boxed ? (long long)a.stages * box_c : taps * a.C;
-  // B in boxes of half a stage: each CTA of a cluster loads one half for both
-  if (!cb::encode_rows(&p.tma_b, a.w, 2 * k, a.O, 2 * k, row, bn / cb::kCluster))
+  // K of W's rows: KH KW C, or the boxes' channels (16 or 64 each) on
+  // routes 5 and 7
+  const long long k = boxed || padded ? (long long)a.stages * box_c : taps * a.C;
+  // B in boxes of half a stage: each CTA of a cluster loads one half for
+  // both; on one M-tile, each CTA its own
+  if (!cb::encode_rows(&p.tma_b, a.w, 2 * k, a.O, 2 * k, row, pair_n ? bn : bn / cb::kCluster))
     return (int)cudaErrorInvalidValue;
   if (route == cb::kRouteTma &&
       !cb::encode_rows(&p.tma_a, a.x, 2LL * a.C, a.M, 2LL * a.C, row, wg::kBM))
     return (int)cudaErrorInvalidValue;
-  if ((im2col || boxed) && !cb::encode_im2col(&p.tma_a, a, 2 * box_c))
+  // x with its real C: channels of a box past C read as zero
+  if ((im2col || boxed || padded) &&
+      !cb::encode_im2col(&p.tma_a, a, 2 * box_c, pair_n ? wg::kBM / cb::kCluster : wg::kBM))
     return (int)cudaErrorInvalidValue;
   p.ksteps = (int)((2 * k + row - 1) / row);
   p.tiles_n = (a.O + bn - 1) / bn;
   const int tiles_m = (a.M + wg::kBM - 1) / wg::kBM;
-  p.pairs = (tiles_m + cb::kCluster - 1) / cb::kCluster * p.tiles_n;
+  p.pairs = pair_n ? tiles_m * ((p.tiles_n + cb::kCluster - 1) / cb::kCluster)
+                   : (tiles_m + cb::kCluster - 1) / cb::kCluster * p.tiles_n;
   if (route == cb::kRouteTma) return (int)cb::launch_bn<cb::kRouteTma>(p, bn, device, sms, s);
   if (boxed) {
     if (!cb::resident_layout(p, bn)) return (int)cudaErrorInvalidValue;
     return (int)cb::launch_boxed<cb::kRouteIm2col16>(p, bn, device, sms, s);
   }
+  if (pair_n) return (int)cb::launch_one<cb::kRouteIm2colPad, cb::kPairBN>(p, device, sms, s);
+  if (padded) return (int)cb::launch_bn<cb::kRouteIm2colPad>(p, bn, device, sms, s);
   if (route == cb::kRouteIm2col32)
     return (int)cb::launch_bn<cb::kRouteIm2col32>(p, bn, device, sms, s);
   if (route == cb::kRouteIm2col) return (int)cb::launch_bn<cb::kRouteIm2col>(p, bn, device, sms, s);

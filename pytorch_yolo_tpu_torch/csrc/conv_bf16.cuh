@@ -28,11 +28,12 @@ constexpr int kPromote = 4;
 constexpr int kCluster = 2;
 
 // How A reaches shared memory (ops/kernels.py: conv_bf16_plan, which also
-// picks the stage width: kRouteIm2col32, for C % 64 == 32, takes one tap's
-// 32 channels a stage, rows of 64 bytes with 64-byte swizzle;
-// kRouteIm2col16, for the other C % 8 == 0 whose W fits in shared memory,
-// four boxes of 16 channels a stage, rows of 32 bytes with 32-byte
-// swizzle).
+// picks the stage width: kRouteIm2col32, for C = 32, takes one tap's 32
+// channels a stage, rows of 64 bytes with 64-byte swizzle; kRouteIm2colPad,
+// for the other C % 64 == 32, boxes of 64 channels of one tap in 128-byte
+// rows, a tap's last box half past C; kRouteIm2col16, for the other C % 8
+// == 0 whose W fits in shared memory, four boxes of 16 channels a stage,
+// rows of 32 bytes with 32-byte swizzle).
 enum Route {
   kRouteGather = 0,
   kRouteTma = 1,
@@ -44,8 +45,17 @@ enum Route {
   // gather)
   kRouteIm2col16 = 5,
   // a 3x3 conv from a halo tile of x in shared memory (conv_bf16_halo_kernel)
-  kRouteHalo = 6
+  kRouteHalo = 6,
+  // kRouteIm2col's stage, 64 channels of one tap, for C % 64 == 32 (C > 32):
+  // ceil(C / 64) boxes a tap, the last one's upper 32 channels read as zero
+  // (TMA's out-of-bounds fill), W repacked once to 64 ceil(C / 64) channels
+  kRouteIm2colPad = 7
 };
+
+// kRouteIm2colPad at BN = kPairBN: the cluster's two CTAs take one M-tile
+// and neighbouring N-tiles; each loads half of A's rows (kBM / 2 pixels)
+// for both by TMA multicast, and its own B.
+constexpr int kPairBN = 80;
 
 // Entries of the im2col routes' stage table (ops/kernels.py:
 // CONV_BF16_MAX_STAGES), one a box: the plan sends a conv with more boxes to
@@ -147,6 +157,20 @@ __device__ __forceinline__ void tma_im2col_4d(uint32_t dst, const CUtensorMap* m
       "[%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n),
       "h"(off_w), "h"(off_h)
+      : "memory");
+}
+
+// tma_im2col_4d written to `dst` in every CTA of `mask`, each CTA's barrier
+// at `bar` credited with its bytes.
+__device__ __forceinline__ void tma_im2col_4d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                        uint32_t bar, int c, int w, int h, int n,
+                                                        uint16_t off_w, uint16_t off_h,
+                                                        uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8}, %9;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n),
+      "h"(off_w), "h"(off_h), "h"(mask)
       : "memory");
 }
 
@@ -588,11 +612,12 @@ inline bool encode_rows(CUtensorMap* map, const void* ptr, long long cols, long 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The im2col map of NHWC x: boxes of row / 2 channels x 128 output pixels,
-// swizzled as a 2-D box of (128 rows, `row` bytes), the pixels walked at the
-// conv's stride over the box between the corners; out-of-bounds pixels read
-// as zero.
-inline bool encode_im2col(CUtensorMap* map, const ConvBf16Args& a, int row) {
+// The im2col map of NHWC x: boxes of row / 2 channels x `pixels` output
+// pixels, swizzled as a 2-D box of (`pixels` rows, `row` bytes), the pixels
+// walked at the conv's stride over the box between the corners;
+// out-of-bounds pixels and channels read as zero.
+inline bool encode_im2col(CUtensorMap* map, const ConvBf16Args& a, int row,
+                          int pixels = wg::kBM) {
   const EncodeIm2colFn fn = encode_im2col_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)a.C, (cuuint64_t)a.W, (cuuint64_t)a.H,
@@ -602,7 +627,7 @@ inline bool encode_im2col(CUtensorMap* map, const ConvBf16Args& a, int row) {
   const int hi[2] = {a.hi_w, a.hi_h};
   const cuuint32_t elem[4] = {1, (cuuint32_t)a.stride, (cuuint32_t)a.stride, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<uint8_t*>(a.x), dims, strides,
-            lo, hi, row / 2, wg::kBM, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(row),
+            lo, hi, row / 2, pixels, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(row),
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1031,7 +1031,7 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int, pad: int, _mma: b
 
 
 CONV_BF16_ROUTES = {"gather": 0, "tma": 1, "im2col": 2, "packed": 3,  # conv_bf16.cuh: cb::Route
-                    "im2col32": 4, "im2col16": 5, "halo": 6}
+                    "im2col32": 4, "im2col16": 5, "halo": 6, "im2col_pad": 7}
 CONV_BF16_STAGE_K = 64  # csrc/conv_bf16.cuh: kStageK, bf16 of K a stage
 CONV_BF16_TILE_M = 128  # int8_wgmma.cuh: kBM, output pixels a block tile
 CONV_BF16_PACKED_K = 32  # csrc/conv_bf16.cuh: kPackedK, K of the packed route's one stage
@@ -1045,6 +1045,7 @@ CONV_BF16_SMEM = 232448  # csrc/conv_bf16.cuh: kSmemLimit, shared memory a block
 CONV_BF16_SMS = 132  # SMs of an H100 SXM, for the traffic model's count of resident W loads
 CONV_BF16_HALO_OUT = 48  # outputs the halo route takes at most (csrc/conv_bf16_halo.cu: BN 32, 48)
 CONV_BF16_HALO_TILE = (4, 32)  # csrc/conv_bf16.cuh: kHaloTH, kHaloTW, output pixels a halo tile
+CONV_BF16_PAIR_BN = 80  # csrc/conv_bf16.cuh: kPairBN, "im2col_pad"'s tile of a cluster on one M-tile
 # K5's launches by route (each also counts in LAUNCHES["conv_bf16"])
 CONV_BF16_LAUNCHES = dict.fromkeys(CONV_BF16_ROUTES, 0)
 
@@ -1092,8 +1093,11 @@ def conv_bf16_plan(channels: int, out_channels: int, kh: int, kw: int, stride: i
     and 5 zeros a row, one 32-wide K stage, a tile of 32, 48 or 64 columns,
     C as it is); by TMA im2col boxes for every other conv with at most
     ``CONV_BF16_MAX_STAGES`` boxes of K: ``"im2col"`` where C % 64 == 0 (a
-    stage is 64 channels of one tap), ``"im2col32"`` where C % 64 == 32 (the
-    32 channels of one tap in 64-byte rows), else ``"im2col16"`` (boxes of
+    stage is 64 channels of one tap), ``"im2col_pad"`` where C % 64 == 32
+    and C >= 160 (the same 64-channel boxes, ceil(C / 64) a tap, the last
+    one's upper 32 channels read as zero; W repacked to 64 ceil(C / 64)
+    channels), ``"im2col32"`` for the other C % 64 == 32 (C = 32 and 96:
+    the 32 channels of one tap in 64-byte rows), else ``"im2col16"`` (boxes of
     16 channels of one tap, ``CONV_BF16_BOXES`` a stage, channels past C
     read as zero; W repacked in box order, its N-tile resident beside the
     ring where :func:`conv_bf16_ring` fits it), except a 3x3 pad-1
@@ -1108,15 +1112,30 @@ def conv_bf16_plan(channels: int, out_channels: int, kh: int, kw: int, stride: i
     (TMA's rows and the gather's copies are 16 bytes).  The block tile is
     BN = 64 output columns up to 64 outputs, else 128; on ``"im2col16"`` and
     ``"halo"`` the tile of ``CONV_BF16_BOX_BN`` that leaves the fewest zero
-    columns (40 -> 48, 80 -> 80, 160 -> 2 x 80)."""
+    columns (40 -> 48, 80 -> 80, 160 -> 2 x 80); on ``"im2col_pad"`` where O
+    is a multiple of 2 ``CONV_BF16_PAIR_BN`` (160, 320, 480) a tile of
+    ``CONV_BF16_PAIR_BN``, the cluster's two CTAs on one M-tile, each
+    loading half of A's rows for both.  Those choices follow the card
+    (``tools/profile_torch_step.py --k5-pad``, PERF.md section 6): against
+    one tap's 32 channels a stage, the 64-channel boxes ran yolov4x-mish's
+    and yolov4-p7's C = 160 / 480 convs 4-13 % faster at the same tiles
+    and 1.15-2.03x faster on the paired 80-column tiles (which beat the
+    128-column ones by 2 % at 480 -> 480, 11-79 % at O = 160 / 320); at C
+    = 96 a box half past C gained at 96 -> 192 and lost at 96 -> 128
+    (0.6311 against 0.5876 ms), and the paired tile lost wherever O is no
+    multiple of 160."""
     bn, cp = 64 if out_channels <= 64 else 128, -(-channels // 8) * 8
     if kh == kw == 1 and stride == 1 and pad == 0:
         return "tma", bn, cp
     if kh == kw == 3 and channels == 3 and out_channels <= CONV_BF16_PACKED_BN[-1]:
         return "packed", next(n for n in CONV_BF16_PACKED_BN if n >= out_channels), channels
-    for route in ("im2col", "im2col32"):
-        if cp % _stage_k(route) == 0 and kh * kw * cp // _stage_k(route) <= CONV_BF16_MAX_STAGES:
-            return route, bn, cp
+    if cp % 64 == 0 and kh * kw * cp // 64 <= CONV_BF16_MAX_STAGES:
+        return "im2col", bn, cp
+    if cp % 64 == 32 and cp >= 160 and kh * kw * -(-cp // 64) <= CONV_BF16_MAX_STAGES:
+        pair = out_channels % (2 * CONV_BF16_PAIR_BN) == 0
+        return "im2col_pad", CONV_BF16_PAIR_BN if pair else bn, cp
+    if cp % 64 == 32 and kh * kw * cp // 32 <= CONV_BF16_MAX_STAGES:
+        return "im2col32", bn, cp
     boxes = kh * kw * -(-cp // _stage_k("im2col16"))
     bn16 = min(CONV_BF16_BOX_BN, key=lambda n: (-(-out_channels // n) * n, -n))
     if (kh == kw == 3 and pad == 1 and stride == 1 and cp % 16 == 8
@@ -1130,7 +1149,8 @@ def conv_bf16_plan(channels: int, out_channels: int, kh: int, kw: int, stride: i
 def _stage_k(route: str) -> int:
     """bf16 of K an entry of K5's stage table on ``route`` (a box): 32 on
     ``"im2col32"`` and ``"packed"``, 16 on ``"im2col16"`` (whose stage holds
-    ``CONV_BF16_BOXES`` boxes), else 64 (one 128-byte row)."""
+    ``CONV_BF16_BOXES`` boxes), else 64 (one 128-byte row; on
+    ``"im2col_pad"`` a tap's last box half past C)."""
     return {"im2col32": 32, "packed": 32, "im2col16": 16}.get(route, CONV_BF16_STAGE_K)
 
 
@@ -1156,8 +1176,9 @@ def conv_bf16_stages(route: str, channels: int, kh: int, kw: int) -> list[tuple[
     """The boxes of K of an im2col ``route``, in order: ``(first channel, W
     offset, H offset)`` of each, the tap (r, q) and a slice of
     ``_stage_k(route)`` channels, K's flat (tap, channel) order (on
-    ``"im2col16"`` the last box of a tap may run past C: those channels read
-    as zero, and W has zero channels there, :func:`conv_bf16_weights`).
+    ``"im2col16"`` and ``"im2col_pad"`` the last box of a tap may run past
+    C: those channels read as zero, and W has zero channels there,
+    :func:`conv_bf16_weights`).
     The wrapper passes them to the kernel (``ConvBf16Args.stage_tab``)."""
     return [(c0, q, r) for r in range(kh) for q in range(kw)
             for c0 in range(0, channels, _stage_k(route))]
@@ -1173,7 +1194,7 @@ def _conv_bf16_args(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: 
     o, kh, kw, _ = w_shape
     ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
     args = _ConvBf16Args(*ptrs, n, h, w, c, ho, wo, o, kh, kw, stride, pad, n * ho * wo, _ACT[act])
-    if route in ("im2col", "im2col32", "im2col16"):
+    if route in ("im2col", "im2col32", "im2col16", "im2col_pad"):
         box = conv_bf16_im2col(kh, kw, stride, pad)
         args.lo_w, args.lo_h = box.lower
         args.hi_w, args.hi_h = box.upper
@@ -1189,11 +1210,13 @@ _PADDED_W: dict = {}  # (id(w), width) -> (weakref to w, w._version, w padded)
 def conv_bf16_weights(w: torch.Tensor, route: str, cp: int) -> torch.Tensor:
     """(O, KH, KW, C) ``w`` as K5 reads it on ``route`` with x padded to
     ``cp`` channels: zero channels up to ``cp``, on ``"im2col16"`` and
-    ``"halo"`` up to 16 ceil(cp / 16) (box order: each box's channels past
-    C are zero).  ``w`` itself where nothing is added; else made once a
-    weight tensor and width and kept while ``w`` lives and is not written
-    to, so a conv does not pad its weights every call."""
-    width = -(-cp // 16) * 16 if route in ("im2col16", "halo") else cp
+    ``"halo"`` up to 16 ceil(cp / 16), on ``"im2col_pad"`` up to 64 ceil(cp
+    / 64) (box order: each box's channels past C are zero).  ``w`` itself
+    where nothing is added; else made once a weight tensor and width and
+    kept while ``w`` lives and is not written to, so a conv does not pad its
+    weights every call."""
+    box = {"im2col16": 16, "halo": 16, "im2col_pad": 64}.get(route)
+    width = -(-cp // box) * box if box else cp
     if width == w.shape[3]:
         return w
     key = (id(w), width)
@@ -1260,6 +1283,9 @@ def conv_bf16_traffic(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride
     tile past M), and the bytes their loads bring into shared memory, each
     stage a 128-row A box and half of the BN-row B box, which the TMA unit
     multicasts to both CTAs; rows of 128 bytes (64 on ``"im2col32"``; on
+    ``"im2col_pad"`` ceil(C / 64) boxes a tap, the last half past C, and at
+    BN = ``CONV_BF16_PAIR_BN`` the cluster's two tiles share one M-tile:
+    each CTA loads half of A's rows for both and its own BN-row B; on
     ``"im2col16"`` A is ``CONV_BF16_BOXES`` boxes of 32-byte rows a stage,
     fewer in the last, and each of at most ``CONV_BF16_SMS`` blocks loads
     W's resident N-tile once instead).  The halo route: 4 x 32-pixel tiles,
@@ -1287,7 +1313,10 @@ def conv_bf16_traffic(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride
         ksteps = -(-boxes // CONV_BF16_BOXES)
         return tiles, ksteps, (tiles * boxes * CONV_BF16_TILE_M * 32
                                + min(tiles, CONV_BF16_SMS) * ksteps * bn * 128)
-    ksteps = -(-kh * kw * cp // stage_k)
+    ksteps = kh * kw * -(-cp // stage_k) if route == "im2col_pad" else -(-kh * kw * cp // stage_k)
+    if route == "im2col_pad" and bn == CONV_BF16_PAIR_BN:
+        tiles = -(-m // CONV_BF16_TILE_M) * 2 * -(-o // (2 * bn))
+        return tiles, ksteps, tiles * ksteps * 2 * stage_k * (CONV_BF16_TILE_M // 2 + bn)
     return tiles, ksteps, tiles * ksteps * 2 * stage_k * (CONV_BF16_TILE_M + bn // 2)
 
 
@@ -1305,7 +1334,7 @@ def conv_bf16_work(x_shape: tuple[int, ...], w_shape: tuple[int, ...], stride: i
 
 def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pad: int,
               act: str = "linear", shortcut: "torch.Tensor | None" = None,
-              _route: "str | None" = None) -> torch.Tensor:
+              _route: "str | None" = None, _bn: "int | None" = None) -> torch.Tensor:
     """K5: NHWC bf16 ``x`` (N, H, W, C) conv (O, KH, KW, C) bf16 ``w``, zero
     padding ``pad`` on each side, + (O,) fp32 bias ``b``, activation
     ``act`` in fp32 -> NHWC bf16 (N, Ho, Wo, O), rounded once; ``shortcut``
@@ -1314,8 +1343,11 @@ def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pa
     :func:`conv_bf16_ref`; a CUDA tensor launches the kernel or raises.
     ``_route`` runs another route than the plan's, for A/B timings:
     ``"gather"`` (the 16-byte gather with BN = 64 / 128, as before the
-    packed and "im2col16" routes took C % 32 != 0) or ``"im2col16"`` (on a
-    conv the plan gives the halo route)."""
+    packed and "im2col16" routes took C % 32 != 0), ``"im2col16"`` (on a
+    conv the plan gives the halo route) or ``"im2col32"`` (32 channels a
+    stage, BN = 64 / 128, on a conv the plan gives ``"im2col_pad"``, as
+    before that route); ``_bn`` another tile of ``"im2col_pad"`` (64 / 128,
+    or ``CONV_BF16_PAIR_BN``)."""
     if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[3]:
         raise ValueError(f"conv_bf16: (N, H, W, C) and (O, KH, KW, C) expected, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -1341,9 +1373,13 @@ def conv_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pa
     if _route == "gather":
         route, bn, cp = "gather", 64 if o <= 64 else 128, -(-c // 8) * 8
     elif _route is not None:
-        if (_route, route) != ("im2col16", "halo"):
+        if (_route, route) not in (("im2col16", "halo"), ("im2col32", "im2col_pad")):
             raise ValueError(f"conv_bf16: no {_route!r} route for this conv (plan {route!r})")
-        route = _route
+        route, bn = _route, bn if _route == "im2col16" else 64 if o <= 64 else 128
+    if _bn is not None:
+        if route != "im2col_pad" or _bn not in (64 if o <= 64 else 128, CONV_BF16_PAIR_BN):
+            raise ValueError(f"conv_bf16: no {_bn}-column tile on route {route!r}")
+        bn = _bn
     if cp != c:  # zero channels: TMA's rows and the gather's copies are 16 bytes
         x = F.pad(x, (0, cp - c))
     x, w = _on_grid(x), _on_grid(conv_bf16_weights(w, route, cp))

@@ -105,6 +105,13 @@ def test_conv_bf16_checks_its_arguments():
     ((1024, 255, 1, 1, 1, 0), ("tma", 128, 1024)),  # a yolov3 head
     ((32, 64, 3, 3, 1, 1), ("im2col32", 64, 32)),  # C = 32: one tap a 64-byte stage
     ((32, 64, 3, 3, 2, 1), ("im2col32", 64, 32)),
+    ((32, 32, 3, 3, 1, 1), ("im2col32", 64, 32)),  # p5's and p6's conv 2
+    ((160, 160, 3, 3, 1, 1), ("im2col_pad", 80, 160)),  # 3 boxes of 64 a tap, the last half
+    ((160, 320, 3, 3, 2, 1), ("im2col_pad", 80, 160)),  # past C; O % 160 == 0: the cluster
+    ((480, 480, 3, 3, 1, 1), ("im2col_pad", 80, 480)),  # on one M-tile, 80-column tiles
+    ((160, 64, 3, 3, 1, 1), ("im2col_pad", 64, 160)),
+    ((160, 96, 1, 1, 2, 0), ("im2col_pad", 128, 160)),  # a 1x1 stride-2 conv: one tap
+    ((224, 240, 3, 3, 1, 1), ("im2col_pad", 128, 224)),  # 240: no multiple of 160
     ((24, 32, 3, 3, 1, 1), ("halo", 32, 24)),      # C % 16 == 8: the halo route
     ((24, 32, 1, 1, 2, 0), ("im2col16", 32, 24)),  # a 1x1 stride-2 conv: boxes
     ((16, 32, 3, 3, 1, 1), ("im2col16", 32, 16)),  # yolov2-tiny's conv 2: one box a tap
@@ -119,7 +126,9 @@ def test_conv_bf16_checks_its_arguments():
     ((80, 160, 3, 3, 2, 1), ("im2col16", 80, 80)),  # two 80-column tiles
     ((64, 128, 3, 3, 2, 1), ("im2col", 128, 64)),
     ((64, 128, 3, 3, 1, 1), ("im2col", 128, 64)),
-    ((96, 128, 3, 3, 1, 1), ("im2col32", 128, 96)),  # C % 64 == 32
+    ((96, 128, 3, 3, 1, 1), ("im2col32", 128, 96)),  # C = 96: no gain measured (PERF.md)
+    ((96, 160, 3, 3, 1, 1), ("im2col32", 128, 96)),
+    ((3616, 64, 3, 3, 1, 1), ("gather", 64, 3616)),  # 513 boxes of 64: past the table
     ((88, 80, 3, 3, 1, 1), ("gather", 128, 88)),   # W (14 K chunks x 80 rows) too large to
     ((120, 64, 3, 3, 1, 1), ("gather", 64, 120)),  # stay beside 4 stages of boxes
     ((1000, 64, 3, 3, 1, 1), ("gather", 64, 1000)),  # 567 boxes: more than the table holds
@@ -273,6 +282,65 @@ def test_conv_bf16_im2col16_boxes_walk_the_conv(n, h, w, c, o, stride):
         assert not sums[rows:].any()
 
 
+@pytest.mark.parametrize("n,h,w,c,o,stride,k", [
+    (1, 17, 17, 160, 160, 1, 3),  # 289 pixels: 3 M-tiles; 3 boxes a tap, the last half past C
+    (2, 13, 13, 160, 160, 2, 3),  # stride 2, tiles across the two images, 80-column tiles
+    (3, 9, 14, 224, 240, 1, 3),   # H != W across three images, 4 boxes a tap
+    (1, 12, 12, 480, 96, 1, 3),   # yolov4-p7's C = 480: 8 boxes a tap, 72 stages
+    (1, 14, 14, 160, 96, 2, 1),   # a 1x1 stride-2 conv: one tap
+])
+def test_conv_bf16_pad_boxes_walk_the_conv(n, h, w, c, o, stride, k):
+    """K5's "im2col_pad" route: the boxes of 64 channels of one tap that the
+    TMA unit loads from the kernel's arguments (the corners and the stage
+    table, one box a stage, ceil(C / 64) a tap), each against its 64 of K of
+    W in box order (``conv_bf16_weights``: zero channels past C), give the
+    flat conv's sums tile by tile; a tap's last box reads its channels
+    past C as zeros, rows past M give zero sums, and the tile's two halves
+    of 64 pixels, each walked from its own first pixel (the cluster on one
+    M-tile, ``CONV_BF16_PAIR_BN``), are its box.  The traffic model counts
+    the same tiles and stages."""
+    pad = k // 2
+    route, bn, cp = tk.conv_bf16_plan(c, o, k, k, stride, pad)
+    assert route == "im2col_pad" and cp == c
+    rng = np.random.default_rng(c + h)
+    x = rng.integers(-8, 9, (n, h, w, c)).astype(np.float32)
+    wt = rng.integers(-4, 5, (o, k, k, c)).astype(np.float32)
+    a, ho, wo = _im2col(x, k, stride, pad)
+    m = a.shape[0]
+    want = a @ wt.reshape(o, -1).T  # the flat conv, exact on small integers
+    args = tk._conv_bf16_args((n, h, w, c), (o, k, k, c), stride, pad, "linear", route)
+    assert (args.M, args.Ho, args.Wo, args.C) == (m, ho, wo, c)
+    boxes = k * k * -(-c // 64)
+    assert args.stages == boxes and not any(args.stage_tab[boxes:])
+    entries = [(e & 0xFFFF, e >> 16 & 0xFF, e >> 24) for e in args.stage_tab[:boxes]]
+    wb = tk.conv_bf16_weights(torch.from_numpy(wt), route, cp).numpy().reshape(o, -1)
+    assert wb.shape[1] == boxes * 64
+    past = [j for j, (c0, _, _) in enumerate(entries) if c0 + 64 > c]
+    assert len(past) == k * k
+    for j in past:  # W's channels of a box past C are zero
+        assert not wb[:, 64 * j + c - entries[j][0]:64 * (j + 1)].any()
+    tiles = -(-m // tk.CONV_BF16_TILE_M)
+    pair = bn == tk.CONV_BF16_PAIR_BN
+    assert tk.conv_bf16_traffic((n, h, w, c), (o, k, k, c), stride, pad)[:2] == (
+        tiles * 2 * -(-o // (2 * bn)) if pair else -(-tiles // 2) * 2 * -(-o // bn), boxes)
+    half = tk.CONV_BF16_TILE_M // 2
+    for t in range(-(-tiles // 2) * 2):
+        m0 = t * tk.CONV_BF16_TILE_M
+        start = _tile_start(args, m0)
+        sums = np.zeros((tk.CONV_BF16_TILE_M, o), np.float32)
+        for j, e in enumerate(entries):
+            box = _tma_im2col_box(x, args, start, e, 64)
+            halves = [_tma_im2col_box(x, args, _tile_start(args, m0 + r * half), e, 64, half)
+                      for r in (0, 1)]
+            np.testing.assert_array_equal(np.concatenate(halves), box)
+            if j in past:
+                assert not box[:, c - e[0]:].any()
+            sums += box @ wb[:, 64 * j:64 * (j + 1)].T
+        rows = max(0, min(tk.CONV_BF16_TILE_M, m - m0))
+        np.testing.assert_array_equal(sums[:rows], want[m0:m0 + rows], err_msg=f"tile {t}")
+        assert not sums[rows:].any()
+
+
 @pytest.mark.parametrize("bn,ksteps,want", [
     (48, 7, 8),    # C = 40, 40 outputs: W 42 KB beside 8 stages of A
     (80, 7, 8),    # C = 40, 80 or 160 outputs
@@ -377,7 +445,8 @@ def test_conv_bf16_halo_fragments_walk_the_conv(n, h, w, c, o):
 
 def test_conv_bf16_weights_padded_once():
     """W as K5 reads it: zero channels up to the box width on "im2col16"
-    (40 -> 48), to the padded C elsewhere (12 -> 16), ``w`` itself where
+    (40 -> 48) and "im2col_pad" (160 -> 192: channels 160-191 of each tap
+    zero), to the padded C elsewhere (12 -> 16), ``w`` itself where
     nothing is added; made once a weight tensor and width, again after the
     tensor is written to, and dropped with it."""
     w = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 3, 3, 40))
@@ -389,6 +458,13 @@ def test_conv_bf16_weights_padded_once():
     assert tk.conv_bf16_weights(w, "gather", 40) is w
     assert tuple(tk.conv_bf16_weights(w[..., :12].contiguous(), "gather", 16).shape) == (
         8, 3, 3, 16)
+    assert tk.conv_bf16_weights(w, "im2col_pad", 40) is not boxed  # 64 channels: another width
+    w160 = torch.from_numpy(np.random.default_rng(1).normal(size=(4, 3, 3, 160))
+                            .astype(np.float32)).to(torch.bfloat16)
+    pad = tk.conv_bf16_weights(w160, "im2col_pad", 160)
+    assert tuple(pad.shape) == (4, 3, 3, 192) and pad.is_contiguous()
+    assert torch.equal(pad[..., :160], w160) and not pad[..., 160:].any()
+    assert tk.conv_bf16_weights(w160, "im2col32", 160) is w160
     w.mul_(2)
     again = tk.conv_bf16_weights(w, "im2col16", 40)
     assert again is not boxed and torch.equal(again[..., :40], w)

@@ -346,7 +346,7 @@ def test_decode_new_coords_heads_match_pallas(name, size):
 
 @pytest.mark.parametrize("name,routes,int8", [
     ("yolov4-csp", {"tma": 71, "im2col": 41, "im2col32": 2, "packed": 1}, (61, 37, 13)),
-    ("yolov4x-mish", {"tma": 83, "im2col": 32, "im2col32": 17, "packed": 1, "im2col16": 6},
+    ("yolov4x-mish", {"tma": 83, "im2col": 32, "im2col_pad": 17, "packed": 1, "im2col16": 6},
      (72, 48, 13)),
 ])
 def test_family_plans(name, routes, int8):

@@ -199,13 +199,13 @@ CSP_CONV_CASES = {
 # conv_bf16_plan must name, a CONV_BF16_CASES-style tuple).  Its 3x3 s1
 # 40->40 conv at 768² (the halo route, a 48-column tile; with the
 # [shortcut] its residual block fuses),
-# a C = 480 residual conv (480 % 64 = 32: the im2col32 route) and the
+# a C = 480 residual conv (480 % 64 = 32: the "im2col_pad" route) and the
 # 340-output logistic head convs at stride 8 and 128.
 LARGE_CONV_CASES = {
     "p7 conv 6 3x3 s1 768² 40->40 mish + shortcut": (
         "halo", (1, 768, 768, 40, 40, 3, 1, "mish", "normal", True)),
     "p7 3x3 s1 48² 480->480 mish + shortcut": (
-        "im2col32", (1, 48, 48, 480, 480, 3, 1, "mish", "normal", True)),
+        "im2col_pad", (1, 48, 48, 480, 480, 3, 1, "mish", "normal", True)),
     "p7 head 1x1 192² 320->340 logistic": (
         "tma", (1, 192, 192, 320, 340, 1, 1, "logistic", "normal", False)),
     "p7 head 1x1 12² 1280->340 logistic": (
@@ -287,14 +287,54 @@ BOX_CONV_CASES = {
 }
 
 
+# K5's "im2col_pad" route (C % 64 == 32, C >= 160: boxes of 64 channels of
+# one tap, ceil(C / 64) a tap, the last one's upper 32 channels TMA's zero
+# fill, W repacked to 64 ceil(C / 64) channels; where O is a multiple of
+# 160, 80-column tiles, the cluster's two CTAs on one M-tile): name -> (the
+# route conv_bf16_plan must name, a CONV_BF16_CASES-style tuple).  The six
+# shapes of yolov4x-mish's and yolov4-p7's C = 160 3x3 convs at batch 1
+# (p7's 48² 480 -> 480 is in LARGE_CONV_CASES); and the edges: an odd
+# M-tile count with tiles across images, C = 352 (six boxes a tap) with a
+# cancelling bias and C = 224 (four) with O = 240 (128-column tiles; an
+# odd count of 80-column ones in _pad_tiles), a 1x1 stride-2 conv (one
+# tap), O <= 64 (a 64-column tile); and C = 96 and yolov3's C = 32 conv,
+# which stay on "im2col32".
+PAD_CONV_CASES = {
+    "x-mish 3x3 s1 80² 160->160 mish + shortcut": (
+        "im2col_pad", (1, 80, 80, 160, 160, 3, 1, "mish", "normal", True)),
+    "x-mish 3x3 s2 160²->80² 160->320 mish": (
+        "im2col_pad", (1, 160, 160, 160, 320, 3, 2, "mish", "normal", False)),
+    "x-mish 3x3 s1 80² 160->320 mish": (
+        "im2col_pad", (1, 80, 80, 160, 320, 3, 1, "mish", "normal", False)),
+    "x-mish 3x3 s2 80²->40² 160->320 mish": (
+        "im2col_pad", (1, 80, 80, 160, 320, 3, 2, "mish", "normal", False)),
+    "p7 3x3 s1 192² 160->160 mish": (
+        "im2col_pad", (1, 192, 192, 160, 160, 3, 1, "mish", "normal", False)),
+    "p7 3x3 s2 384²->192² 160->320 mish": (
+        "im2col_pad", (1, 384, 384, 160, 320, 3, 2, "mish", "normal", False)),
+    "3x3 s1 17² 160->160 mish, odd M-tiles, 2 images": (
+        "im2col_pad", (2, 17, 17, 160, 160, 3, 1, "mish", "normal", False)),
+    "3x3 s2 21² 352->128 leaky cancelling bias": (
+        "im2col_pad", (1, 21, 21, 352, 128, 3, 2, "leaky", "cancel", False)),
+    "3x3 s1 26² 96->160 leaky": ("im2col32", (1, 26, 26, 96, 160, 3, 1, "leaky", "normal", False)),
+    "3x3 s1 13² 224->240 linear + shortcut, 3 images": (
+        "im2col_pad", (3, 13, 13, 224, 240, 3, 1, "linear", "normal", True)),
+    "1x1 s2 26² 160->96 leaky": ("im2col_pad", (1, 26, 26, 160, 96, 1, 2, "leaky", "normal", False)),
+    "3x3 s1 20² 160->64 mish": ("im2col_pad", (1, 20, 20, 160, 64, 3, 1, "mish", "normal", False)),
+    "yolov3 3x3 s2 416²->208² 32->64 leaky": (
+        "im2col32", (1, 416, 416, 32, 64, 3, 2, "leaky", "normal", False)),
+}
+
+
 def conv_bf16_input(name, device="cpu", case=None):
     """(x, w, b, stride, pad, activation, shortcut) of a K5 case (an entry of
-    CONV_BF16_CASES, CSP_CONV_CASES, LARGE_CONV_CASES, V2_CONV_CASES or
-    BOX_CONV_CASES, or ``case``, such an entry's tuple): NHWC bf16 x ~ N(0,
-    1), (O, KH, KW, C) bf16 He-scaled weights, fp32 bias."""
+    CONV_BF16_CASES, CSP_CONV_CASES, LARGE_CONV_CASES, V2_CONV_CASES,
+    BOX_CONV_CASES or PAD_CONV_CASES, or ``case``, such an entry's tuple):
+    NHWC bf16 x ~ N(0, 1), (O, KH, KW, C) bf16 He-scaled weights, fp32
+    bias."""
     n, h, w_, c, o, k, stride, act, bias, shortcut = (
         case or CONV_BF16_CASES.get(name) or CSP_CONV_CASES.get(name)
-        or {**LARGE_CONV_CASES, **V2_CONV_CASES, **BOX_CONV_CASES}[name][1])
+        or {**LARGE_CONV_CASES, **V2_CONV_CASES, **BOX_CONV_CASES, **PAD_CONV_CASES}[name][1])
     rng = np.random.default_rng(sum(map(ord, name)))
     bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # noqa: E731
     x = bf(rng.normal(0, 1, (n, h, w_, c)))
@@ -1228,19 +1268,20 @@ def test_cuda_conv_bf16_matches_plain(cuda, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CSP_CONV_CASES) + list(LARGE_CONV_CASES)
-                         + list(V2_CONV_CASES) + list(BOX_CONV_CASES))
+                         + list(V2_CONV_CASES) + list(BOX_CONV_CASES) + list(PAD_CONV_CASES))
 def test_cuda_conv_bf16_csp_shapes(cuda, name):
     """K5 at the Scaled-YOLOv4 family's new convs (yolov4x-mish's 3->40
     stem and C = 40 / 80 convs at 640² and 320², its C = 80 1x1 conv, the
     logistic heads of both models; yolov4-p7's of
     :data:`LARGE_CONV_CASES`), at the yolov2, yolov2-tiny and yolov3-spp
-    convs of :data:`V2_CONV_CASES` and at the packed and "im2col16" edges
-    of :data:`BOX_CONV_CASES`, each on the route ``conv_bf16_plan`` names,
+    convs of :data:`V2_CONV_CASES`, at the packed and "im2col16" edges
+    of :data:`BOX_CONV_CASES` and at the "im2col_pad" convs of
+    :data:`PAD_CONV_CASES`, each on the route ``conv_bf16_plan`` names,
     against its plain version: the gate of
     :func:`test_cuda_conv_bf16_matches_plain`."""
     x, w, b, stride, pad, act, sc = conv_bf16_input(name, cuda)
     route = tk.conv_bf16_plan(x.shape[-1], w.shape[0], w.shape[1], w.shape[2], stride, pad)[0]
-    routes = {**LARGE_CONV_CASES, **V2_CONV_CASES, **BOX_CONV_CASES}
+    routes = {**LARGE_CONV_CASES, **V2_CONV_CASES, **BOX_CONV_CASES, **PAD_CONV_CASES}
     assert route == (routes[name][0] if name in routes else "tma" if w.shape[1] == 1
                      else "packed" if x.shape[-1] == 3 else "im2col16")
     before = tk.LAUNCHES["conv_bf16"]
@@ -1257,13 +1298,18 @@ def _other_routes():
     """(case, route) pairs of :data:`BOX_CONV_CASES` for the routes the plan
     does not give: the 16-byte gather that the packed, "im2col16" and halo
     routes took these convs from (BN 64 / 128, C padded to 8), and
-    "im2col16" where the plan gives the halo route."""
+    "im2col16" where the plan gives the halo route; and of the "im2col_pad"
+    cases of :data:`PAD_CONV_CASES` and :data:`LARGE_CONV_CASES`, the
+    "im2col32" route they ran on before (32 channels a stage)."""
     pairs = []
     for name, (route, _) in BOX_CONV_CASES.items():
         if route != "gather":
             pairs.append((name, "gather"))
         if route == "halo":
             pairs.append((name, "im2col16"))
+    for name, (route, _) in {**LARGE_CONV_CASES, **PAD_CONV_CASES}.items():
+        if route == "im2col_pad":
+            pairs.append((name, "im2col32"))
     return pairs
 
 
@@ -1271,11 +1317,40 @@ def _other_routes():
 @pytest.mark.parametrize("name,route", _other_routes())
 def test_cuda_conv_bf16_other_routes(cuda, name, route):
     """The routes the plan does not give these convs (``_route``: the
-    gather they left, "im2col16" for a halo conv), still against the
-    plain version: phase 13 of ``chip_smoke.py`` times them in turns with
-    the planned ones."""
+    gather they left, "im2col16" for a halo conv, "im2col32" for an
+    "im2col_pad" conv), still against the plain version: phase 13 of
+    ``chip_smoke.py`` times them in turns with the planned ones."""
     x, w, b, stride, pad, act, sc = conv_bf16_input(name, cuda)
     ours = tk.conv_bf16(x, w, b, stride, pad, act, sc, _route=route)
+    torch.cuda.synchronize()
+    ref = tk.conv_bf16_ref(x, w, b, stride, pad, act, sc)
+    equal, ulps = bf16_agreement(ours, ref, conv_bf16_floor(x, w, b, stride, pad, sc))
+    assert equal >= 0.999 and ulps <= 1, (equal, ulps)
+
+
+def _pad_tiles():
+    """(case, BN) pairs of the "im2col_pad" cases of :data:`PAD_CONV_CASES`
+    and :data:`LARGE_CONV_CASES` for the route's tile that the plan does not
+    give the conv: 64 or 128 columns (one M-tile a CTA, B's halves
+    multicast) or ``CONV_BF16_PAIR_BN`` (the cluster's CTAs on one M-tile,
+    A's halves multicast)."""
+    pairs = []
+    for name, (route, case) in {**LARGE_CONV_CASES, **PAD_CONV_CASES}.items():
+        if route == "im2col_pad":
+            o, k, stride = case[4], case[5], case[6]
+            bn = tk.conv_bf16_plan(case[3], o, k, k, stride, k // 2)[1]
+            pairs += [(name, t) for t in (64 if o <= 64 else 128, tk.CONV_BF16_PAIR_BN) if t != bn]
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,bn", _pad_tiles())
+def test_cuda_conv_bf16_pad_tiles(cuda, name, bn):
+    """The "im2col_pad" route at the tile its plan does not give the conv
+    (``_bn``), against the plain version with the gate of
+    :func:`test_cuda_conv_bf16_matches_plain`."""
+    x, w, b, stride, pad, act, sc = conv_bf16_input(name, cuda)
+    ours = tk.conv_bf16(x, w, b, stride, pad, act, sc, _bn=bn)
     torch.cuda.synchronize()
     ref = tk.conv_bf16_ref(x, w, b, stride, pad, act, sc)
     equal, ulps = bf16_agreement(ours, ref, conv_bf16_floor(x, w, b, stride, pad, sc))

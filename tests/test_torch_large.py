@@ -356,8 +356,8 @@ def test_letterbox_matches_jax(size):
 @pytest.mark.parametrize("name", list(LARGE_CONV_CASES))
 def test_conv_bf16_plain_matches_jax_conv(name):
     """K5's plain version against JAX's ``_conv`` in bf16 at p7's new
-    shapes (the 3x3 s1 40->40 halo-route conv, a C = 480 conv on the im2col32
-    route, the 340-output logistic head convs), each at a reduced spatial
+    shapes (the 3x3 s1 40->40 halo-route conv, a C = 480 conv on the
+    "im2col_pad" route, the 340-output logistic head convs), each at a reduced spatial
     size (24², or 48² before a stride-2 conv)."""
     route, (n, h, w, *rest) = LARGE_CONV_CASES[name]
     side = 48 if rest[3] == 2 else 24
@@ -378,7 +378,7 @@ def test_conv_bf16_plain_matches_jax_conv(name):
 PLANS = {
     "yolov4-p5": ({"tma": 97, "im2col": 63, "im2col32": 2, "packed": 1}, (82, 58, 23, 13), 8),
     "yolov4-p6": ({"tma": 123, "im2col": 79, "im2col32": 2, "packed": 1}, (81, 53, 71, 15), 16),
-    "yolov4-p7": ({"tma": 149, "im2col": 68, "im2col32": 23, "packed": 1, "im2col16": 5,
+    "yolov4-p7": ({"tma": 149, "im2col": 68, "im2col_pad": 23, "packed": 1, "im2col16": 5,
                    "halo": 1}, (73, 45, 129, 15), 32),
 }
 

@@ -7,6 +7,7 @@
     python3 tools/profile_torch_step.py --kernels --root DIR  # K1-K5 of DIR's port
     python3 tools/profile_torch_step.py --k5 --batch 112 128 136  # K5 and cuDNN alone
     python3 tools/profile_torch_step.py --k6 --root DIR       # K6 alone
+    python3 tools/profile_torch_step.py --k5-pad              # K5's "im2col_pad" convs
 
 Runs the configuration of ``chip_smoke.py`` phase 6 (``bf16``: yolov3@416,
 bf16, batch 128, 480x640 uint8 frames on the card, every conv on K5) or
@@ -42,7 +43,15 @@ cuDNN, K5); one JSON line a batch.  ``--k6`` times K6 alone at batch 128
 channel, its two route concats read through, and ``absmax`` with the
 scale), each ``device_ms`` from one CUDA graph, beside
 ``torch.quantize_per_tensor`` (a yardstick: it multiplies by a reciprocal
-and rounds to [-128, 127]); one JSON line.  ``--root`` imports the port from another checkout
+and rounds to [-128, 127]); one JSON line.  ``--k5-pad`` times K5 alone at
+``K5_PAD_SHAPES`` (or the ``--pad-shape`` names given: yolov4x-mish's and
+yolov4-p7's C % 64 == 32 3x3 convs at their paths' batches, and other
+such C), mish, with no detector: the planned route, the "im2col32" route
+(``_route``), the planned route's other tile (``_bn``) and cuDNN's bf16
+conv + bf16 bias + mish, each ``device_ms`` from a CUDA graph in turns
+(forward, then backward), each K5 output's share bit-equal to the plain
+version and the planned one's digest; at the first shape also leaky
+against mish on the planned route; one JSON line.  ``--root`` imports the port from another checkout
 (with ``--mode``, its step), so that one call can run parent, change,
 change, parent:
 
@@ -83,6 +92,7 @@ GROUPS = (("k6_tile_kernel<false", "K6 int8 input quantizer"),
           ("conv_bf16_kernel<2", "K5 bf16 conv (im2col A)"),
           ("conv_bf16_kernel<4", "K5 bf16 conv (im2col A, C = 32)"),
           ("conv_bf16_kernel<5", "K5 bf16 conv (16-channel boxes)"),
+          ("conv_bf16_kernel<7", "K5 bf16 conv (im2col_pad A)"),
           ("conv_bf16_halo", "K5 bf16 conv (halo)"),
           ("conv_bf16_packed", "K5 bf16 conv (packed stem)"),
           ("conv_bf16_kernel<true", "K5 bf16 conv (gather)"),  # before the im2col route
@@ -184,6 +194,78 @@ def time_k5(kernels, dev, batch: int = 128, names=None, library: bool = False) -
             out[name].update(device_ms=(t[0] + t[3]) / 2, library_device_ms=(t[1] + t[2]) / 2)
             del xc, wc, bc
         del x, w, b
+        torch.cuda.empty_cache()
+    return out
+
+
+# K5's "im2col_pad" convs (C % 64 == 32, C > 32): yolov4x-mish@640's at
+# batch 64 and yolov4-p7@1536's at batch 8, and C = 96 / 224 / 288, which
+# no zoo model runs: name -> (batch, H = W, C, O, stride)
+K5_PAD_SHAPES = {"x-mish 80² 160->160": (64, 80, 160, 160, 1),
+                 "x-mish 160²->80² 160->320": (64, 160, 160, 320, 2),
+                 "x-mish 80² 160->320": (64, 80, 160, 320, 1),
+                 "x-mish 80²->40² 160->320": (64, 80, 160, 320, 2),
+                 "p7 192² 160->160": (8, 192, 160, 160, 1),
+                 "p7 384²->192² 160->320": (8, 384, 160, 320, 2),
+                 "p7 48² 480->480": (8, 48, 480, 480, 1),
+                 "104² 96->128": (64, 104, 96, 128, 1),
+                 "52² 96->192": (128, 52, 96, 192, 1),
+                 "40² 224->224": (64, 40, 224, 224, 1),
+                 "26² 288->576": (128, 26, 288, 576, 1)}
+
+
+def time_k5_pad(kernels, dev, names=None) -> dict:
+    """K5 at :data:`K5_PAD_SHAPES` (those of ``names``, else all), mish, N(0,
+    1) inputs and He-scaled weights from a seeded generator on the card:
+    ``device_ms`` of the planned route, ``im2col32_device_ms`` of the
+    "im2col32" route, ``tile_device_ms`` of the planned route's other tile
+    and ``library_device_ms`` of cuDNN's bf16 conv + bf16 bias + mish, from
+    CUDA graphs in turns; ``equal`` and the others' ``*_equal``: the share
+    of outputs bit-equal to the plain version; at the first shape
+    ``leaky_device_ms`` beside ``mish_device_ms`` on the planned route."""
+    F = torch.nn.functional
+    out = {}
+    for j, name in enumerate(names or K5_PAD_SHAPES):
+        batch, h, c, o, stride = K5_PAD_SHAPES[name]
+        g = torch.Generator(device=dev).manual_seed(sum(map(ord, name)))
+        x = torch.randn((batch, h, h, c), device=dev, generator=g).to(torch.bfloat16)
+        w = (torch.randn((o, 3, 3, c), device=dev, generator=g)
+             * (2.0 / (9 * c)) ** 0.5).to(torch.bfloat16)
+        b = torch.randn(o, device=dev, generator=g) * 0.5
+        route, bn, _ = kernels.conv_bf16_plan(c, o, 3, 3, stride, 1)
+        tile = kernels.CONV_BF16_PAIR_BN if bn != kernels.CONV_BF16_PAIR_BN else 128
+        fns = {"": lambda **kw: kernels.conv_bf16(x, w, b, stride, 1, "mish", **kw)}
+        if route == "im2col_pad":
+            fns["im2col32_"] = lambda: fns[""](_route="im2col32")
+            fns["tile_"] = lambda: fns[""](_bn=tile)
+        ref = kernels.conv_bf16_ref(x, w, b, stride, 1, "mish")
+        row = {"plan": [route, bn], "tile": tile if route == "im2col_pad" else None}
+        for key, fn in fns.items():
+            y = fn()
+            row[key + "equal"] = float((y.view(torch.int16) == ref.view(torch.int16))
+                                       .double().mean())
+            if not key:
+                row["digest"] = hashlib.sha1(y.view(torch.int16).cpu().numpy()
+                                             .tobytes()).hexdigest()[:16]
+            del y
+        del ref
+        xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view, as cuDNN would run it
+        wc = w.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        bc = b.to(torch.bfloat16)
+        fns["library_"] = lambda: F.mish(F.conv2d(xc, wc, bc, stride=stride, padding=1),
+                                         inplace=True)
+        order = list(fns)
+        times = {k: [] for k in order}
+        for key in order + order[::-1]:
+            times[key].append(graph_ms(fns[key]))
+        for key, t in times.items():
+            row[key + "device_ms"] = sum(t) / len(t)
+        if j == 0:
+            leaky = lambda: kernels.conv_bf16(x, w, b, stride, 1, "leaky")  # noqa: E731
+            t = [graph_ms(f) for f in (fns[""], leaky, leaky, fns[""])]
+            row.update(mish_device_ms=(t[0] + t[3]) / 2, leaky_device_ms=(t[1] + t[2]) / 2)
+        out[name] = row
+        del x, w, b, xc, wc, bc, fns
         torch.cuda.empty_cache()
     return out
 
@@ -346,6 +428,11 @@ def main() -> None:
                     help="time K5 and cuDNN alone at each --batch (no detector)")
     ap.add_argument("--k6", action="store_true",
                     help="time K6 alone at K6_CASES (no detector)")
+    ap.add_argument("--k5-pad", action="store_true",
+                    help="time K5's \"im2col_pad\" convs beside the \"im2col32\" route, the "
+                    "other tile and cuDNN (no detector)")
+    ap.add_argument("--pad-shape", action="append", choices=tuple(K5_PAD_SHAPES),
+                    help="--k5-pad's shapes (default: all of K5_PAD_SHAPES)")
     ap.add_argument("--batch", type=int, nargs="+", default=[128],
                     help="--k5's batch sizes; the first is --mode's batch")
     ap.add_argument("--model", default="yolov3",
@@ -367,6 +454,13 @@ def main() -> None:
                               "card": torch.cuda.get_device_name(0),
                               "k5": time_k5(kernels, torch.device("cuda", 0), batch, args.shape,
                                             library=True)}, ensure_ascii=False), flush=True)
+        return
+
+    if args.k5_pad:
+        print(json.dumps({"root": args.root, "card": torch.cuda.get_device_name(0),
+                          "k5_pad": time_k5_pad(kernels, torch.device("cuda", 0),
+                                                args.pad_shape)}, ensure_ascii=False),
+              flush=True)
         return
 
     if args.k6:
