@@ -1,0 +1,9 @@
+"""Share (%) of the traced segment's window in which no operation ran on the
+device: 1 - busy / window."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
